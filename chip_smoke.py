@@ -1,0 +1,402 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) once on one NVIDIA card.
+
+  python3 chip_smoke.py
+
+Phases, each printed as one JSON line; any failure raises and exits non-zero:
+
+1. device  -- the card, torch/CUDA versions, ``nvidia-smi`` name and power limit;
+2. build   -- nvcc build of the CUDA kernels from ``src/repro_torch/csrc``,
+              then the first Triton compile, each timed;
+3. kernels -- every hand-written kernel against its plain PyTorch version on the
+              card over the sweep of the CPU tests plus the main path's shapes
+              (f32 2e-5, bf16 2e-2), then timed at the main path's shapes beside
+              its plain version, one PyTorch library call and its bound;
+4. prefill -- ``Model.forward`` at full qwen3-4b width on 2 x 2048 tokens,
+              asserting 36 flash-attention and 145 RMSNorm launches;
+5. serve   -- ``BatchedServer`` at full qwen3-4b width, batch 4, max_len 128,
+              8 requests of 3-9 prompt tokens and 12 new tokens, asserting 8/8
+              done and 145 RMSNorm launches per decode step;
+6. profile -- torch.profiler over one prefill and 3 decode steps: device busy
+              time, idle share and the kernels that take the most device time;
+7. check   -- the model's output against a reference on a small input: the smoke
+              config through the kernels on the card against its plain path on
+              the CPU, and decode against prefill on the card.
+
+Then the card's ``nvidia-smi`` line, the kernels summary and, last,
+``{"ok": true, "device": {...}}``. Weights are random, drawn from seed 0.
+Imports nothing of JAX or of the JAX package ``repro``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+ARCH = "qwen3-4b"
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}  # tests/test_kernels.py
+# At the prefill's flash shape a late row's output is ~0.04 (softmax over ~2048
+# random keys), below the bf16 atol: the error must also be small beside the
+# output's RMS, so that a kernel that drops a kv tile for late rows fails.
+FLASH_MAIN_MAX_ERR_OVER_RMS = 0.1
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f32 outside them
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:35"
+RMSNORM_REPLACES = "src/repro/kernels/fused_rmsnorm.py:21"
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _kernel_events(prof):
+    """The profiler's device-side events (kernels, copies), not the host ops
+    that launched them: summing both would count device time twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> tuple[float, float]:
+    """-> (device ms, events ms) per call of ``fn`` over ``iters`` back-to-back calls.
+
+    Device ms sums the profiler's kernel times: the card's own time for the
+    work. Events ms is CUDA events around the loop; it is larger where the
+    host cannot launch as fast as the card runs (a small Triton launch costs
+    tens of microseconds of Python)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+    events_ms = start.elapsed_time(end) / iters
+    device_ms = sum(e.self_device_time_total for e in _kernel_events(prof)) / 1e3 / iters
+    if device_ms <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return device_ms, events_ms
+
+
+def timed(prefix: str, fn, iters: int) -> dict:
+    device_ms, events_ms = time_ms(fn, iters=iters)
+    return {f"{prefix}ms": device_ms, f"{prefix}events_ms": events_ms}
+
+
+def check_close(name: str, got, want, **case) -> float:
+    """Raise unless ``got`` is within the dtype's tolerance of ``want``; -> max abs error."""
+    tol = TOL[str(got.dtype).removeprefix("torch.")]
+    err = (got.float() - want.float()).abs()
+    bad = int((err > tol["atol"] + tol["rtol"] * want.float().abs()).sum())
+    max_err = float(err.max())
+    if bad or not math.isfinite(max_err):
+        raise AssertionError(f"{name} {case}: {bad} elements out of tolerance {tol}, max abs error {max_err}")
+    return max_err
+
+
+def bound_ms(bytes_moved: float, ops: float, dtype: str) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_sweep(torch, ops, ref, dev) -> tuple[float, int]:
+    """tests/test_kernels.py's flash sweep plus gemma's D=256 MQA and the smoke head dims."""
+    cases = [
+        (1, 128, 128, 2, 2, 64, None), (2, 256, 256, 4, 1, 64, None), (1, 384, 384, 4, 2, 128, None),
+        (1, 100, 100, 2, 2, 64, None), (1, 128, 256, 2, 2, 64, None), (1, 256, 256, 2, 2, 64, 16),
+        (1, 256, 256, 2, 2, 64, 64), (1, 256, 256, 2, 2, 64, 1024), (1, 128, 128, 8, 1, 256, None),
+        (2, 64, 64, 4, 2, 16, None), (2, 40, 40, 6, 2, 8, None),
+    ]
+    g = torch.Generator(device=dev).manual_seed(1)
+    worst, n = 0.0, 0
+    for B, S, T, Hq, Hkv, D, window in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, S, Hq, D), generator=g, device=dev).to(dtype)
+            k, v = (torch.randn((B, T, Hkv, D), generator=g, device=dev).to(dtype) for _ in range(2))
+            for causal in (True, False):
+                got = ops.flash_attention(q, k, v, causal=causal, window=window)
+                want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                         causal=causal, window=window).transpose(1, 2)
+                case = dict(B=B, S=S, T=T, Hq=Hq, Hkv=Hkv, D=D, window=window, causal=causal, dtype=str(dtype))
+                worst = max(worst, check_close("flash_attention", got, want, **case))
+                n += 1
+    return worst, n
+
+
+def rmsnorm_sweep(torch, ops, ref, dev) -> tuple[float, int]:
+    g = torch.Generator(device=dev).manual_seed(2)
+    worst, n = 0.0, 0
+    for shape in [(4, 128), (2, 7, 256), (1, 1000, 512), (4, 2560), (128, 128), (32, 128)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            s = torch.randn(shape[-1], generator=g, device=dev) * 0.1
+            worst = max(worst, check_close("fused_rmsnorm", ops.fused_rmsnorm(x, s), ref.rmsnorm_ref(x, s),
+                                           shape=shape, dtype=str(dtype)))
+            n += 1
+    return worst, n
+
+
+def time_flash(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
+    """The prefill's attention call: B x S tokens, causal, no window, bf16."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((B, S, Hq, D), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16() for _ in range(2))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    want = ref.attention_ref(qt, kt, vt).transpose(1, 2)
+    err = check_close("flash_attention", ops.flash_attention(q, k, v), want, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D)
+    rms = float(want.float().square().mean().sqrt())
+    if not err < FLASH_MAIN_MAX_ERR_OVER_RMS * rms:
+        raise AssertionError(f"flash_attention at the prefill shape: max abs error {err} against output RMS {rms}")
+    pairs = S * (S + 1) // 2  # causal (q, k) pairs each (b, head) computes
+    flops = 4 * B * Hq * D * pairs
+    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)  # q, o + k, v in bf16
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    return {
+        "shape": f"q {B}x{S}x{Hq}x{D}, k/v {B}x{S}x{Hkv}x{D}, bf16, causal",
+        "max_abs_err": err, "output_rms": rms,
+        **timed("", lambda: ops.flash_attention(q, k, v), 10),
+        **timed("plain_", lambda: ref.attention_ref(qt, kt, vt), 3),
+        **timed("library_", lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+        "library_call": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+        "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes,
+    }
+
+
+def time_rmsnorm(torch, F, ops, ref, dev, rows: int, D: int, dtype) -> dict:
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((rows, D), generator=g, device=dev).to(dtype)
+    s = torch.randn(D, generator=g, device=dev) * 0.1
+    w = (1.0 + s).to(dtype)
+    err = check_close("fused_rmsnorm", ops.fused_rmsnorm(x, s), ref.rmsnorm_ref(x, s), rows=rows, D=D)
+    name = str(dtype).removeprefix("torch.")
+    nbytes = 2 * rows * D * x.element_size() + 4 * D  # x read, y written, scale read
+    bms, by = bound_ms(nbytes, 4 * rows * D, "float32")  # x*x, sum, *rsqrt, *(1+scale) in f32
+    return {
+        "shape": f"{rows}x{D} {name}",
+        "max_abs_err": err,
+        **timed("", lambda: ops.fused_rmsnorm(x, s), 50),
+        **timed("plain_", lambda: ref.rmsnorm_ref(x, s), 50),
+        **timed("library_", lambda: F.rms_norm(x, (D,), weight=w, eps=1e-6), 50),
+        "library_call": "F.rms_norm(weight=1+scale)",
+        "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+    }
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the port on an NVIDIA card", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} not found; run from a checkout of the repo", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch.serve import BatchedServer, make_requests
+    from repro_torch.models import Model
+    from repro_torch.models.modules import tree_map_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    emit("device", kind=kind, count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
+         nvidia_smi=smi)
+
+    # -- build: nvcc (one process per source), then the first Triton compile ----
+    t0 = time.perf_counter()
+    build.build(["flash_attention"])
+    nvcc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops.fused_rmsnorm(torch.ones((4, 2560), device=dev, dtype=torch.bfloat16), torch.zeros(2560, device=dev))
+    torch.cuda.synchronize()
+    triton_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in build.library_path("flash_attention").with_suffix(".log").read_text().splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit("build", nvcc_s=nvcc_s, first_triton_compile_s=triton_s, ptxas=ptxas)
+
+    # -- kernels against their plain versions, then timed --------------------
+    cfg = get_config(ARCH)
+    flash_err, flash_cases = flash_sweep(torch, ops, ref, dev)
+    norm_err, norm_cases = rmsnorm_sweep(torch, ops, ref, dev)
+    emit("kernels_sweep", flash_cases=flash_cases, flash_max_abs_err=flash_err,
+         rmsnorm_cases=norm_cases, rmsnorm_max_abs_err=norm_err)
+    B, S = 2, 2048
+    timing = {"flash_attention": [time_flash(torch, F, ops, ref, dev, cfg, B, S)]}
+    timing["fused_rmsnorm"] = [
+        time_rmsnorm(torch, F, ops, ref, dev, B * S, cfg.d_model, torch.bfloat16),  # norm1, final_norm
+        time_rmsnorm(torch, F, ops, ref, dev, B * S, cfg.d_model, torch.float32),  # norm2 on the f32 residual sum
+        time_rmsnorm(torch, F, ops, ref, dev, B * S * cfg.n_heads, cfg.head_dim, torch.bfloat16),  # q_norm
+        time_rmsnorm(torch, F, ops, ref, dev, B * S * cfg.n_kv_heads, cfg.head_dim, torch.bfloat16),  # k_norm
+    ]
+    for name, rows in timing.items():
+        for row in rows:
+            emit("kernel_timing", name=name, **row)
+    sweep_err = {"flash_attention": flash_err, "fused_rmsnorm": norm_err}
+    torch.cuda.empty_cache()
+
+    # -- prefill: Model.forward at full width ------------------------------------
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    server = BatchedServer(model, batch=4, max_len=128, seed=0)  # draws the weights once for both phases
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = server.params
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (B, S))).to(dev)
+    t0 = time.perf_counter()
+    model.forward(params, {"tokens": tokens})  # compiles the Triton kernel for the prefill's shapes
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite = bool(torch.isfinite(logits.float()).all())
+    emit("prefill", arch=ARCH, n_params=cfg.n_params(), batch=B, seq=S, logits_shape=list(logits.shape),
+         finite=finite, init_s=init_s, first_call_ms=first_ms, wall_ms=prefill_ms,
+         tokens_per_s=B * S / (prefill_ms / 1e3), peak_memory_gb=peak_gb, launches=prefill_counts)
+    if not finite or tuple(logits.shape) != (B, S, cfg.vocab):
+        raise AssertionError(f"prefill logits: shape {tuple(logits.shape)}, finite {finite}")
+    norms_per_pass = cfg.n_layers * 4 + 1
+    if prefill_counts != {"flash_attention": cfg.n_layers, "fused_rmsnorm": norms_per_pass}:
+        raise AssertionError(f"prefill launches {prefill_counts}, expected {cfg.n_layers} and {norms_per_pass}")
+    del logits
+    torch.cuda.empty_cache()
+
+    # -- serve: BatchedServer at full width -------------------------------------------
+    warm_state = model.init_decode_state(4, 128)  # compiles the decode shapes' Triton kernels
+    model.decode_step(params, {"tokens": torch.zeros((4, 1), dtype=torch.int64, device=dev)}, warm_state, 0)
+    del warm_state
+    torch.cuda.synchronize()
+    reqs = make_requests(cfg.vocab, 8, 12)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    stats = server.run(reqs)
+    serve_counts = ops.launch_counts()
+    new_tokens = sum(len(r.out) for r in reqs)
+    emit("serve", arch=ARCH, batch=4, max_len=128, requests=len(reqs), requests_done=stats["requests_done"],
+         decode_steps=stats["decode_steps"], wall_s=stats["wall_s"], new_tokens=new_tokens,
+         tokens_per_s=new_tokens / stats["wall_s"], mean_step_ms=stats["metrics"]["mean_step_s"] * 1e3,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=serve_counts)
+    if stats["requests_done"] != len(reqs):
+        raise AssertionError(f"served {stats['requests_done']} of {len(reqs)} requests")
+    if serve_counts != {"flash_attention": 0, "fused_rmsnorm": norms_per_pass * stats["decode_steps"]}:
+        raise AssertionError(f"serve launches {serve_counts}, expected {norms_per_pass} per decode step")
+    emit("profile", **profile_phase(torch, model, params, tokens, dev))
+    del server, params
+    torch.cuda.empty_cache()
+
+    # -- check: kernel path vs plain path, and decode vs prefill, at smoke size -------------
+    emit("check", **smoke_check(torch, get_config, Model, tree_map_with_path, dev))
+
+    launches = {k: prefill_counts[k] + serve_counts[k] for k in prefill_counts}
+    source = {"flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu", FLASH_REPLACES),
+              "fused_rmsnorm": ("triton", "src/repro_torch/kernels/fused_rmsnorm.py", RMSNORM_REPLACES)}
+    summary = []
+    for name, rows in timing.items():
+        main_row = rows[0]
+        route, src, replaces = source[name]
+        summary.append({
+            "name": name, "route": route, "source": src, "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(sweep_err[name], *(r["max_abs_err"] for r in rows)),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"], "shape": main_row["shape"],
+            "events_ms": main_row["events_ms"],
+        })
+    print(smi, flush=True)
+    print(json.dumps({"kernels": summary}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def profile_phase(torch, model, params, tokens, dev) -> dict:
+    """torch.profiler over one prefill forward and over 3 decode steps at batch
+    4: device busy time (sum of kernel self times; one stream, so no overlap),
+    the idle share of the synchronised wall time, and the kernels that take
+    the most device time. The profiler's own host cost inflates the wall time,
+    so the idle share is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = model.init_decode_state(4, 128)
+    step_tokens = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+
+    def decode_steps():
+        for i in range(3):
+            model.decode_step(params, {"tokens": step_tokens}, state, i)
+
+    out = {}
+    for name, fn in (("prefill", lambda: model.forward(params, {"tokens": tokens})), ("decode_3_steps", decode_steps)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = _kernel_events(prof)
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        out[name] = {
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": (1 - busy_ms / wall_ms) if busy_ms else "not measured",
+            "kernel_launches": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:80], "count": e.count, "device_ms": e.self_device_time_total / 1e3} for e in top],
+        }
+    return out
+
+
+def smoke_check(torch, get_config, Model, tree_map_with_path, dev) -> dict:
+    """The smoke config through the kernels on the card vs the plain versions
+    on the CPU (same weights and tokens), and decode vs prefill on the card.
+    Bound 0.1 for both, as the CPU tests' decode/prefill bound."""
+    import numpy as np
+
+    cfg = get_config(ARCH, smoke=True)
+    gpu, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
+    params = gpu.init(torch.Generator(device=dev).manual_seed(0))
+    params_cpu = tree_map_with_path(lambda _, a: a.cpu(), params)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (1, 8)))
+    fwd, _ = gpu.forward(params, {"tokens": toks.to(dev)})
+    fwd_cpu, _ = cpu.forward(params_cpu, {"tokens": toks})
+    card_vs_cpu = float((fwd.cpu().float() - fwd_cpu.float()).abs().max())
+    state, gaps = gpu.init_decode_state(1, 32), []
+    for t in range(toks.shape[1]):
+        logits, state = gpu.decode_step(params, {"tokens": toks[:, t : t + 1].to(dev)}, state, t)
+        gaps.append(float((logits[0] - fwd[0, t]).abs().max()))
+    out = {"arch": cfg.name, "card_vs_cpu_max_abs": card_vs_cpu, "decode_vs_prefill_max_abs": max(gaps), "bound": 0.1}
+    if not card_vs_cpu < 0.1 or not max(gaps) < 0.1:
+        raise AssertionError(f"smoke check out of bound: {out}")
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,47 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+They compute what the kernels compute, in the layouts the kernels take. The
+wrappers in ``ops.py`` call them for CPU tensors, the CPU tests hold them
+against the JAX package, and ``chip_smoke.py`` holds each kernel against
+them on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def attention_ref(
+    q: torch.Tensor,  # (B, Hq, S, D)
+    k: torch.Tensor,  # (B, Hkv, T, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> torch.Tensor:
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, S, D).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, kf) / math.sqrt(D)
+    q_idx = torch.arange(S, device=q.device)[:, None]
+    k_idx = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_idx <= q_idx
+    if window is not None:
+        mask &= (q_idx - k_idx) < window
+    s = s.masked_fill(~mask, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,bktd->bkgsd", p, vf)
+    return o.reshape(B, Hq, S, D).to(q.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)

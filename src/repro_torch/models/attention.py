@@ -1,0 +1,112 @@
+"""Attention: GQA/MQA with RoPE, qk-norm, sliding windows, KV cache.
+
+Prefill always runs the flash-attention kernel through ``ops.flash_attention``
+(its plain version for CPU tensors). Decode is plain PyTorch, as the JAX
+package's decode is plain jnp, and rounds where it rounds: scores and the
+softmax probabilities pass through bf16.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ops
+
+from .modules import ArraySpec, apply_rope, rms_norm, rms_norm_spec
+
+NEG_INF = -2.0e38
+
+
+def attention_spec(cfg) -> dict:
+    hd = cfg.head_dim
+    spec = {
+        "wq": ArraySpec((cfg.d_model, cfg.n_heads, hd), ("embed", "q_heads", "head")),
+        "wk": ArraySpec((cfg.d_model, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head")),
+        "wv": ArraySpec((cfg.d_model, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head")),
+        "wo": ArraySpec((cfg.n_heads, hd, cfg.d_model), ("q_heads", "head", "embed")),
+    }
+    if cfg.qk_norm:
+        spec["q_norm"] = rms_norm_spec(hd, "head")
+        spec["k_norm"] = rms_norm_spec(hd, "head")
+    return spec
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul; the result is contiguous."""
+    B, S, _ = x.shape
+    d, H, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, H * k)).view(B, S, H, k)
+
+
+def _project_qkv(params, x: torch.Tensor, cfg, positions: torch.Tensor):
+    if cfg.mrope:
+        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: ROADMAP Queue 1 item 13")
+    q = _proj(x, params["wq"])
+    k = _proj(x, params["wk"])
+    v = _proj(x, params["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(params["q_norm"], q)
+        k = rms_norm(params["k_norm"], k)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul."""
+    B, S, H, k = o.shape
+    return o.reshape(B, S, H * k) @ wo.to(o.dtype).reshape(H * k, -1)
+
+
+def attention(params, x: torch.Tensor, cfg, positions: torch.Tensor, *, window: int | None = None) -> torch.Tensor:
+    """Prefill self-attention. x: (B,S,D) -> (B,S,D)."""
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    o = ops.flash_attention(q, k, v, causal=True, window=window)
+    return _out_proj(o, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Decode path (one new token against a KV cache)
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, device, dtype=torch.bfloat16) -> dict:
+    # Windowed attention only caches its window (sub-quadratic decode).
+    L = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (batch, L, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(params, x: torch.Tensor, cache: dict, pos: int, cfg, *, window: int | None = None):
+    """One-token decode. x: (B,1,D); pos: current position.
+
+    Returns (y, cache). The cache is updated in place (the JAX package
+    donates it instead); it ring-buffers over the window for windowed
+    attention and is max_len long for full attention.
+    """
+    B = x.shape[0]
+    L = cache["k"].shape[1]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    slot = pos % L if window else min(pos, L - 1)
+    k, v = cache["k"], cache["v"]
+    k[:, slot] = k_new[:, 0].to(k.dtype)
+    v[:, slot] = v_new[:, 0].to(v.dtype)
+    Hq, D = q.shape[2], q.shape[3]
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.to(q.dtype)).float()
+    s *= 1.0 / math.sqrt(D)
+    t_idx = torch.arange(L, device=x.device)
+    if window:
+        # Ring buffer: valid slots are the last `window` positions.
+        age = torch.remainder(pos - t_idx, L)
+        valid = (age >= 0) & (age < min(pos + 1, L))
+    else:
+        valid = t_idx <= pos
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgt,btkd->bkgd", p, v.to(q.dtype)).reshape(B, 1, Hq, D)
+    return _out_proj(o, params["wo"]), cache

@@ -1,0 +1,113 @@
+"""Top-level Model API: spec / init / forward / decode.
+
+``Model`` is the entry point the server, ``chip_smoke.py`` and the tests
+share. Activations are bf16, as in the JAX package. A model lives on one
+device, ``cuda`` unless the caller asks for the CPU: on the card every norm
+and the prefill attention run the hand-written kernels, on the CPU their
+plain versions.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+from . import transformer as tfm
+from .modules import (
+    dtype_const,
+    embed,
+    embedding_spec,
+    init_params,
+    lm_head,
+    lm_head_spec,
+    param_count,
+    rms_norm,
+    rms_norm_spec,
+    unembed,
+)
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The device an entry point runs on; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run the plain versions on the CPU")
+    return dev
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, *, device: str | torch.device = "cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # -- parameters -----------------------------------------------------------
+
+    def spec(self) -> dict:
+        cfg = self.cfg
+        if cfg.input_mode != "tokens":
+            raise NotImplementedError("embeddings input (vlm/audio) is not ported yet: ROADMAP Queue 1 item 13")
+        spec: dict[str, Any] = {"embed": embedding_spec(cfg.vocab, cfg.d_model)}
+        spec["layers"] = tfm.stack_spec(cfg)
+        spec["final_norm"] = rms_norm_spec(cfg.d_model)
+        if not cfg.tied_embeddings:
+            spec["lm_head"] = lm_head_spec(cfg.vocab, cfg.d_model)
+        return spec
+
+    def init(self, generator: torch.Generator | None = None) -> dict:
+        """Random parameters on the model's device (seed 0 unless a generator
+        on that device is given)."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on {self.device}")
+        return init_params(self.spec(), generator)
+
+    @property
+    def n_params(self) -> int:
+        return param_count(self.spec())
+
+    # -- forward ----------------------------------------------------------------
+
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        x = embed(params["embed"], tokens).to(torch.bfloat16)
+        if self.cfg.tied_embeddings:
+            # gemma convention; JAX rounds the constant to bf16 first
+            x = x * dtype_const(math.sqrt(self.cfg.d_model), x.dtype)
+        return x
+
+    def logits_fn(self, params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        logits = unembed(params["embed"], x) if cfg.tied_embeddings else lm_head(params["lm_head"], x)
+        if cfg.logit_softcap:
+            logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+        return logits
+
+    @torch.inference_mode()
+    def forward(self, params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (logits (B,S,V), load-balance loss (0: no MoE in this slice))."""
+        x = self._embed(params, batch["tokens"])
+        positions = batch.get("positions")
+        if positions is None:
+            B, S = x.shape[:2]
+            positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+        x = tfm.stack_apply(params["layers"], x, self.cfg, positions)
+        x = rms_norm(params["final_norm"], x)
+        return self.logits_fn(params, x), torch.zeros((), device=x.device)
+
+    # -- decode -------------------------------------------------------------------
+
+    def init_decode_state(self, batch: int, max_len: int) -> dict:
+        return tfm.stack_state(self.cfg, batch, max_len, self.device)
+
+    @torch.inference_mode()
+    def decode_step(self, params, batch: dict, state: dict, pos: int) -> tuple[torch.Tensor, dict]:
+        """One new token for every sequence. batch: {'tokens': (B,1)}; pos: int.
+        -> (logits (B,V), state), the state's caches updated in place."""
+        x = self._embed(params, batch["tokens"])
+        x, state = tfm.stack_decode(params["layers"], x, state, pos, self.cfg)
+        x = rms_norm(params["final_norm"], x)
+        return self.logits_fn(params, x)[:, 0], state

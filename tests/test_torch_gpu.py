@@ -1,0 +1,119 @@
+"""The port on the card (``-m gpu``): each hand-written kernel against its
+plain version, and the smoke model's kernel path against its plain path on
+the CPU. Skips where there is no CUDA card; imports no JAX, so it runs on a
+machine that has none."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops
+from repro_torch.launch.serve import BatchedServer, make_requests
+from repro_torch.models import Model
+from repro_torch.models.modules import tree_map_with_path
+
+# tests/test_kernels.py's tolerances
+TOL = {"f32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
+TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+FLASH_CASES = [
+    (1, 128, 128, 2, 2, 64, None),   # MHA, single block
+    (2, 256, 256, 4, 1, 64, None),   # MQA, multi-block
+    (1, 384, 384, 4, 2, 128, None),  # GQA, non-square block count
+    (1, 100, 100, 2, 2, 64, None),   # ragged
+    (1, 128, 256, 2, 2, 64, None),   # cross: kv longer than q
+    (1, 256, 256, 2, 2, 64, 16),     # sliding windows
+    (1, 256, 256, 2, 2, 64, 64),
+    (1, 256, 256, 2, 2, 64, 1024),
+    (1, 128, 128, 8, 1, 256, None),  # gemma: MQA, D = 256
+    (2, 64, 64, 4, 2, 16, None),     # smoke head dims
+    (2, 40, 40, 6, 2, 8, None),
+]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,window", FLASH_CASES)
+def test_flash_kernel_vs_plain(card, B, S, T, Hq, Hkv, D, window, dtype):
+    g = torch.Generator(device=card).manual_seed(7)
+    q = torch.randn((B, S, Hq, D), generator=g, device=card).to(TDT[dtype])
+    k, v = (torch.randn((B, T, Hkv, D), generator=g, device=card).to(TDT[dtype]) for _ in range(2))
+    for causal in (True, False):
+        before = ops.FLASH_ATTENTION_LAUNCHES
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert ops.FLASH_ATTENTION_LAUNCHES == before + 1
+        want = ops.ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                     causal=causal, window=window).transpose(1, 2)
+        _close(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_reads_strided_inputs(card):
+    """q/k/v as views of a fused qkv projection: strides, no copy."""
+    g = torch.Generator(device=card).manual_seed(8)
+    qkv = torch.randn((2, 96, 4 + 2 + 2, 64), generator=g, device=card).bfloat16()
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = ops.flash_attention(q, k, v)
+    want = ops.ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+    _close(got, want, "bf16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 128), (2, 7, 256), (1, 1000, 512), (64, 2560), (300, 16), (5, 3000)])
+def test_rmsnorm_kernel_vs_plain(card, shape, dtype):
+    g = torch.Generator(device=card).manual_seed(9)
+    x = torch.randn(shape, generator=g, device=card).to(TDT[dtype])
+    s = torch.randn(shape[-1], generator=g, device=card) * 0.1
+    before = ops.FUSED_RMSNORM_LAUNCHES
+    got = ops.fused_rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert ops.FUSED_RMSNORM_LAUNCHES == before + 1
+    _close(got, ops.ref.rmsnorm_ref(x, s), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b"])
+def test_smoke_model_kernel_path_vs_plain_path(card, arch):
+    """The same weights and tokens through the kernels on the card and the
+    plain versions on the CPU. The bound is the decode/prefill one of the
+    CPU tests (0.1): matrix products differ in summation order between the
+    card and the CPU."""
+    cfg = get_config(arch, smoke=True)
+    gpu, cpu = Model(cfg, device=card), Model(cfg, device="cpu")
+    params = gpu.init(torch.Generator(device=card).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 32)))
+    ops.reset_launch_counts()
+    got, _ = gpu.forward(params, {"tokens": tokens.to(card)})
+    assert ops.launch_counts() == {
+        "flash_attention": cfg.n_layers,
+        "fused_rmsnorm": cfg.n_layers * (4 if cfg.qk_norm else 2) + 1,
+    }
+    want, _ = cpu.forward(tree_map_with_path(lambda _, a: a.cpu(), params), {"tokens": tokens})
+    err = float((got.cpu().float() - want.float()).abs().max())
+    assert err < 0.1, err
+
+
+@pytest.mark.gpu
+def test_smoke_server_on_card_launches_the_norm_kernel(card):
+    cfg = get_config("qwen3-4b", smoke=True)
+    server = BatchedServer(Model(cfg, device=card), batch=3, max_len=64)
+    ops.reset_launch_counts()
+    stats = server.run(make_requests(cfg.vocab, 6, 4))
+    assert stats["requests_done"] == 6
+    assert ops.launch_counts() == {"flash_attention": 0, "fused_rmsnorm": (4 * cfg.n_layers + 1) * stats["decode_steps"]}
