@@ -6,26 +6,40 @@
 Phases, each printed as one JSON line; any failure raises and exits non-zero:
 
 1. device  -- the card, torch/CUDA versions, ``nvidia-smi`` name and power limit;
-2. build   -- nvcc build of the CUDA kernels from ``src/repro_torch/csrc``,
-              then the first Triton compile, each timed;
+2. build   -- nvcc build of the CUDA kernels from ``src/repro_torch/csrc`` (one
+              nvcc per source, all at once), then the first Triton compile, each
+              timed;
 3. kernels -- every hand-written kernel against its plain PyTorch version on the
-              card over the sweep of the CPU tests plus the main path's shapes
-              (f32 2e-5, bf16 2e-2), then timed at the main path's shapes beside
-              its plain version, one PyTorch library call and its bound;
-4. prefill -- ``Model.forward`` at full qwen3-4b width on 2 x 2048 tokens,
-              asserting 36 flash-attention and 145 RMSNorm launches;
-5. serve   -- ``BatchedServer`` at full qwen3-4b width, batch 4, max_len 128,
-              8 requests of 3-9 prompt tokens and 12 new tokens, asserting 8/8
-              done and 145 RMSNorm launches per decode step;
+              card over the sweep of the CPU tests plus the main paths' shapes
+              (f32 2e-5, bf16 2e-2), then timed at the main paths' shapes beside
+              its plain version, one PyTorch library call (where one exists) and
+              its bound;
+
+then two paths, each through the entry points a user calls, with random weights
+drawn from seed 0, the first freed before the second:
+
+  qwen3-4b (dense decoder; flash attention and RMSNorm):
+4. prefill -- ``Model.forward`` at full width on 2 x 2048 tokens, asserting 36
+              flash-attention and 145 RMSNorm launches;
+5. serve   -- ``BatchedServer``, batch 4, max_len 128, 8 requests of 3-9 prompt
+              tokens and 12 new tokens, asserting 8/8 done and 145 RMSNorm
+              launches per decode step;
 6. profile -- torch.profiler over one prefill and 3 decode steps: device busy
               time, idle share and the kernels that take the most device time;
 7. check   -- the model's output against a reference on a small input: the smoke
-              config through the kernels on the card against its plain path on
-              the CPU, and decode against prefill on the card.
+              config's prefill and decode through the kernels on the card
+              against its plain path on the CPU, and the card's decode-vs-
+              prefill gap against the CPU's;
+
+  recurrentgemma-9b (hybrid: RG-LRU scan, windowed MQA at head dim 256):
+4-7 again, prefill on 2 x 4096 tokens (the window of 2048 binds) asserting 12
+flash-attention, 77 RMSNorm and 26 RG-LRU scan launches, serve asserting 77
+RMSNorm launches per decode step, and the check over 12 tokens, past the smoke
+window of 8.
 
 Then the card's ``nvidia-smi`` line, the kernels summary and, last,
-``{"ok": true, "device": {...}}``. Weights are random, drawn from seed 0.
-Imports nothing of JAX or of the JAX package ``repro``.
+``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX package
+``repro``.
 """
 
 from __future__ import annotations
@@ -38,16 +52,29 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-ARCH = "qwen3-4b"
+# Each path: its prefill shape and the kernel launches its prefill and each
+# decode step must make.
+PATHS = {
+    "qwen3-4b": dict(B=2, S=2048, check_tokens=8,
+                     prefill={"flash_attention": 36, "fused_rmsnorm": 145, "rglru_scan": 0},
+                     per_step={"flash_attention": 0, "fused_rmsnorm": 145, "rglru_scan": 0}),
+    "recurrentgemma-9b": dict(B=2, S=4096, check_tokens=12,
+                              prefill={"flash_attention": 12, "fused_rmsnorm": 77, "rglru_scan": 26},
+                              per_step={"flash_attention": 0, "fused_rmsnorm": 77, "rglru_scan": 0}),
+}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}  # tests/test_kernels.py
 # At the prefill's flash shape a late row's output is ~0.04 (softmax over ~2048
 # random keys), below the bf16 atol: the error must also be small beside the
 # output's RMS, so that a kernel that drops a kv tile for late rows fails.
 FLASH_MAIN_MAX_ERR_OVER_RMS = 0.1
+DECODE_CARD_VS_CPU = 2e-2  # the kernels' bf16 atol: decode's logits, card against the CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f32 outside them
-FLASH_REPLACES = "src/repro/kernels/flash_attention.py:35"
-RMSNORM_REPLACES = "src/repro/kernels/fused_rmsnorm.py:21"
+SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
+    "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:35"),
+    "fused_rmsnorm": ("triton", "src/repro_torch/kernels/fused_rmsnorm.py", "src/repro/kernels/fused_rmsnorm.py:21"),
+    "rglru_scan": ("cuda", "src/repro_torch/csrc/rglru_scan.cu", "src/repro/kernels/rglru_scan.py:33"),
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -70,31 +97,35 @@ def _kernel_events(prof):
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> tuple[float, float]:
+def time_ms(fn, iters: int = 10, warmup: int = 2, sessions: int = 5) -> tuple[float, float]:
     """-> (device ms, events ms) per call of ``fn`` over ``iters`` back-to-back calls.
 
     Device ms sums the profiler's kernel times: the card's own time for the
     work. Events ms is CUDA events around the loop; it is larger where the
     host cannot launch as fast as the card runs (a small Triton launch costs
-    tens of microseconds of Python)."""
+    tens of microseconds of Python). The profiler on the card's machine now
+    and then records no device events for a session, or fewer kernels than
+    ``fn`` was called (every call launches at least one); the loop is then
+    profiled again, and after ``sessions`` such sessions this raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-    events_ms = start.elapsed_time(end) / iters
-    device_ms = sum(e.self_device_time_total for e in _kernel_events(prof)) / 1e3 / iters
-    if device_ms <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return device_ms, events_ms
+    for _ in range(sessions):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+        kernels = _kernel_events(prof)
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+        if device_ms > 0 and sum(e.count for e in kernels) >= iters:
+            return device_ms, start.elapsed_time(end) / iters
+    raise RuntimeError(f"the profiler recorded too few kernels in {sessions} sessions of {iters} calls")
 
 
 def timed(prefix: str, fn, iters: int) -> dict:
@@ -119,12 +150,13 @@ def bound_ms(bytes_moved: float, ops: float, dtype: str) -> tuple[float, str]:
 
 
 def flash_sweep(torch, ops, ref, dev) -> tuple[float, int]:
-    """tests/test_kernels.py's flash sweep plus gemma's D=256 MQA and the smoke head dims."""
+    """tests/test_kernels.py's flash sweep plus gemma's D=256 MQA, recurrentgemma's
+    windowed D=256 MQA and the smoke head dims."""
     cases = [
         (1, 128, 128, 2, 2, 64, None), (2, 256, 256, 4, 1, 64, None), (1, 384, 384, 4, 2, 128, None),
         (1, 100, 100, 2, 2, 64, None), (1, 128, 256, 2, 2, 64, None), (1, 256, 256, 2, 2, 64, 16),
         (1, 256, 256, 2, 2, 64, 64), (1, 256, 256, 2, 2, 64, 1024), (1, 128, 128, 8, 1, 256, None),
-        (2, 64, 64, 4, 2, 16, None), (2, 40, 40, 6, 2, 8, None),
+        (1, 384, 384, 4, 1, 256, 128), (2, 64, 64, 4, 2, 16, None), (2, 40, 40, 6, 2, 8, None),
     ]
     g = torch.Generator(device=dev).manual_seed(1)
     worst, n = 0.0, 0
@@ -155,30 +187,79 @@ def rmsnorm_sweep(torch, ops, ref, dev) -> tuple[float, int]:
     return worst, n
 
 
+def rglru_sweep(torch, ops, ref, dev) -> tuple[float, int]:
+    """tests/test_kernels.py's RG-LRU sweep, a ragged shape, and the running count
+    (a = b = 1: h_t = t + 1, exact in f32)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst, n = 0.0, 0
+    for shape in [(1, 128, 512), (2, 256, 512), (1, 200, 300), (1, 512, 128), (3, 37, 70)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.sigmoid(torch.randn(shape, generator=g, device=dev)).to(dtype)
+            b = torch.randn(shape, generator=g, device=dev).to(dtype)
+            worst = max(worst, check_close("rglru_scan", ops.rglru_scan(a, b), ref.rglru_ref(a, b),
+                                           shape=shape, dtype=str(dtype)))
+            n += 1
+    ones = torch.ones((1, 256, 128), device=dev)
+    count = torch.arange(1, 257, dtype=torch.float32, device=dev)[None, :, None].expand(1, 256, 128)
+    if not torch.equal(ops.rglru_scan(ones, ones), count):
+        raise AssertionError("rglru_scan: the running count a = b = 1 is not exact")
+    return worst, n + 1
+
+
 def time_flash(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
-    """The prefill's attention call: B x S tokens, causal, no window, bf16."""
+    """The prefill's attention call: B x S tokens, causal, the config's window, bf16."""
     g = torch.Generator(device=dev).manual_seed(3)
-    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Hq, Hkv, D, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
     q = torch.randn((B, S, Hq, D), generator=g, device=dev).bfloat16()
     k, v = (torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16() for _ in range(2))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    want = ref.attention_ref(qt, kt, vt).transpose(1, 2)
-    err = check_close("flash_attention", ops.flash_attention(q, k, v), want, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D)
+    want = ref.attention_ref(qt, kt, vt, window=window).transpose(1, 2)
+    err = check_close("flash_attention", ops.flash_attention(q, k, v, window=window), want,
+                      B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window)
     rms = float(want.float().square().mean().sqrt())
     if not err < FLASH_MAIN_MAX_ERR_OVER_RMS * rms:
         raise AssertionError(f"flash_attention at the prefill shape: max abs error {err} against output RMS {rms}")
-    pairs = S * (S + 1) // 2  # causal (q, k) pairs each (b, head) computes
+    w = window or S
+    pairs = sum(min(i + 1, w) for i in range(S))  # causal (windowed) (q, k) pairs each (b, head) computes
     flops = 4 * B * Hq * D * pairs
     nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)  # q, o + k, v in bf16
     bms, by = bound_ms(nbytes, flops, "bfloat16")
+    if window is None:
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+        library_call = "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+    else:
+        i = torch.arange(S, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        kr, vr = kt.repeat_interleave(Hq // Hkv, dim=1), vt.repeat_interleave(Hq // Hkv, dim=1)
+        library = lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask)  # noqa: E731
+        library_call = f"F.scaled_dot_product_attention(attn_mask=causal window {window}), k/v repeated to {Hq} heads"
     return {
-        "shape": f"q {B}x{S}x{Hq}x{D}, k/v {B}x{S}x{Hkv}x{D}, bf16, causal",
+        "shape": f"q {B}x{S}x{Hq}x{D}, k/v {B}x{S}x{Hkv}x{D}, bf16, causal"
+                 + (f", window {window}" if window else ""),
         "max_abs_err": err, "output_rms": rms,
-        **timed("", lambda: ops.flash_attention(q, k, v), 10),
-        **timed("plain_", lambda: ref.attention_ref(qt, kt, vt), 3),
-        **timed("library_", lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 10),
-        "library_call": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+        **timed("", lambda: ops.flash_attention(q, k, v, window=window), 10),
+        **timed("plain_", lambda: ref.attention_ref(qt, kt, vt, window=window), 3),
+        **timed("library_", library, 10),
+        "library_call": library_call,
         "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes,
+    }
+
+
+def time_rglru(torch, ops, ref, dev, B: int, S: int, W: int) -> dict:
+    """The prefill's scan: a and b from the gates, f32 (B, S, W)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    a = torch.sigmoid(torch.randn((B, S, W), generator=g, device=dev))
+    b = torch.randn((B, S, W), generator=g, device=dev)
+    err = check_close("rglru_scan", ops.rglru_scan(a, b), ref.rglru_ref(a, b), B=B, S=S, W=W)
+    nbytes = 3 * B * S * W * a.element_size()  # a, b read, h written
+    bms, by = bound_ms(nbytes, 2 * B * S * W, "float32")  # one FMA per element
+    return {
+        "shape": f"{B}x{S}x{W} f32",
+        "max_abs_err": err,
+        **timed("", lambda: ops.rglru_scan(a, b), 20),
+        **timed("plain_", lambda: ref.rglru_ref(a, b), 2),  # a Python loop over S
+        "library_ms": None, "library_call": "none: no single PyTorch call computes a first-order linear recurrence",
+        "bound_ms": bms, "bound_by": by, "bytes": nbytes,
     }
 
 
@@ -203,7 +284,6 @@ def time_rmsnorm(torch, F, ops, ref, dev, rows: int, D: int, dtype) -> dict:
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -217,9 +297,6 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.launch.serve import BatchedServer, make_requests
-    from repro_torch.models import Model
-    from repro_torch.models.modules import tree_map_with_path
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -229,37 +306,86 @@ def main() -> int:
     emit("device", kind=kind, count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
          nvidia_smi=smi)
 
-    # -- build: nvcc (one process per source), then the first Triton compile ----
+    # -- build: nvcc (one process per source, all at once), then the first Triton compile ----
+    cuda_kernels = [k for k, (route, _, _) in SOURCES.items() if route == "cuda"]
     t0 = time.perf_counter()
-    build.build(["flash_attention"])
+    build.build(cuda_kernels)
     nvcc_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ops.fused_rmsnorm(torch.ones((4, 2560), device=dev, dtype=torch.bfloat16), torch.zeros(2560, device=dev))
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in build.library_path("flash_attention").with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in build.library_path(name).with_suffix(".log").read_text().splitlines()
+                    if "registers" in ln or "spill" in ln] for name in cuda_kernels}
     emit("build", nvcc_s=nvcc_s, first_triton_compile_s=triton_s, ptxas=ptxas)
 
-    # -- kernels against their plain versions, then timed --------------------
-    cfg = get_config(ARCH)
-    flash_err, flash_cases = flash_sweep(torch, ops, ref, dev)
-    norm_err, norm_cases = rmsnorm_sweep(torch, ops, ref, dev)
-    emit("kernels_sweep", flash_cases=flash_cases, flash_max_abs_err=flash_err,
-         rmsnorm_cases=norm_cases, rmsnorm_max_abs_err=norm_err)
-    B, S = 2, 2048
-    timing = {"flash_attention": [time_flash(torch, F, ops, ref, dev, cfg, B, S)]}
-    timing["fused_rmsnorm"] = [
-        time_rmsnorm(torch, F, ops, ref, dev, B * S, cfg.d_model, torch.bfloat16),  # norm1, final_norm
-        time_rmsnorm(torch, F, ops, ref, dev, B * S, cfg.d_model, torch.float32),  # norm2 on the f32 residual sum
-        time_rmsnorm(torch, F, ops, ref, dev, B * S * cfg.n_heads, cfg.head_dim, torch.bfloat16),  # q_norm
-        time_rmsnorm(torch, F, ops, ref, dev, B * S * cfg.n_kv_heads, cfg.head_dim, torch.bfloat16),  # k_norm
-    ]
+    # -- kernels against their plain versions, then timed at the main paths' shapes ---------
+    qwen, hyb = get_config("qwen3-4b"), get_config("recurrentgemma-9b")
+    sweep_err, sweep_cases = {}, {}
+    sweeps = {"flash_attention": flash_sweep, "fused_rmsnorm": rmsnorm_sweep, "rglru_scan": rglru_sweep}
+    for name, sweep in sweeps.items():
+        sweep_err[name], sweep_cases[name] = sweep(torch, ops, ref, dev)
+    emit("kernels_sweep", cases=sweep_cases, max_abs_err=sweep_err)
+    qB, qS = PATHS["qwen3-4b"]["B"], PATHS["qwen3-4b"]["S"]
+    hB, hS = PATHS["recurrentgemma-9b"]["B"], PATHS["recurrentgemma-9b"]["S"]
+    timing = {  # the first row of each kernel is its summary row
+        "flash_attention": [time_flash(torch, F, ops, ref, dev, qwen, qB, qS),
+                            time_flash(torch, F, ops, ref, dev, hyb, hB, hS)],
+        "fused_rmsnorm": [
+            time_rmsnorm(torch, F, ops, ref, dev, qB * qS, qwen.d_model, torch.bfloat16),  # norm1, final_norm
+            time_rmsnorm(torch, F, ops, ref, dev, qB * qS, qwen.d_model, torch.float32),  # norm2 on the f32 sum
+            time_rmsnorm(torch, F, ops, ref, dev, qB * qS * qwen.n_heads, qwen.head_dim, torch.bfloat16),  # q_norm
+            time_rmsnorm(torch, F, ops, ref, dev, qB * qS * qwen.n_kv_heads, qwen.head_dim, torch.bfloat16),  # k_norm
+            time_rmsnorm(torch, F, ops, ref, dev, hB * hS, hyb.d_model, torch.bfloat16),  # hybrid norm1 after a carry
+            time_rmsnorm(torch, F, ops, ref, dev, hB * hS, hyb.d_model, torch.float32),  # hybrid norms on f32 sums
+        ],
+        "rglru_scan": [time_rglru(torch, ops, ref, dev, hB, hS, hyb.lru_width)],
+    }
     for name, rows in timing.items():
         for row in rows:
             emit("kernel_timing", name=name, **row)
-    sweep_err = {"flash_attention": flash_err, "fused_rmsnorm": norm_err}
     torch.cuda.empty_cache()
+
+    # -- the two paths: prefill, serve, profile, check -------------------------------------------
+    launches = {name: 0 for name in SOURCES}
+    for arch in PATHS:
+        for counts in drive_path(torch, get_config, ops, dev, arch):
+            for name, n in counts.items():
+                launches[name] += n
+        torch.cuda.empty_cache()
+
+    summary = []
+    for name, rows in timing.items():
+        main_row = rows[0]
+        route, src, replaces = SOURCES[name]
+        summary.append({
+            "name": name, "route": route, "source": src, "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(sweep_err[name], *(r["max_abs_err"] for r in rows)),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"], "shape": main_row["shape"],
+            "events_ms": main_row["events_ms"],
+        })
+    missing = [k["name"] for k in summary if k["launches"] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main paths: {missing}")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": summary}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def drive_path(torch, get_config, ops, dev, arch: str) -> tuple[dict, dict]:
+    """Prefill, serve, profile and check one architecture at full width through
+    ``Model`` and ``BatchedServer``. -> the kernel launches of the prefill and
+    of the serve run, each counted from 0 just before it."""
+    import numpy as np
+
+    from repro_torch.launch.serve import BatchedServer, make_requests
+    from repro_torch.models import Model
+
+    path = PATHS[arch]
+    B, S = path["B"], path["S"]
+    cfg = get_config(arch)
 
     # -- prefill: Model.forward at full width ------------------------------------
     t0 = time.perf_counter()
@@ -282,14 +408,13 @@ def main() -> int:
     prefill_counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finite = bool(torch.isfinite(logits.float()).all())
-    emit("prefill", arch=ARCH, n_params=cfg.n_params(), batch=B, seq=S, logits_shape=list(logits.shape),
+    emit("prefill", arch=arch, n_params=cfg.n_params(), batch=B, seq=S, logits_shape=list(logits.shape),
          finite=finite, init_s=init_s, first_call_ms=first_ms, wall_ms=prefill_ms,
          tokens_per_s=B * S / (prefill_ms / 1e3), peak_memory_gb=peak_gb, launches=prefill_counts)
     if not finite or tuple(logits.shape) != (B, S, cfg.vocab):
-        raise AssertionError(f"prefill logits: shape {tuple(logits.shape)}, finite {finite}")
-    norms_per_pass = cfg.n_layers * 4 + 1
-    if prefill_counts != {"flash_attention": cfg.n_layers, "fused_rmsnorm": norms_per_pass}:
-        raise AssertionError(f"prefill launches {prefill_counts}, expected {cfg.n_layers} and {norms_per_pass}")
+        raise AssertionError(f"{arch} prefill logits: shape {tuple(logits.shape)}, finite {finite}")
+    if prefill_counts != path["prefill"]:
+        raise AssertionError(f"{arch} prefill launches {prefill_counts}, expected {path['prefill']}")
     del logits
     torch.cuda.empty_cache()
 
@@ -304,39 +429,22 @@ def main() -> int:
     stats = server.run(reqs)
     serve_counts = ops.launch_counts()
     new_tokens = sum(len(r.out) for r in reqs)
-    emit("serve", arch=ARCH, batch=4, max_len=128, requests=len(reqs), requests_done=stats["requests_done"],
+    emit("serve", arch=arch, batch=4, max_len=128, requests=len(reqs), requests_done=stats["requests_done"],
          decode_steps=stats["decode_steps"], wall_s=stats["wall_s"], new_tokens=new_tokens,
          tokens_per_s=new_tokens / stats["wall_s"], mean_step_ms=stats["metrics"]["mean_step_s"] * 1e3,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=serve_counts)
     if stats["requests_done"] != len(reqs):
-        raise AssertionError(f"served {stats['requests_done']} of {len(reqs)} requests")
-    if serve_counts != {"flash_attention": 0, "fused_rmsnorm": norms_per_pass * stats["decode_steps"]}:
-        raise AssertionError(f"serve launches {serve_counts}, expected {norms_per_pass} per decode step")
-    emit("profile", **profile_phase(torch, model, params, tokens, dev))
-    del server, params
+        raise AssertionError(f"{arch}: served {stats['requests_done']} of {len(reqs)} requests")
+    want = {k: n * stats["decode_steps"] for k, n in path["per_step"].items()}
+    if serve_counts != want:
+        raise AssertionError(f"{arch} serve launches {serve_counts}, expected {path['per_step']} per decode step")
+    emit("profile", arch=arch, **profile_phase(torch, model, params, tokens, dev))
+    del server, params, tokens
     torch.cuda.empty_cache()
 
     # -- check: kernel path vs plain path, and decode vs prefill, at smoke size -------------
-    emit("check", **smoke_check(torch, get_config, Model, tree_map_with_path, dev))
-
-    launches = {k: prefill_counts[k] + serve_counts[k] for k in prefill_counts}
-    source = {"flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu", FLASH_REPLACES),
-              "fused_rmsnorm": ("triton", "src/repro_torch/kernels/fused_rmsnorm.py", RMSNORM_REPLACES)}
-    summary = []
-    for name, rows in timing.items():
-        main_row = rows[0]
-        route, src, replaces = source[name]
-        summary.append({
-            "name": name, "route": route, "source": src, "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(sweep_err[name], *(r["max_abs_err"] for r in rows)),
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"], "shape": main_row["shape"],
-            "events_ms": main_row["events_ms"],
-        })
-    print(smi, flush=True)
-    print(json.dumps({"kernels": summary}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    return 0
+    emit("check", **smoke_check(torch, get_config, Model, dev, arch, path["check_tokens"]))
+    return prefill_counts, serve_counts
 
 
 def profile_phase(torch, model, params, tokens, dev) -> dict:
@@ -374,26 +482,52 @@ def profile_phase(torch, model, params, tokens, dev) -> dict:
     return out
 
 
-def smoke_check(torch, get_config, Model, tree_map_with_path, dev) -> dict:
-    """The smoke config through the kernels on the card vs the plain versions
-    on the CPU (same weights and tokens), and decode vs prefill on the card.
-    Bound 0.1 for both, as the CPU tests' decode/prefill bound."""
+def smoke_check(torch, get_config, Model, dev, arch: str, n_tokens: int) -> dict:
+    """The smoke config on the card (the kernels) and on the CPU (their plain
+    versions), with the same weights and tokens, for prefill and for decode.
+
+    - prefill, card vs CPU: bound 0.1, as the ``-m gpu`` test of the same
+      (matrix products sum in another order on the card);
+    - decode, card vs CPU, step by step: bound ``DECODE_CARD_VS_CPU``, the
+      kernels' bf16 tolerance. Decode runs the same matrix-vector products
+      and the RMSNorm kernel, so this holds the card to the plain path;
+    - decode vs prefill on the card against the same gap on the CPU: bound
+      0.1. The gap itself is the reference's own (prefill keeps softmax
+      probabilities in f32 and scans, decode rounds them to bf16 and steps
+      ``h``) and at recurrentgemma-9b smoke is 0.041-0.084 for the JAX
+      package over three token seeds (tests/test_torch_rglru.py), so it is
+      reported, not bounded."""
     import numpy as np
 
-    cfg = get_config(ARCH, smoke=True)
+    from repro_torch.models.modules import tree_map_with_path
+
+    cfg = get_config(arch, smoke=True)
     gpu, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
-    params = gpu.init(torch.Generator(device=dev).manual_seed(0))
-    params_cpu = tree_map_with_path(lambda _, a: a.cpu(), params)
-    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (1, 8)))
+    params_cpu = cpu.init(torch.Generator().manual_seed(0))
+    params = tree_map_with_path(lambda _, a: a.to(dev), params_cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (1, n_tokens)))
     fwd, _ = gpu.forward(params, {"tokens": toks.to(dev)})
     fwd_cpu, _ = cpu.forward(params_cpu, {"tokens": toks})
-    card_vs_cpu = float((fwd.cpu().float() - fwd_cpu.float()).abs().max())
-    state, gaps = gpu.init_decode_state(1, 32), []
-    for t in range(toks.shape[1]):
+    fwd = fwd.cpu().float()
+    fwd_cpu = fwd_cpu.float()
+    state, state_cpu = gpu.init_decode_state(1, 32), cpu.init_decode_state(1, 32)
+    decode_err, gap, gap_cpu = [], [], []
+    for t in range(n_tokens):
         logits, state = gpu.decode_step(params, {"tokens": toks[:, t : t + 1].to(dev)}, state, t)
-        gaps.append(float((logits[0] - fwd[0, t]).abs().max()))
-    out = {"arch": cfg.name, "card_vs_cpu_max_abs": card_vs_cpu, "decode_vs_prefill_max_abs": max(gaps), "bound": 0.1}
-    if not card_vs_cpu < 0.1 or not max(gaps) < 0.1:
+        logits_cpu, state_cpu = cpu.decode_step(params_cpu, {"tokens": toks[:, t : t + 1]}, state_cpu, t)
+        logits, logits_cpu = logits.cpu().float(), logits_cpu.float()
+        decode_err.append(float((logits - logits_cpu).abs().max()))
+        gap.append(float((logits[0] - fwd[0, t]).abs().max()))
+        gap_cpu.append(float((logits_cpu[0] - fwd_cpu[0, t]).abs().max()))
+    out = {
+        "arch": cfg.name, "tokens": n_tokens,
+        "prefill_card_vs_cpu_max_abs": float((fwd - fwd_cpu).abs().max()), "prefill_bound": 0.1,
+        "decode_card_vs_cpu_max_abs": max(decode_err), "decode_bound": DECODE_CARD_VS_CPU,
+        "decode_vs_prefill_card": max(gap), "decode_vs_prefill_cpu": max(gap_cpu),
+        "gap_card_vs_cpu": max(abs(x - y) for x, y in zip(gap, gap_cpu)), "gap_bound": 0.1,
+    }
+    if not (out["prefill_card_vs_cpu_max_abs"] < 0.1 and out["decode_card_vs_cpu_max_abs"] < DECODE_CARD_VS_CPU
+            and out["gap_card_vs_cpu"] < 0.1):
         raise AssertionError(f"smoke check out of bound: {out}")
     return out
 

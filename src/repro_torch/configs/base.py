@@ -2,8 +2,9 @@
 
 A copy of the JAX package's config module, so the port imports nothing of
 it. Every registered architecture has a full config plus a reduced ``smoke``
-variant (same family, tiny dims) used by CPU tests. This slice registers the
-four dense decoders, which all run through the same code.
+variant (same family, tiny dims) used by CPU tests. The port registers the
+four dense decoders, which all run through the same code, and the hybrid
+``recurrentgemma-9b`` (recurrent blocks beside windowed attention).
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ class ModelConfig:
     # tensors (the CUDA kernel on the card, its plain version on the CPU).
     # Kept so configs compare field by field with the JAX package's.
     attention_impl: str = "xla"
-    remat: str = "full"  # ignored by the port: this slice has no backward pass
+    remat: str = "full"  # ignored by the port: it has no backward pass yet
     input_mode: str = "tokens"  # tokens | embeddings
     logit_softcap: float = 0.0
     notes: str = ""
@@ -137,6 +138,6 @@ def _ensure_loaded() -> None:
     global _loaded
     if _loaded:
         return
-    from . import gemma_2b, granite_3_8b, llama3_2_3b, qwen3_4b  # noqa: F401
+    from . import gemma_2b, granite_3_8b, llama3_2_3b, qwen3_4b, recurrentgemma_9b  # noqa: F401
 
     _loaded = True

@@ -1,11 +1,12 @@
 """Public kernel wrappers: dispatch on the tensors' device and count launches.
 
 Layout conventions match the model code: attention takes (B, S, H, D) and
-returns the same. For a CUDA tensor a wrapper launches its hand-written
-kernel and adds one to its launch counter; any error raises, there is no
-fallback. For a CPU tensor it calls the plain version in ``ref.py`` and the
-counter does not move. Any other device, an unsupported dtype or head dim,
-or a last axis that is not contiguous raises.
+returns the same; the RG-LRU scan takes (B, S, W). For a CUDA tensor a
+wrapper launches its hand-written kernel and adds one to its launch counter;
+any error raises, there is no fallback. For a CPU tensor it calls the plain
+version in ``ref.py`` and the counter does not move. Any other device, an
+unsupported dtype or head dim, or a last axis that is not contiguous raises
+(the scan needs both inputs contiguous).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from . import flash_attention as _flash
 from . import fused_rmsnorm as _rmsnorm
 from . import ref
+from . import rglru_scan as _rglru
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = _flash.HEAD_DIMS
@@ -22,16 +24,22 @@ HEAD_DIMS = _flash.HEAD_DIMS
 # Launch counters: plain ints, bumped only where a kernel is launched.
 FLASH_ATTENTION_LAUNCHES = 0
 FUSED_RMSNORM_LAUNCHES = 0
+RGLRU_SCAN_LAUNCHES = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {"flash_attention": FLASH_ATTENTION_LAUNCHES, "fused_rmsnorm": FUSED_RMSNORM_LAUNCHES}
+    return {
+        "flash_attention": FLASH_ATTENTION_LAUNCHES,
+        "fused_rmsnorm": FUSED_RMSNORM_LAUNCHES,
+        "rglru_scan": RGLRU_SCAN_LAUNCHES,
+    }
 
 
 def reset_launch_counts() -> None:
-    global FLASH_ATTENTION_LAUNCHES, FUSED_RMSNORM_LAUNCHES
+    global FLASH_ATTENTION_LAUNCHES, FUSED_RMSNORM_LAUNCHES, RGLRU_SCAN_LAUNCHES
     FLASH_ATTENTION_LAUNCHES = 0
     FUSED_RMSNORM_LAUNCHES = 0
+    RGLRU_SCAN_LAUNCHES = 0
 
 
 def _device_type(*tensors: torch.Tensor) -> str:
@@ -93,3 +101,21 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) ->
     y = _rmsnorm.launch(x.view(-1, D), scale, eps)
     FUSED_RMSNORM_LAUNCHES += 1
     return y.view(x.shape)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t * h_{t-1} + b_t`` along S with ``h_{-1} = 0``; a, b (B, S, W)
+    contiguous, one dtype, f32 or bf16. -> h (B, S, W) in a's dtype."""
+    device = _device_type(a, b)
+    if a.ndim != 3 or a.shape != b.shape:
+        raise ValueError(f"expected a and b of one (B, S, W) shape; got {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dtype not in DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"dtypes {a.dtype}, {b.dtype}: need one of {DTYPES} for both")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("a and b must be contiguous")
+    if device == "cpu":
+        return ref.rglru_ref(a, b)
+    global RGLRU_SCAN_LAUNCHES
+    h = _rglru.launch(a, b)
+    RGLRU_SCAN_LAUNCHES += 1
+    return h

@@ -45,3 +45,15 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> t
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rglru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sequential scan ``h_t = a_t * h_{t-1} + b_t`` with ``h_{-1} = 0``.
+    a, b: (B, S, W); arithmetic in f32, output in a's dtype."""
+    af, bf = a.float(), b.float()
+    h = torch.zeros_like(af[:, 0])
+    out = torch.empty_like(af)
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out.to(a.dtype)

@@ -94,8 +94,8 @@ class Model:
         if positions is None:
             B, S = x.shape[:2]
             positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-        x = tfm.stack_apply(params["layers"], x, self.cfg, positions)
-        x = rms_norm(params["final_norm"], x)
+        x, x_sum = tfm.stack_apply(params["layers"], x, self.cfg, positions)
+        x = rms_norm(params["final_norm"], x if x_sum is None else x_sum).to(x.dtype)
         return self.logits_fn(params, x), torch.zeros((), device=x.device)
 
     # -- decode -------------------------------------------------------------------
@@ -108,6 +108,6 @@ class Model:
         """One new token for every sequence. batch: {'tokens': (B,1)}; pos: int.
         -> (logits (B,V), state), the state's caches updated in place."""
         x = self._embed(params, batch["tokens"])
-        x, state = tfm.stack_decode(params["layers"], x, state, pos, self.cfg)
-        x = rms_norm(params["final_norm"], x)
+        x, x_sum = tfm.stack_decode(params["layers"], x, state, pos, self.cfg)
+        x = rms_norm(params["final_norm"], x if x_sum is None else x_sum).to(x.dtype)
         return self.logits_fn(params, x)[:, 0], state

@@ -2,8 +2,9 @@
 
 The parameter layout is the JAX package's: [prefix | n_units x pattern |
 remainder], with the units' parameters stacked along a leading 'layers' axis.
-The JAX ``lax.scan`` over that axis becomes a Python loop. This slice ports
-the ``attn`` layer kind with a dense MLP; the other kinds raise.
+The JAX ``lax.scan`` over that axis becomes a Python loop. The port has the
+``attn`` and ``rec`` (Griffin recurrent block) layer kinds with a dense MLP;
+the other kinds raise.
 """
 
 from __future__ import annotations
@@ -13,11 +14,11 @@ from typing import Any
 import torch
 
 from . import attention as attn_mod
+from . import rglru as rec_mod
 from .mlp import mlp, mlp_spec
 from .modules import rms_norm, rms_norm_spec, stack_specs
 
 _NOT_PORTED = {
-    "rec": "the recurrent block (recurrentgemma) is not ported yet: ROADMAP Queue 1 item 10",
     "slstm": "sLSTM (xlstm) is not ported yet: ROADMAP Queue 1 item 12",
     "mlstm": "mLSTM (xlstm) is not ported yet: ROADMAP Queue 1 item 12",
     "moe": "MoE feed-forward is not ported yet: ROADMAP Queue 1 item 11",
@@ -42,14 +43,18 @@ def _check_ported(kind: str, ffn: str) -> None:
     for k in (kind, ffn):
         if k in _NOT_PORTED:
             raise NotImplementedError(_NOT_PORTED[k])
-    if kind != "attn":
+    if kind not in ("attn", "rec"):
         raise ValueError(f"unknown layer kind {kind}")
 
 
 def block_spec(cfg, kind: str, ffn: str) -> dict:
     _check_ported(kind, ffn)
     d = cfg.d_model
-    spec: dict[str, Any] = {"norm1": rms_norm_spec(d), "attn": attn_mod.attention_spec(cfg)}
+    spec: dict[str, Any] = {"norm1": rms_norm_spec(d)}
+    if kind == "attn":
+        spec["attn"] = attn_mod.attention_spec(cfg)
+    else:
+        spec["rec"] = rec_mod.recurrent_block_spec(cfg)
     if ffn == "mlp":
         spec["norm2"] = rms_norm_spec(d)
         spec["mlp"] = mlp_spec(d, cfg.d_ff)
@@ -59,24 +64,38 @@ def block_spec(cfg, kind: str, ffn: str) -> dict:
     return spec
 
 
-def block_apply(params, x: torch.Tensor, cfg, kind: str, ffn: str, positions: torch.Tensor) -> torch.Tensor:
-    """One residual block (prefill)."""
+def block_apply(
+    params, x: torch.Tensor, cfg, kind: str, ffn: str, positions: torch.Tensor, x_sum: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One residual block (prefill). ``x_sum`` is x before its rounding to
+    bf16, where the previous block's residual sum reaches this block's norm
+    unrounded (see :func:`stack_apply`). Returns (x, x_sum) for the next block."""
     _check_ported(kind, ffn)
-    h = rms_norm(params["norm1"], x)
-    y = attn_mod.attention(params["attn"], h, cfg, positions, window=cfg.window)
+    h = rms_norm(params["norm1"], x if x_sum is None else x_sum).to(x.dtype)
+    if kind == "attn":
+        y = attn_mod.attention(params["attn"], h, cfg, positions, window=cfg.window)
+    else:
+        y = rec_mod.recurrent_block(params["rec"], h, cfg)
     return _residual_ffn(params, x, y, cfg, ffn)
 
 
-def block_decode(params, x: torch.Tensor, state, pos: int, cfg, kind: str, ffn: str):
-    """One residual block, single-token decode. Returns (x, state)."""
+def block_decode(
+    params, x: torch.Tensor, state, pos: int, cfg, kind: str, ffn: str, x_sum: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One residual block, single-token decode, as :func:`block_apply`. The
+    layer's state (KV cache, or conv window and h) is updated in place."""
     _check_ported(kind, ffn)
-    h = rms_norm(params["norm1"], x)
-    y, state = attn_mod.decode_attention(params["attn"], h, state, pos, cfg, window=cfg.window)
-    return _residual_ffn(params, x, y, cfg, ffn), state
+    h = rms_norm(params["norm1"], x if x_sum is None else x_sum).to(x.dtype)
+    if kind == "attn":
+        y, _ = attn_mod.decode_attention(params["attn"], h, state, pos, cfg, window=cfg.window)
+    else:
+        y, _ = rec_mod.recurrent_block_step(params["rec"], h, state, cfg)
+    return _residual_ffn(params, x, y, cfg, ffn)
 
 
-def _residual_ffn(params, x: torch.Tensor, y: torch.Tensor, cfg, ffn: str) -> torch.Tensor:
-    """x + y, then the pre-MLP norm and the MLP residual.
+def _residual_ffn(params, x: torch.Tensor, y: torch.Tensor, cfg, ffn: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """x + y, then the pre-MLP norm and the MLP residual. -> (x, x_sum): the
+    new residual in bf16 and the f32 sum it was rounded from.
 
     The norm reads the f32 sum, not the bf16 residual: compiled, the JAX
     package fuses ``rms_norm(x + y)`` and XLA keeps the sum in f32 (excess
@@ -85,8 +104,9 @@ def _residual_ffn(params, x: torch.Tensor, y: torch.Tensor, cfg, ffn: str) -> to
     s = x.float() + y.float()
     x = s.to(x.dtype)
     if ffn in ("mlp", "dense_mlp"):
-        x = x + mlp(params["mlp"], rms_norm(params["norm2"], s).to(x.dtype), act=cfg.act)
-    return x
+        s = x.float() + mlp(params["mlp"], rms_norm(params["norm2"], s).to(x.dtype), act=cfg.act).float()
+        x = s.to(x.dtype)
+    return x, s
 
 
 # ---------------------------------------------------------------------------
@@ -136,41 +156,66 @@ def _unit(tree, i: int):
     return a.to(torch.bfloat16) if (tree.dtype == torch.float32 and tree.ndim >= 3) else a
 
 
-def stack_apply(params, x: torch.Tensor, cfg, positions: torch.Tensor) -> torch.Tensor:
-    """Full layer stack forward."""
+def stack_apply(params, x: torch.Tensor, cfg, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Full layer stack forward. -> (x, x_sum) for the final norm.
+
+    Compiled, the JAX package fuses a block's last residual add into the
+    next consumer's RMSNorm, and XLA keeps the sum in f32 there (excess
+    precision): within one scan unit (Griffin's rec, rec, attn), from one
+    unrolled prefix or remainder layer to the next, and from the last
+    remainder layer to the final norm. Only the scan's carry, stored between
+    units, is rounded to bf16. So each block hands its f32 sum on, and it is
+    dropped where JAX stores the carry (``x_sum = None``)."""
     lay = StackLayout(cfg)
+    x_sum = None
     for i in lay.prefix:
-        x = block_apply(params["prefix"][f"layer{i}"], x, cfg, layer_kind(cfg, i), _ffn_kind(cfg, i), positions)
+        x, x_sum = block_apply(params["prefix"][f"layer{i}"], x, cfg, layer_kind(cfg, i), _ffn_kind(cfg, i), positions,
+                               x_sum)
     for u in range(lay.n_units):
         unit_params = _unit(params["scan"], u)
+        x_sum = None
         for j, kind in enumerate(lay.unit_kinds):
-            x = block_apply(unit_params[f"block{j}"], x, cfg, kind, _ffn_kind(cfg, cfg.first_dense + j), positions)
+            x, x_sum = block_apply(unit_params[f"block{j}"], x, cfg, kind, _ffn_kind(cfg, cfg.first_dense + j),
+                                   positions, x_sum)
+    if lay.n_units:
+        x_sum = None
     for i in lay.remainder:
-        x = block_apply(params["remainder"][f"layer{i}"], x, cfg, layer_kind(cfg, i), _ffn_kind(cfg, i), positions)
-    return x
+        x, x_sum = block_apply(params["remainder"][f"layer{i}"], x, cfg, layer_kind(cfg, i), _ffn_kind(cfg, i),
+                               positions, x_sum)
+    return x, x_sum
 
 
-def stack_decode(params, x: torch.Tensor, states, pos: int, cfg):
-    """Single-token decode through the stack. Returns (x, states); the caches
-    in ``states`` are updated in place."""
+def stack_decode(params, x: torch.Tensor, states, pos: int, cfg) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Single-token decode through the stack, rounding as :func:`stack_apply`.
+    -> (x, x_sum); the states are updated in place (the stacked ones through
+    views)."""
     lay = StackLayout(cfg)
+    x_sum = None
     for i in lay.prefix:
         key = f"layer{i}"
-        x, _ = block_decode(
-            params["prefix"][key], x, states["prefix"][key], pos, cfg, layer_kind(cfg, i), _ffn_kind(cfg, i)
-        )
+        x, x_sum = block_decode(params["prefix"][key], x, states["prefix"][key], pos, cfg, layer_kind(cfg, i),
+                                _ffn_kind(cfg, i), x_sum)
     for u in range(lay.n_units):
         unit_params = _unit(params["scan"], u)
+        x_sum = None
         for j, kind in enumerate(lay.unit_kinds):
             key = f"block{j}"
-            unit_state = {name: t[u] for name, t in states["scan"][key].items()}  # views into the stacked cache
-            x, _ = block_decode(unit_params[key], x, unit_state, pos, cfg, kind, _ffn_kind(cfg, cfg.first_dense + j))
+            unit_state = {name: t[u] for name, t in states["scan"][key].items()}  # views into the stacked state
+            x, x_sum = block_decode(unit_params[key], x, unit_state, pos, cfg, kind,
+                                    _ffn_kind(cfg, cfg.first_dense + j), x_sum)
+    if lay.n_units:
+        x_sum = None
     for i in lay.remainder:
         key = f"layer{i}"
-        x, _ = block_decode(
-            params["remainder"][key], x, states["remainder"][key], pos, cfg, layer_kind(cfg, i), _ffn_kind(cfg, i)
-        )
-    return x, states
+        x, x_sum = block_decode(params["remainder"][key], x, states["remainder"][key], pos, cfg, layer_kind(cfg, i),
+                                _ffn_kind(cfg, i), x_sum)
+    return x, x_sum
+
+
+def layer_state_init(cfg, kind: str, batch: int, max_len: int, device) -> dict:
+    if kind == "attn":
+        return attn_mod.init_kv_cache(cfg, batch, max_len, device)
+    return rec_mod.init_recurrent_state(cfg, batch, device)
 
 
 def stack_state(cfg, batch: int, max_len: int, device) -> dict:
@@ -180,17 +225,19 @@ def stack_state(cfg, batch: int, max_len: int, device) -> dict:
         _check_ported(kind, "none")
     states: dict[str, Any] = {}
     if lay.prefix:
-        states["prefix"] = {f"layer{i}": attn_mod.init_kv_cache(cfg, batch, max_len, device) for i in lay.prefix}
+        states["prefix"] = {
+            f"layer{i}": layer_state_init(cfg, layer_kind(cfg, i), batch, max_len, device) for i in lay.prefix
+        }
     if lay.n_units:
         states["scan"] = {
             f"block{j}": {
                 name: t.new_zeros((lay.n_units, *t.shape))
-                for name, t in attn_mod.init_kv_cache(cfg, batch, max_len, device).items()
+                for name, t in layer_state_init(cfg, kind, batch, max_len, device).items()
             }
-            for j in range(len(lay.unit_kinds))
+            for j, kind in enumerate(lay.unit_kinds)
         }
     if lay.remainder:
         states["remainder"] = {
-            f"layer{i}": attn_mod.init_kv_cache(cfg, batch, max_len, device) for i in lay.remainder
+            f"layer{i}": layer_state_init(cfg, layer_kind(cfg, i), batch, max_len, device) for i in lay.remainder
         }
     return states

@@ -27,6 +27,7 @@ FLASH_CASES = [
     (1, 256, 256, 2, 2, 64, 64),
     (1, 256, 256, 2, 2, 64, 1024),
     (1, 128, 128, 8, 1, 256, None),  # gemma: MQA, D = 256
+    (1, 384, 384, 4, 1, 256, 128),   # recurrentgemma: windowed MQA, D = 256; late rows start on masked tiles
     (2, 64, 64, 4, 2, 16, None),     # smoke head dims
     (2, 40, 40, 6, 2, 8, None),
 ]
@@ -87,8 +88,44 @@ def test_rmsnorm_kernel_vs_plain(card, shape, dtype):
     _close(got, ops.ref.rmsnorm_ref(x, s), dtype)
 
 
+# tests/test_kernels.py's RG-LRU sweep (B, S, W), plus one shape whose S is not
+# a multiple of the kernel's 16-step chunk and whose W leaves a ragged block
+SCAN_CASES = [(1, 128, 512), (2, 256, 512), (1, 200, 300), (1, 512, 128), (3, 37, 70)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,W", SCAN_CASES)
+def test_rglru_scan_kernel_vs_plain(card, B, S, W, dtype):
+    g = torch.Generator(device=card).manual_seed(10)
+    a = torch.sigmoid(torch.randn((B, S, W), generator=g, device=card)).to(TDT[dtype])
+    b = torch.randn((B, S, W), generator=g, device=card).to(TDT[dtype])
+    before = ops.RGLRU_SCAN_LAUNCHES
+    got = ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert ops.RGLRU_SCAN_LAUNCHES == before + 1
+    _close(got, ops.ref.rglru_ref(a, b), dtype)
+
+
+@pytest.mark.gpu
+def test_rglru_scan_kernel_carries_state_as_a_running_count(card):
+    a = torch.ones((2, 1000, 96), device=card)
+    want = torch.arange(1, 1001, dtype=torch.float32, device=card)[None, :, None].expand(2, 1000, 96)
+    assert torch.equal(ops.rglru_scan(a, a), want)
+
+
+# The launches of one smoke forward: one flash per attn layer, two RMSNorms
+# per layer (four with qk-norms) plus the final one, one scan per rec layer.
+SMOKE_FORWARD_LAUNCHES = {
+    "qwen3-4b": {"flash_attention": 3, "fused_rmsnorm": 13, "rglru_scan": 0},  # 3 attn layers, qk-norms
+    "gemma-2b": {"flash_attention": 2, "fused_rmsnorm": 5, "rglru_scan": 0},  # 2 attn layers
+    # one (rec, rec, attn) unit + two remainder rec layers
+    "recurrentgemma-9b": {"flash_attention": 1, "fused_rmsnorm": 11, "rglru_scan": 4},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(SMOKE_FORWARD_LAUNCHES))
 def test_smoke_model_kernel_path_vs_plain_path(card, arch):
     """The same weights and tokens through the kernels on the card and the
     plain versions on the CPU. The bound is the decode/prefill one of the
@@ -100,10 +137,7 @@ def test_smoke_model_kernel_path_vs_plain_path(card, arch):
     tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 32)))
     ops.reset_launch_counts()
     got, _ = gpu.forward(params, {"tokens": tokens.to(card)})
-    assert ops.launch_counts() == {
-        "flash_attention": cfg.n_layers,
-        "fused_rmsnorm": cfg.n_layers * (4 if cfg.qk_norm else 2) + 1,
-    }
+    assert ops.launch_counts() == SMOKE_FORWARD_LAUNCHES[arch]
     want, _ = cpu.forward(tree_map_with_path(lambda _, a: a.cpu(), params), {"tokens": tokens})
     err = float((got.cpu().float() - want.float()).abs().max())
     assert err < 0.1, err
@@ -116,4 +150,25 @@ def test_smoke_server_on_card_launches_the_norm_kernel(card):
     ops.reset_launch_counts()
     stats = server.run(make_requests(cfg.vocab, 6, 4))
     assert stats["requests_done"] == 6
-    assert ops.launch_counts() == {"flash_attention": 0, "fused_rmsnorm": (4 * cfg.n_layers + 1) * stats["decode_steps"]}
+    assert ops.launch_counts() == {
+        "flash_attention": 0,
+        "fused_rmsnorm": (4 * cfg.n_layers + 1) * stats["decode_steps"],
+        "rglru_scan": 0,
+    }
+
+
+@pytest.mark.gpu
+def test_hybrid_smoke_server_on_card(card):
+    """recurrentgemma-9b smoke served on the card: decode steps the recurrent
+    state in plain PyTorch, so only the norm kernel launches."""
+    cfg = get_config("recurrentgemma-9b", smoke=True)
+    server = BatchedServer(Model(cfg, device=card), batch=3, max_len=64)
+    ops.reset_launch_counts()
+    stats = server.run(make_requests(cfg.vocab, 6, 4))
+    assert stats["requests_done"] == 6
+    assert ops.launch_counts() == {
+        "flash_attention": 0,
+        "fused_rmsnorm": (2 * cfg.n_layers + 1) * stats["decode_steps"],
+        "rglru_scan": 0,
+    }
+    assert server.state["remainder"]["layer4"]["h"].abs().sum() > 0

@@ -111,7 +111,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     q, k, v = (torch.from_numpy(a) for a in _qkv(5, 1, 16, 16, 2, 1, 16))
     ops.flash_attention(q, k, v)
     ops.fused_rmsnorm(q, torch.zeros(16))
-    assert ops.launch_counts() == {"flash_attention": 0, "fused_rmsnorm": 0}
+    ops.rglru_scan(q[:, :, 0].contiguous(), k[:, :, 0].contiguous())
+    assert ops.launch_counts() == {"flash_attention": 0, "fused_rmsnorm": 0, "rglru_scan": 0}
 
 
 @pytest.mark.parametrize(

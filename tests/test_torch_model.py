@@ -19,6 +19,7 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.params import params_from_numpy  # noqa: E402
 
 DENSE = ["qwen3-4b", "gemma-2b", "llama3.2-3b", "granite-3-8b"]
+HYBRID = ["recurrentgemma-9b"]
 LOGIT_TOL = 0.05  # tests/test_smoke_archs.py's decode/prefill bound
 
 
@@ -53,7 +54,8 @@ def _t(a, dtype=torch.bfloat16):
 
 
 def test_registry_is_the_dense_slice():
-    assert list_archs() == sorted(DENSE)
+    """The dense slice plus the hybrid one: the five registered archs."""
+    assert list_archs() == sorted(DENSE + HYBRID)
 
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -235,6 +237,6 @@ def test_other_dense_configs_run_forward_and_decode(arch):
 
 
 def test_unported_families_raise():
-    cfg = dataclasses.replace(get_config("qwen3-4b", smoke=True), pattern=("rec", "attn"))
+    cfg = dataclasses.replace(get_config("qwen3-4b", smoke=True), pattern=("slstm", "attn"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(cfg, device="cpu").spec()

@@ -53,6 +53,23 @@ def test_server_completes_requests_through_slots(servers):
     assert [r.out for r in reqs] == [r.out for r in jreqs]
 
 
+def test_hybrid_server_completes_requests_through_slots():
+    """recurrentgemma-9b smoke through 3 slots: reused slots keep the previous
+    occupant's conv window and h (and ring-buffer KV), as in the JAX server,
+    so the greedy tokens agree only if the port reproduces that."""
+    arch = "recurrentgemma-9b"
+    jcfg = dataclasses.replace(jax_config(arch, smoke=True), attention_impl="pallas_interpret")
+    jserver = JaxServer(JaxModel(jcfg), batch=3, max_len=64)
+    cfg = get_config(arch, smoke=True)
+    server = BatchedServer(Model(cfg, device="cpu"), batch=3, max_len=64)
+    server.params = params_from_numpy(jax.tree.map(np.asarray, jserver.params), cfg, "cpu")
+    reqs, jreqs = _requests(Request, cfg.vocab), _requests(JaxRequest, cfg.vocab)
+    stats, jstats = server.run(reqs), jserver.run(jreqs)
+    assert stats["requests_done"] == 6 and stats["decode_steps"] == jstats["decode_steps"]
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
+    assert server.state["remainder"]["layer4"]["h"].abs().sum() > 0
+
+
 def test_serve_step_logits_match_jax_on_same_tokens_and_state(servers):
     jserver, server = servers
     cfg = server.model.cfg
