@@ -11,16 +11,19 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               timed;
 3. kernels -- every hand-written kernel against its plain PyTorch version on the
               card over the sweep of the CPU tests plus the main paths' shapes
-              (f32 2e-5, bf16 2e-2), then timed at the main paths' shapes beside
-              its plain version, one PyTorch library call (where one exists) and
-              its bound;
+              (f32 2e-5, bf16 2e-2), both flash kernels (wgmma for bf16 at head
+              dim 16-256, FMA for f32 and D = 8, and the FMA kernel on the bf16
+              cases too), then timed at the main paths' shapes beside its plain
+              version, one PyTorch library call (where one exists) and its
+              bound; flash also beside the FMA kernel it replaced;
 
 then two paths, each through the entry points a user calls, with random weights
 drawn from seed 0, the first freed before the second:
 
   qwen3-4b (dense decoder; flash attention and RMSNorm):
 4. prefill -- ``Model.forward`` at full width on 2 x 2048 tokens, asserting 36
-              flash-attention and 145 RMSNorm launches;
+              flash-attention launches, all on the wgmma kernel, and 145 RMSNorm
+              launches;
 5. serve   -- ``BatchedServer``, batch 4, max_len 128, 8 requests of 3-9 prompt
               tokens and 12 new tokens, asserting 8/8 done and 145 RMSNorm
               launches per decode step;
@@ -29,13 +32,14 @@ drawn from seed 0, the first freed before the second:
 7. check   -- the model's output against a reference on a small input: the smoke
               config's prefill and decode through the kernels on the card
               against its plain path on the CPU, and the card's decode-vs-
-              prefill gap against the CPU's;
+              prefill gap against the CPU's; the card's smoke prefill runs every
+              flash launch on the wgmma kernel (head dim 16);
 
   recurrentgemma-9b (hybrid: RG-LRU scan, windowed MQA at head dim 256):
 4-7 again, prefill on 2 x 4096 tokens (the window of 2048 binds) asserting 12
-flash-attention, 77 RMSNorm and 26 RG-LRU scan launches, serve asserting 77
-RMSNorm launches per decode step, and the check over 12 tokens, past the smoke
-window of 8.
+flash-attention (all wgmma), 77 RMSNorm and 26 RG-LRU scan launches, serve
+asserting 77 RMSNorm launches per decode step, and the check over 12 tokens,
+past the smoke window of 8.
 
 Then the card's ``nvidia-smi`` line, the kernels summary and, last,
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX package
@@ -56,17 +60,27 @@ ROOT = Path(__file__).resolve().parent
 # decode step must make.
 PATHS = {
     "qwen3-4b": dict(B=2, S=2048, check_tokens=8,
-                     prefill={"flash_attention": 36, "fused_rmsnorm": 145, "rglru_scan": 0},
-                     per_step={"flash_attention": 0, "fused_rmsnorm": 145, "rglru_scan": 0}),
+                     prefill={"flash_attention": 36, "flash_attention_wgmma": 36, "fused_rmsnorm": 145,
+                              "rglru_scan": 0},
+                     per_step={"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 145,
+                               "rglru_scan": 0}),
     "recurrentgemma-9b": dict(B=2, S=4096, check_tokens=12,
-                              prefill={"flash_attention": 12, "fused_rmsnorm": 77, "rglru_scan": 26},
-                              per_step={"flash_attention": 0, "fused_rmsnorm": 77, "rglru_scan": 0}),
+                              prefill={"flash_attention": 12, "flash_attention_wgmma": 12, "fused_rmsnorm": 77,
+                                       "rglru_scan": 26},
+                              per_step={"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 77,
+                                        "rglru_scan": 0}),
 }
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}  # tests/test_kernels.py
 # At the prefill's flash shape a late row's output is ~0.04 (softmax over ~2048
 # random keys), below the bf16 atol: the error must also be small beside the
 # output's RMS, so that a kernel that drops a kv tile for late rows fails.
 FLASH_MAIN_MAX_ERR_OVER_RMS = 0.1
+# The wgmma kernel feeds P to the PV product as two bf16 terms, hi = bf16(p) and
+# lo = bf16(p - hi); so does attention_ref(p_bf16=2). Both sum in f32 and round
+# the output once to bf16, so they part only where the f32 values straddle a
+# rounding boundary: |err| <= 2^-7 |want| (one bf16 step) + TWO_TERM_ATOL, the
+# atol for outputs near 0, where f32 summation order alone moves ~1e-6.
+TWO_TERM_ATOL = 1e-4
 DECODE_CARD_VS_CPU = 2e-2  # the kernels' bf16 atol: decode's logits, card against the CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f32 outside them
@@ -144,33 +158,91 @@ def check_close(name: str, got, want, **case) -> float:
     return max_err
 
 
+def ptxas_report(log: str) -> dict:
+    """nvcc's ``-Xptxas=-v`` log -> {kernel: {registers, spill_stores, spill_loads}},
+    each kernel named by its mangled name, plus any warnings."""
+    import re
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            fn = m.group(1)
+            out[fn] = {}
+        elif m := re.search(r"Function properties for (\S+)", line):
+            fn = m.group(1)
+            out.setdefault(fn, {})
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and fn:
+            out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            out[fn]["registers"] = int(m.group(1))
+        elif "warning" in line.lower():
+            out.setdefault("warnings", []).append(line.strip())
+    return out
+
+
 def bound_ms(bytes_moved: float, ops: float, dtype: str) -> tuple[float, str]:
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_sweep(torch, ops, ref, dev) -> tuple[float, int]:
-    """tests/test_kernels.py's flash sweep plus gemma's D=256 MQA, recurrentgemma's
-    windowed D=256 MQA and the smoke head dims."""
-    cases = [
-        (1, 128, 128, 2, 2, 64, None), (2, 256, 256, 4, 1, 64, None), (1, 384, 384, 4, 2, 128, None),
-        (1, 100, 100, 2, 2, 64, None), (1, 128, 256, 2, 2, 64, None), (1, 256, 256, 2, 2, 64, 16),
-        (1, 256, 256, 2, 2, 64, 64), (1, 256, 256, 2, 2, 64, 1024), (1, 128, 128, 8, 1, 256, None),
-        (1, 384, 384, 4, 1, 256, 128), (2, 64, 64, 4, 2, 16, None), (2, 40, 40, 6, 2, 8, None),
-    ]
+# (B, S, T, Hq, Hkv, D, window): tests/test_kernels.py's flash sweep plus gemma's
+# D=256 MQA, recurrentgemma's windowed D=256 MQA, the smoke head dims, and the
+# wgmma kernel's tile edges (tests/test_torch_gpu.py's FLASH_CASES)
+FLASH_CASES = [
+    (1, 128, 128, 2, 2, 64, None), (2, 256, 256, 4, 1, 64, None), (1, 384, 384, 4, 2, 128, None),
+    (1, 100, 100, 2, 2, 64, None), (1, 128, 256, 2, 2, 64, None), (1, 256, 256, 2, 2, 64, 16),
+    (1, 256, 256, 2, 2, 64, 64), (1, 256, 256, 2, 2, 64, 1024), (1, 128, 128, 8, 1, 256, None),
+    (1, 384, 384, 4, 1, 256, 128), (2, 64, 64, 4, 2, 16, None), (2, 40, 40, 6, 2, 8, None),
+    (1, 200, 200, 4, 2, 128, None), (1, 300, 300, 4, 1, 256, None),  # ragged S and T across 128
+    (1, 100, 300, 4, 2, 128, None), (1, 260, 130, 2, 1, 256, None),  # S < T, S > T
+    (1, 512, 512, 4, 4, 128, 200), (1, 512, 512, 2, 1, 256, 100),  # windows off the tile grid
+    (2, 256, 256, 4, 4, 128, None), (2, 256, 256, 16, 4, 128, None), (2, 320, 320, 16, 1, 256, 96),  # G 1/4/16
+]
+
+
+def two_term_excess(got, want) -> float:
+    """max(|got - want| - 2^-7 |want|): at most TWO_TERM_ATOL when got is within
+    one bf16 rounding of want."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() - 2.0**-7 * want.abs()).max())
+
+
+def flash_sweep(torch, ops, ref, dev) -> tuple[dict, int]:
+    """FLASH_CASES in f32 and bf16, causal and not, through ``ops`` (the wgmma
+    kernel for bf16 at D >= 16, the FMA kernel otherwise), each against the
+    plain version at the dtype's tolerance; the bf16 cases at D >= 16 also
+    through the FMA kernel, and the wgmma kernel also against the two-term
+    plain version within one bf16 rounding. -> (worst error by check, cases)."""
+    from repro_torch.kernels import flash_attention as flash
+
     g = torch.Generator(device=dev).manual_seed(1)
-    worst, n = 0.0, 0
-    for B, S, T, Hq, Hkv, D, window in cases:
+    worst = {"wgmma": 0.0, "fma": 0.0, "wgmma_two_term_excess": -1.0}
+    n = 0
+    for B, S, T, Hq, Hkv, D, window in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((B, S, Hq, D), generator=g, device=dev).to(dtype)
             k, v = (torch.randn((B, T, Hkv, D), generator=g, device=dev).to(dtype) for _ in range(2))
+            name = flash.variant(dtype, D)
             for causal in (True, False):
-                got = ops.flash_attention(q, k, v, causal=causal, window=window)
-                want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                         causal=causal, window=window).transpose(1, 2)
                 case = dict(B=B, S=S, T=T, Hq=Hq, Hkv=Hkv, D=D, window=window, causal=causal, dtype=str(dtype))
-                worst = max(worst, check_close("flash_attention", got, want, **case))
+                qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                want = ref.attention_ref(qt, kt, vt, causal=causal, window=window).transpose(1, 2)
+                before = ops.launch_counts()["flash_attention_wgmma"]
+                got = ops.flash_attention(q, k, v, causal=causal, window=window)
+                if ops.launch_counts()["flash_attention_wgmma"] != before + (name == "wgmma"):
+                    raise AssertionError(f"flash_attention {case}: expected the {name} kernel")
+                worst[name] = max(worst[name], check_close(f"flash_attention ({name})", got, want, **case))
                 n += 1
+                if name == "wgmma":
+                    fma = flash.launch_fma(q, k, v, causal=causal, window=window)
+                    worst["fma"] = max(worst["fma"], check_close("flash_attention (fma)", fma, want, **case))
+                    two = ref.attention_ref(qt, kt, vt, causal=causal, window=window, p_bf16=2).transpose(1, 2)
+                    excess = two_term_excess(got, two)
+                    if not excess <= TWO_TERM_ATOL:
+                        raise AssertionError(f"flash_attention (wgmma) {case}: {excess} beyond one bf16 rounding "
+                                             "of attention_ref(p_bf16=2)")
+                    worst["wgmma_two_term_excess"] = max(worst["wgmma_two_term_excess"], excess)
+                    n += 1
     return worst, n
 
 
@@ -207,18 +279,36 @@ def rglru_sweep(torch, ops, ref, dev) -> tuple[float, int]:
 
 
 def time_flash(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
-    """The prefill's attention call: B x S tokens, causal, the config's window, bf16."""
+    """The prefill's attention call: B x S tokens, causal, the config's window,
+    bf16, through ``ops`` (the wgmma kernel), held to the plain version three
+    ways, and timed beside the FMA kernel it replaced, the plain version and
+    SDPA. ``one_term_err_over_rms`` is how far one bf16 term of P alone
+    (``attention_ref(p_bf16=1)``) would put the output from f32 P, against the
+    output's RMS: the reason the kernel feeds P as two terms."""
+    from repro_torch.kernels import flash_attention as flash
+
     g = torch.Generator(device=dev).manual_seed(3)
     Hq, Hkv, D, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
     q = torch.randn((B, S, Hq, D), generator=g, device=dev).bfloat16()
     k, v = (torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16() for _ in range(2))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     want = ref.attention_ref(qt, kt, vt, window=window).transpose(1, 2)
-    err = check_close("flash_attention", ops.flash_attention(q, k, v, window=window), want,
-                      B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window)
+    before = ops.launch_counts()["flash_attention_wgmma"]
+    got = ops.flash_attention(q, k, v, window=window)
+    if ops.launch_counts()["flash_attention_wgmma"] != before + 1:
+        raise AssertionError("flash_attention at the prefill shape did not take the wgmma kernel")
+    err = check_close("flash_attention", got, want, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window)
     rms = float(want.float().square().mean().sqrt())
     if not err < FLASH_MAIN_MAX_ERR_OVER_RMS * rms:
         raise AssertionError(f"flash_attention at the prefill shape: max abs error {err} against output RMS {rms}")
+    excess = two_term_excess(got, ref.attention_ref(qt, kt, vt, window=window, p_bf16=2).transpose(1, 2))
+    if not excess <= TWO_TERM_ATOL:
+        raise AssertionError(f"flash_attention at the prefill shape: {excess} beyond one bf16 rounding of p_bf16=2")
+    one_term = ref.attention_ref(qt, kt, vt, window=window, p_bf16=1).transpose(1, 2)
+    one_term_err = float((one_term.float() - want.float()).abs().max())
+    fma = flash.launch_fma(q, k, v, causal=True, window=window)
+    fma_err = check_close("flash_attention (fma)", fma, want, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window)
+    del got, one_term, fma
     w = window or S
     pairs = sum(min(i + 1, w) for i in range(S))  # causal (windowed) (q, k) pairs each (b, head) computes
     flops = 4 * B * Hq * D * pairs
@@ -236,8 +326,10 @@ def time_flash(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
     return {
         "shape": f"q {B}x{S}x{Hq}x{D}, k/v {B}x{S}x{Hkv}x{D}, bf16, causal"
                  + (f", window {window}" if window else ""),
-        "max_abs_err": err, "output_rms": rms,
-        **timed("", lambda: ops.flash_attention(q, k, v, window=window), 10),
+        "variant": "wgmma", "max_abs_err": err, "output_rms": rms, "two_term_excess": excess,
+        "one_term_err_over_rms": one_term_err / rms, "fma_max_abs_err": fma_err,
+        **timed("", lambda: ops.flash_attention(q, k, v, window=window), 20),
+        **timed("fma_", lambda: flash.launch_fma(q, k, v, causal=True, window=window), 3),
         **timed("plain_", lambda: ref.attention_ref(qt, kt, vt, window=window), 3),
         **timed("library_", library, 10),
         "library_call": library_call,
@@ -315,9 +407,12 @@ def main() -> int:
     ops.fused_rmsnorm(torch.ones((4, 2560), device=dev, dtype=torch.bfloat16), torch.zeros(2560, device=dev))
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in build.library_path(name).with_suffix(".log").read_text().splitlines()
-                    if "registers" in ln or "spill" in ln] for name in cuda_kernels}
+    ptxas = {name: ptxas_report(build.library_path(name).with_suffix(".log").read_text()) for name in cuda_kernels}
     emit("build", nvcc_s=nvcc_s, first_triton_compile_s=triton_s, ptxas=ptxas)
+    spills = {k: r for k, r in ptxas["flash_attention"].items()
+              if "wgmma" in k and (r.get("spill_stores", 0) or r.get("spill_loads", 0))}
+    if spills:
+        raise AssertionError(f"the wgmma flash kernel spills registers: {spills}")
 
     # -- kernels against their plain versions, then timed at the main paths' shapes ---------
     qwen, hyb = get_config("qwen3-4b"), get_config("recurrentgemma-9b")
@@ -347,7 +442,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the two paths: prefill, serve, profile, check -------------------------------------------
-    launches = {name: 0 for name in SOURCES}
+    launches = {name: 0 for name in [*SOURCES, "flash_attention_wgmma"]}
     for arch in PATHS:
         for counts in drive_path(torch, get_config, ops, dev, arch):
             for name, n in counts.items():
@@ -358,13 +453,24 @@ def main() -> int:
     for name, rows in timing.items():
         main_row = rows[0]
         route, src, replaces = SOURCES[name]
-        summary.append({
+        worst = sweep_err[name]["wgmma"] if name == "flash_attention" else sweep_err[name]
+        row = {
             "name": name, "route": route, "source": src, "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(sweep_err[name], *(r["max_abs_err"] for r in rows)),
+            "max_abs_err": max(worst, *(r["max_abs_err"] for r in rows)),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"], "shape": main_row["shape"],
             "events_ms": main_row["events_ms"],
-        })
+        }
+        if name == "flash_attention":  # the main path's kernel, and the one it replaced
+            n_wgmma = launches["flash_attention_wgmma"]
+            row["variants"] = {
+                "wgmma": {"launches": n_wgmma, "ms": [r["ms"] for r in rows], "max_abs_err": row["max_abs_err"]},
+                "fma": {"launches": launches[name] - n_wgmma, "ms": [r["fma_ms"] for r in rows],
+                        "max_abs_err": max(sweep_err[name]["fma"], *(r["fma_max_abs_err"] for r in rows))},
+            }
+            if n_wgmma != launches[name]:
+                raise AssertionError(f"flash launches on the main paths: {n_wgmma} of {launches[name]} on wgmma")
+        summary.append(row)
     missing = [k["name"] for k in summary if k["launches"] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
@@ -443,7 +549,7 @@ def drive_path(torch, get_config, ops, dev, arch: str) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
 
     # -- check: kernel path vs plain path, and decode vs prefill, at smoke size -------------
-    emit("check", **smoke_check(torch, get_config, Model, dev, arch, path["check_tokens"]))
+    emit("check", **smoke_check(torch, get_config, Model, ops, dev, arch, path["check_tokens"]))
     return prefill_counts, serve_counts
 
 
@@ -482,7 +588,7 @@ def profile_phase(torch, model, params, tokens, dev) -> dict:
     return out
 
 
-def smoke_check(torch, get_config, Model, dev, arch: str, n_tokens: int) -> dict:
+def smoke_check(torch, get_config, Model, ops, dev, arch: str, n_tokens: int) -> dict:
     """The smoke config on the card (the kernels) and on the CPU (their plain
     versions), with the same weights and tokens, for prefill and for decode.
 
@@ -506,7 +612,11 @@ def smoke_check(torch, get_config, Model, dev, arch: str, n_tokens: int) -> dict
     params_cpu = cpu.init(torch.Generator().manual_seed(0))
     params = tree_map_with_path(lambda _, a: a.to(dev), params_cpu)
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (1, n_tokens)))
+    ops.reset_launch_counts()
     fwd, _ = gpu.forward(params, {"tokens": toks.to(dev)})
+    flash_counts = {k: ops.launch_counts()[k] for k in ("flash_attention", "flash_attention_wgmma")}
+    if not flash_counts["flash_attention"] == flash_counts["flash_attention_wgmma"] > 0:
+        raise AssertionError(f"{arch} smoke prefill: flash launches {flash_counts}, all expected on wgmma")
     fwd_cpu, _ = cpu.forward(params_cpu, {"tokens": toks})
     fwd = fwd.cpu().float()
     fwd_cpu = fwd_cpu.float()
@@ -520,7 +630,7 @@ def smoke_check(torch, get_config, Model, dev, arch: str, n_tokens: int) -> dict
         gap.append(float((logits[0] - fwd[0, t]).abs().max()))
         gap_cpu.append(float((logits_cpu[0] - fwd_cpu[0, t]).abs().max()))
     out = {
-        "arch": cfg.name, "tokens": n_tokens,
+        "arch": cfg.name, "tokens": n_tokens, "prefill_flash_launches": flash_counts,
         "prefill_card_vs_cpu_max_abs": float((fwd - fwd_cpu).abs().max()), "prefill_bound": 0.1,
         "decode_card_vs_cpu_max_abs": max(decode_err), "decode_bound": DECODE_CARD_VS_CPU,
         "decode_vs_prefill_card": max(gap), "decode_vs_prefill_cpu": max(gap_cpu),

@@ -6,7 +6,8 @@ wrapper launches its hand-written kernel and adds one to its launch counter;
 any error raises, there is no fallback. For a CPU tensor it calls the plain
 version in ``ref.py`` and the counter does not move. Any other device, an
 unsupported dtype or head dim, or a last axis that is not contiguous raises
-(the scan needs both inputs contiguous).
+(the scan needs both inputs contiguous), as does a layout the wgmma flash
+kernel cannot read through TMA, on either device.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = _flash.HEAD_DIMS
 
 # Launch counters: plain ints, bumped only where a kernel is launched.
-FLASH_ATTENTION_LAUNCHES = 0
+FLASH_ATTENTION_LAUNCHES = 0  # both flash kernels
+FLASH_ATTENTION_WGMMA_LAUNCHES = 0  # those that took the wgmma kernel
 FUSED_RMSNORM_LAUNCHES = 0
 RGLRU_SCAN_LAUNCHES = 0
 
@@ -30,14 +32,16 @@ RGLRU_SCAN_LAUNCHES = 0
 def launch_counts() -> dict[str, int]:
     return {
         "flash_attention": FLASH_ATTENTION_LAUNCHES,
+        "flash_attention_wgmma": FLASH_ATTENTION_WGMMA_LAUNCHES,
         "fused_rmsnorm": FUSED_RMSNORM_LAUNCHES,
         "rglru_scan": RGLRU_SCAN_LAUNCHES,
     }
 
 
 def reset_launch_counts() -> None:
-    global FLASH_ATTENTION_LAUNCHES, FUSED_RMSNORM_LAUNCHES, RGLRU_SCAN_LAUNCHES
+    global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_WGMMA_LAUNCHES, FUSED_RMSNORM_LAUNCHES, RGLRU_SCAN_LAUNCHES
     FLASH_ATTENTION_LAUNCHES = 0
+    FLASH_ATTENTION_WGMMA_LAUNCHES = 0
     FUSED_RMSNORM_LAUNCHES = 0
     RGLRU_SCAN_LAUNCHES = 0
 
@@ -74,12 +78,16 @@ def flash_attention(
         raise ValueError("the head-dim axis must be contiguous")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive or None, got {window}")
+    wgmma = _flash.variant(q.dtype, D) == "wgmma"
+    if wgmma:
+        _flash.check_tma_layout(q, k, v)
     if device == "cpu":
         o = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window)
         return o.transpose(1, 2)
-    global FLASH_ATTENTION_LAUNCHES
+    global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_WGMMA_LAUNCHES
     o = _flash.launch(q, k, v, causal=causal, window=window)
     FLASH_ATTENTION_LAUNCHES += 1
+    FLASH_ATTENTION_WGMMA_LAUNCHES += wgmma
     return o
 
 

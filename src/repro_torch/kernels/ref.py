@@ -20,7 +20,14 @@ def attention_ref(
     *,
     causal: bool = True,
     window: int | None = None,
+    p_bf16: int = 0,
 ) -> torch.Tensor:
+    """Softmax attention in f32. ``p_bf16`` > 0 feeds the PV product the
+    unnormalised probabilities ``p = exp(s - rowmax)`` as bf16 and divides by
+    the f32 sum of ``p``: 1 rounds ``p`` once (one bf16 pass of P through a
+    matrix unit, as the TPU's f32 ``dot_general`` at default precision takes
+    it), 2 feeds it as two bf16 terms ``hi = bf16(p)`` and ``lo = bf16(p - hi)``,
+    as the wgmma kernel does (``csrc/flash_attention.cu``)."""
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -35,8 +42,16 @@ def attention_ref(
     if window is not None:
         mask &= (q_idx - k_idx) < window
     s = s.masked_fill(~mask, -math.inf)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgst,bktd->bkgsd", p, vf)
+    if p_bf16:
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        hi = p.bfloat16().float()
+        o = torch.einsum("bkgst,bktd->bkgsd", hi, vf)
+        if p_bf16 == 2:
+            o = o + torch.einsum("bkgst,bktd->bkgsd", (p - hi).bfloat16().float(), vf)
+        o = o / p.sum(dim=-1, keepdim=True)
+    else:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgst,bktd->bkgsd", p, vf)
     return o.reshape(B, Hq, S, D).to(q.dtype)
 
 

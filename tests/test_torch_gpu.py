@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import BatchedServer, make_requests
 from repro_torch.models import Model
@@ -30,7 +31,24 @@ FLASH_CASES = [
     (1, 384, 384, 4, 1, 256, 128),   # recurrentgemma: windowed MQA, D = 256; late rows start on masked tiles
     (2, 64, 64, 4, 2, 16, None),     # smoke head dims
     (2, 40, 40, 6, 2, 8, None),
+    # tile edges of the wgmma kernel (128 query rows; 128 keys, 64 at D = 256)
+    (1, 200, 200, 4, 2, 128, None),  # ragged S and T across a multiple of 128
+    (1, 300, 300, 4, 1, 256, None),
+    (1, 100, 300, 4, 2, 128, None),  # S < T
+    (1, 260, 130, 2, 1, 256, None),  # S > T
+    (1, 512, 512, 4, 4, 128, 200),   # windows that are no multiple of a tile
+    (1, 512, 512, 2, 1, 256, 100),
+    (2, 256, 256, 4, 4, 128, None),  # Hq / Hkv = 1, 4 and 16 with B > 1
+    (2, 256, 256, 16, 4, 128, None),
+    (2, 320, 320, 16, 1, 256, 96),
 ]
+# Beside the sweep's tolerance, the wgmma kernel's bf16 output stays within one
+# bf16 rounding of the plain version that feeds P as the same two bf16 terms
+# (attention_ref(p_bf16=2)): |err| <= 2^-7 |want| + TWO_TERM_ATOL. Both sides
+# sum in f32 and round once to bf16, so they part only where the f32 values
+# straddle a rounding boundary; the atol covers outputs near 0, where f32
+# summation order alone moves the value by ~1e-6.
+TWO_TERM_ATOL = 1e-4
 
 
 @pytest.fixture
@@ -46,21 +64,57 @@ def _close(got, want, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **TOL[dtype])
 
 
+def _qkv(card, seed, B, S, T, Hq, Hkv, D, dtype):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((B, S, Hq, D), generator=g, device=card).to(TDT[dtype])
+    k, v = (torch.randn((B, T, Hkv, D), generator=g, device=card).to(TDT[dtype]) for _ in range(2))
+    return q, k, v
+
+
+def _attention_ref(q, k, v, **kw):
+    return ops.ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw).transpose(1, 2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("B,S,T,Hq,Hkv,D,window", FLASH_CASES)
 def test_flash_kernel_vs_plain(card, B, S, T, Hq, Hkv, D, window, dtype):
-    g = torch.Generator(device=card).manual_seed(7)
-    q = torch.randn((B, S, Hq, D), generator=g, device=card).to(TDT[dtype])
-    k, v = (torch.randn((B, T, Hkv, D), generator=g, device=card).to(TDT[dtype]) for _ in range(2))
+    """Through ops: bf16 at D >= 16 takes the wgmma kernel, the rest the FMA one."""
+    q, k, v = _qkv(card, 7, B, S, T, Hq, Hkv, D, dtype)
+    wgmma = flash.variant(q.dtype, D) == "wgmma"
     for causal in (True, False):
-        before = ops.FLASH_ATTENTION_LAUNCHES
+        before = ops.launch_counts()
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        assert ops.FLASH_ATTENTION_LAUNCHES == before + 1
-        want = ops.ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                     causal=causal, window=window).transpose(1, 2)
-        _close(got, want, dtype)
+        after = ops.launch_counts()
+        assert after["flash_attention"] == before["flash_attention"] + 1
+        assert after["flash_attention_wgmma"] == before["flash_attention_wgmma"] + wgmma
+        _close(got, _attention_ref(q, k, v, causal=causal, window=window), dtype)
+
+
+BF16_CASES = [c for c in FLASH_CASES if c[5] != 8]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,window", BF16_CASES)
+def test_flash_fma_kernel_vs_plain_in_bf16(card, B, S, T, Hq, Hkv, D, window):
+    """The FMA kernel, which ops no longer picks for bf16 at these head dims,
+    still holds the bf16 tolerance there."""
+    q, k, v = _qkv(card, 7, B, S, T, Hq, Hkv, D, "bf16")
+    for causal in (True, False):
+        got = flash.launch_fma(q, k, v, causal=causal, window=window)
+        _close(got, _attention_ref(q, k, v, causal=causal, window=window), "bf16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,window", BF16_CASES)
+def test_flash_wgmma_kernel_within_one_rounding_of_two_term_p(card, B, S, T, Hq, Hkv, D, window):
+    q, k, v = _qkv(card, 11, B, S, T, Hq, Hkv, D, "bf16")
+    for causal in (True, False):
+        got = flash.launch_wgmma(q, k, v, causal=causal, window=window).float()
+        want = _attention_ref(q, k, v, causal=causal, window=window, p_bf16=2).float()
+        excess = float(((got - want).abs() - 2.0**-7 * want.abs()).max())
+        assert excess <= TWO_TERM_ATOL, (causal, excess)
 
 
 @pytest.mark.gpu
@@ -114,13 +168,16 @@ def test_rglru_scan_kernel_carries_state_as_a_running_count(card):
     assert torch.equal(ops.rglru_scan(a, a), want)
 
 
-# The launches of one smoke forward: one flash per attn layer, two RMSNorms
-# per layer (four with qk-norms) plus the final one, one scan per rec layer.
+# The launches of one smoke forward: one flash per attn layer, each on the
+# wgmma kernel (bf16 at head dim 16), two RMSNorms per layer (four with
+# qk-norms) plus the final one, one scan per rec layer.
 SMOKE_FORWARD_LAUNCHES = {
-    "qwen3-4b": {"flash_attention": 3, "fused_rmsnorm": 13, "rglru_scan": 0},  # 3 attn layers, qk-norms
-    "gemma-2b": {"flash_attention": 2, "fused_rmsnorm": 5, "rglru_scan": 0},  # 2 attn layers
+    # 3 attn layers, qk-norms
+    "qwen3-4b": {"flash_attention": 3, "flash_attention_wgmma": 3, "fused_rmsnorm": 13, "rglru_scan": 0},
+    # 2 attn layers
+    "gemma-2b": {"flash_attention": 2, "flash_attention_wgmma": 2, "fused_rmsnorm": 5, "rglru_scan": 0},
     # one (rec, rec, attn) unit + two remainder rec layers
-    "recurrentgemma-9b": {"flash_attention": 1, "fused_rmsnorm": 11, "rglru_scan": 4},
+    "recurrentgemma-9b": {"flash_attention": 1, "flash_attention_wgmma": 1, "fused_rmsnorm": 11, "rglru_scan": 4},
 }
 
 
@@ -152,6 +209,7 @@ def test_smoke_server_on_card_launches_the_norm_kernel(card):
     assert stats["requests_done"] == 6
     assert ops.launch_counts() == {
         "flash_attention": 0,
+        "flash_attention_wgmma": 0,
         "fused_rmsnorm": (4 * cfg.n_layers + 1) * stats["decode_steps"],
         "rglru_scan": 0,
     }
@@ -168,6 +226,7 @@ def test_hybrid_smoke_server_on_card(card):
     assert stats["requests_done"] == 6
     assert ops.launch_counts() == {
         "flash_attention": 0,
+        "flash_attention_wgmma": 0,
         "fused_rmsnorm": (2 * cfg.n_layers + 1) * stats["decode_steps"],
         "rglru_scan": 0,
     }

@@ -10,6 +10,7 @@ import torch
 jnp = pytest.importorskip("jax.numpy")  # the card's machine has no JAX
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 # tests/test_kernels.py's tolerances
@@ -74,6 +75,27 @@ def test_flash_plain_vs_pallas_noncausal():
     _close(ops.flash_attention(tq, tk, tv, causal=False), want, "f32")
 
 
+# Every bf16 case of the sweep above, the window cases and gemma's D = 256 MQA:
+# (B, S, T, Hq, Hkv, D, window)
+P_BF16_CASES = [(*c, None) for c in FLASH_CASES] + [(1, 256, 256, 2, 2, 64, w) for w in (16, 64, 1024)] + [
+    (1, 128, 128, 8, 1, 256, None)
+]
+
+
+@pytest.mark.parametrize("p_bf16", [1, 2])
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,window", P_BF16_CASES)
+def test_flash_plain_with_bf16_p_vs_pallas(B, S, T, Hq, Hkv, D, window, p_bf16):
+    """Softmax probabilities fed to the PV product as one bf16 term (the TPU
+    matrix unit's default pass) or two (the wgmma kernel) stay within the bf16
+    tolerance of the JAX kernel, which keeps them in f32 on the CPU."""
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "bf16") for a in _qkv(9, B, S, T, Hq, Hkv, D))
+    want = jops.flash_attention(jq, jk, jv, causal=True, window=window, interpret=True)
+    got = ref.attention_ref(tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2), causal=True,
+                            window=window, p_bf16=p_bf16).transpose(1, 2)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, "bf16")
+
+
 def test_flash_plain_vs_pallas_gemma_mqa_d256():
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "bf16") for a in _qkv(3, 1, 128, 128, 8, 1, 256))
     want = jops.flash_attention(jq, jk, jv, causal=True, interpret=True)
@@ -112,12 +134,22 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ops.flash_attention(q, k, v)
     ops.fused_rmsnorm(q, torch.zeros(16))
     ops.rglru_scan(q[:, :, 0].contiguous(), k[:, :, 0].contiguous())
-    assert ops.launch_counts() == {"flash_attention": 0, "fused_rmsnorm": 0, "rglru_scan": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 0, "rglru_scan": 0}
+
+
+@pytest.mark.parametrize("D", flash.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_variant_goes_by_dtype_and_head_dim(dtype, D):
+    """bf16 at D 16/64/128/256 takes the wgmma kernel; f32, and bf16 at D = 8
+    (below one k16 step), the FMA kernel."""
+    want = "wgmma" if dtype == "bf16" and D != 8 else "fma"
+    assert flash.variant(TDT[dtype], D) == want
 
 
 @pytest.mark.parametrize(
     "bad",
-    ["head_dim_32", "float16", "float64", "strided_head_dim", "zero_window", "mixed_dtypes", "meta_device"],
+    ["head_dim_32", "float16", "float64", "strided_head_dim", "zero_window", "mixed_dtypes", "meta_device",
+     "bf16_rows_not_16_byte_aligned"],
 )
 def test_flash_dispatch_rejects(bad):
     q, k, v = (torch.from_numpy(a) for a in _qkv(6, 1, 16, 16, 2, 1, 16))
@@ -131,6 +163,8 @@ def test_flash_dispatch_rejects(bad):
         k = k.bfloat16()
     elif bad == "meta_device":
         q, k, v = (t.to("meta") for t in (q, k, v))
+    elif bad == "bf16_rows_not_16_byte_aligned":  # the wgmma kernel's TMA cannot read a head stride of 20
+        q, k, v = (torch.cat([t, t[..., :4]], dim=-1).bfloat16()[..., :16] for t in (q, k, v))
     with pytest.raises((ValueError, TypeError)):
         ops.flash_attention(q, k, v, window=0 if bad == "zero_window" else None)
 

@@ -7,6 +7,7 @@ seeds. The CUDA kernel itself is held against the plain version on the card
 in tests/test_torch_gpu.py."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -323,6 +324,22 @@ def test_forward_logits_match_jax_kernel_path(bridged):
     assert np.isfinite(_np(got)).all()
     err = np.abs(_np(got) - _np(want)).max()
     assert err < FORWARD_TOL, err
+
+
+@pytest.mark.parametrize("p_bf16", [1, 2])
+def test_forward_logits_with_bf16_p_match_jax_kernel_path(bridged, monkeypatch, p_bf16):
+    """The CPU attention feeding the softmax probabilities to the PV product
+    as one bf16 term (the TPU matrix unit's default pass) or two (the wgmma
+    kernel), ``attention_ref(p_bf16=...)``, against the JAX kernel path, which
+    keeps them in f32 on the CPU: within the models' LOGIT_TOL."""
+    monkeypatch.setattr(ref, "attention_ref", functools.partial(ref.attention_ref, p_bf16=p_bf16))
+    jm, jp, tm, tp = bridged
+    toks = _tokens(tm.cfg.vocab, (2, 32))
+    want, _ = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)})
+    got, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    assert np.isfinite(_np(got)).all()
+    err = np.abs(_np(got) - _np(want)).max()
+    assert err < LOGIT_TOL, err
 
 
 def test_decode_logits_match_jax_over_12_steps(bridged):
