@@ -15,7 +15,9 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               dim 16-256, FMA for f32 and D = 8, and the FMA kernel on the bf16
               cases too), then timed at the main paths' shapes beside its plain
               version, one PyTorch library call (where one exists) and its
-              bound; flash also beside the FMA kernel it replaced;
+              bound; flash also beside the FMA kernel it replaced, the RG-LRU
+              scan (chunked, parallel in time) beside the sequential kernel it
+              replaced, at B = 2 and 1;
 
 then two paths, each through the entry points a user calls, with random weights
 drawn from seed 0, the first freed before the second:
@@ -44,6 +46,13 @@ past the smoke window of 8.
 Then the card's ``nvidia-smi`` line, the kernels summary and, last,
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX package
 ``repro``.
+
+  python3 chip_smoke.py --scan-tilings
+
+instead builds the chunked RG-LRU scan at each tiling of ``SCAN_TILINGS`` and
+prints one ``scan_tiling`` line for each (registers and spills, clusters the
+card holds, time at the hybrid prefill's scan shapes), then the card's
+``nvidia-smi`` line: how the port's tiling was chosen.
 """
 
 from __future__ import annotations
@@ -61,14 +70,14 @@ ROOT = Path(__file__).resolve().parent
 PATHS = {
     "qwen3-4b": dict(B=2, S=2048, check_tokens=8,
                      prefill={"flash_attention": 36, "flash_attention_wgmma": 36, "fused_rmsnorm": 145,
-                              "rglru_scan": 0},
+                              "rglru_scan": 0, "rglru_scan_sequential": 0},
                      per_step={"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 145,
-                               "rglru_scan": 0}),
+                               "rglru_scan": 0, "rglru_scan_sequential": 0}),
     "recurrentgemma-9b": dict(B=2, S=4096, check_tokens=12,
                               prefill={"flash_attention": 12, "flash_attention_wgmma": 12, "fused_rmsnorm": 77,
-                                       "rglru_scan": 26},
+                                       "rglru_scan": 26, "rglru_scan_sequential": 0},
                               per_step={"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 77,
-                                        "rglru_scan": 0}),
+                                        "rglru_scan": 0, "rglru_scan_sequential": 0}),
 }
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}  # tests/test_kernels.py
 # At the prefill's flash shape a late row's output is ~0.04 (softmax over ~2048
@@ -159,7 +168,7 @@ def check_close(name: str, got, want, **case) -> float:
 
 
 def ptxas_report(log: str) -> dict:
-    """nvcc's ``-Xptxas=-v`` log -> {kernel: {registers, spill_stores, spill_loads}},
+    """nvcc's ``-Xptxas=-v`` log -> {kernel: {registers, smem_bytes, spill_stores, spill_loads}},
     each kernel named by its mangled name, plus any warnings."""
     import re
 
@@ -175,6 +184,8 @@ def ptxas_report(log: str) -> dict:
             out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
         elif (m := re.search(r"Used (\d+) registers", line)) and fn:
             out[fn]["registers"] = int(m.group(1))
+            if m := re.search(r"(\d+) bytes smem", line):
+                out[fn]["smem_bytes"] = int(m.group(1))
         elif "warning" in line.lower():
             out.setdefault("warnings", []).append(line.strip())
     return out
@@ -259,23 +270,64 @@ def rmsnorm_sweep(torch, ops, ref, dev) -> tuple[float, int]:
     return worst, n
 
 
-def rglru_sweep(torch, ops, ref, dev) -> tuple[float, int]:
-    """tests/test_kernels.py's RG-LRU sweep, a ragged shape, and the running count
-    (a = b = 1: h_t = t + 1, exact in f32)."""
+# (B, S, W): tests/test_torch_gpu.py's SCAN_CASES (tests/test_kernels.py's sweep,
+# the chunked kernel's tiling edges, several rounds, one long request, the
+# largest batch, ragged widths)
+SCAN_CASES = [(1, 128, 512), (2, 256, 512), (1, 200, 300), (1, 512, 128), (3, 37, 70),
+              (1, 7, 512), (1, 8, 300), (1, 9, 70), (2, 31, 300), (1, 32, 512), (1, 33, 70),
+              (1, 255, 300), (1, 256, 70), (1, 257, 256), (2, 1500, 300), (1, 2049, 70),
+              (1, 8192, 256), (65535, 3, 4)]
+
+
+def rglru_sweep(torch, ops, ref, dev) -> tuple[dict, int]:
+    """SCAN_CASES in f32 and bf16 through ``ops`` (the chunked kernel) and
+    through the sequential kernel it replaced, each against the plain version;
+    then exact cases: the running count (a = b = 1: h_t = t + 1 in f32), the
+    bf16 running sum (a = 1, b = 205/2048: h_t = bf16((t+1)·b), which a carry
+    rounded to bf16 misses), two launches with equal bits; and f32 at 2e-5 on
+    slow decays (a in [0.99, 1), 4096 steps), where the sequential kernel's
+    distance from the plain version, in units of the tolerance, is reported
+    (not bounded). -> (worst error by kernel, cases)."""
+    import numpy as np
+
+    from repro_torch.kernels import rglru_scan as rgk
+
     g = torch.Generator(device=dev).manual_seed(5)
-    worst, n = 0.0, 0
-    for shape in [(1, 128, 512), (2, 256, 512), (1, 200, 300), (1, 512, 128), (3, 37, 70)]:
+    worst = {"chunked": 0.0, "sequential": 0.0}
+    n = 0
+    for shape in SCAN_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             a = torch.sigmoid(torch.randn(shape, generator=g, device=dev)).to(dtype)
             b = torch.randn(shape, generator=g, device=dev).to(dtype)
-            worst = max(worst, check_close("rglru_scan", ops.rglru_scan(a, b), ref.rglru_ref(a, b),
-                                           shape=shape, dtype=str(dtype)))
-            n += 1
+            want = ref.rglru_ref(a, b)
+            case = dict(shape=shape, dtype=str(dtype))
+            worst["chunked"] = max(worst["chunked"], check_close("rglru_scan", ops.rglru_scan(a, b), want, **case))
+            worst["sequential"] = max(worst["sequential"], check_close("rglru_scan (sequential)",
+                                                                       rgk.launch_sequential(a, b), want, **case))
+            n += 2
     ones = torch.ones((1, 256, 128), device=dev)
     count = torch.arange(1, 257, dtype=torch.float32, device=dev)[None, :, None].expand(1, 256, 128)
     if not torch.equal(ops.rglru_scan(ones, ones), count):
         raise AssertionError("rglru_scan: the running count a = b = 1 is not exact")
-    return worst, n + 1
+    for W in (256, 70):
+        a = torch.ones((1, 3000, W), dtype=torch.bfloat16, device=dev)
+        b = torch.full((1, 3000, W), 205 / 2048, dtype=torch.bfloat16, device=dev)
+        want = (torch.arange(1, 3001, dtype=torch.float32, device=dev) * (205 / 2048)).bfloat16()
+        if not torch.equal(ops.rglru_scan(a, b), want[None, :, None].expand(1, 3000, W)):
+            raise AssertionError(f"rglru_scan: the bf16 running sum at W = {W} is not exact")
+    a = torch.sigmoid(torch.randn((2, 4096, 512), generator=g, device=dev))
+    b = torch.randn((2, 4096, 512), generator=g, device=dev)
+    if not torch.equal(ops.rglru_scan(a, b), ops.rglru_scan(a, b)):
+        raise AssertionError("rglru_scan: two launches on the same inputs differ")
+    rng = np.random.default_rng(7)  # tests/test_torch_gpu.py's slow-decay inputs
+    a = torch.from_numpy(rng.uniform(0.99, 1.0, (1, 4096, 256)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal((1, 4096, 256)).astype(np.float32)).to(dev)
+    want = ref.rglru_ref(a, b)
+    worst["chunked"] = max(worst["chunked"], check_close("rglru_scan (slow decays)", ops.rglru_scan(a, b), want))
+    tol = TOL["float32"]
+    excess = (rgk.launch_sequential(a, b) - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())
+    worst["sequential_slow_decays_over_tol"] = float(excess.max())
+    return worst, n + 5
 
 
 def time_flash(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
@@ -337,22 +389,45 @@ def time_flash(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
     }
 
 
-def time_rglru(torch, ops, ref, dev, B: int, S: int, W: int) -> dict:
-    """The prefill's scan: a and b from the gates, f32 (B, S, W)."""
+def time_rglru(torch, ops, ref, dev, shapes: list[tuple[int, int, int]]) -> list[dict]:
+    """The prefill's scan at each (B, S, W) of ``shapes``: a and b from the
+    gates, f32, through ``ops`` (the chunked kernel), timed beside the
+    sequential kernel it replaced and the plain version. The plain version, a
+    Python loop over S, is profiled last for every shape: after a session of
+    its tens of thousands of kernels, the profiler on the card's machine drops
+    the first kernel record of each later session, which ``time_ms`` takes for
+    a lost launch. ``resident_clusters``: how many of the chunked kernel's
+    clusters the card holds at once."""
+    from functools import partial
+
+    from repro_torch.kernels import rglru_scan as rgk
+
     g = torch.Generator(device=dev).manual_seed(6)
-    a = torch.sigmoid(torch.randn((B, S, W), generator=g, device=dev))
-    b = torch.randn((B, S, W), generator=g, device=dev)
-    err = check_close("rglru_scan", ops.rglru_scan(a, b), ref.rglru_ref(a, b), B=B, S=S, W=W)
-    nbytes = 3 * B * S * W * a.element_size()  # a, b read, h written
-    bms, by = bound_ms(nbytes, 2 * B * S * W, "float32")  # one FMA per element
-    return {
-        "shape": f"{B}x{S}x{W} f32",
-        "max_abs_err": err,
-        **timed("", lambda: ops.rglru_scan(a, b), 20),
-        **timed("plain_", lambda: ref.rglru_ref(a, b), 2),  # a Python loop over S
-        "library_ms": None, "library_call": "none: no single PyTorch call computes a first-order linear recurrence",
-        "bound_ms": bms, "bound_by": by, "bytes": nbytes,
-    }
+    rows, inputs = [], []
+    for B, S, W in shapes:
+        a = torch.sigmoid(torch.randn((B, S, W), generator=g, device=dev))
+        b = torch.randn((B, S, W), generator=g, device=dev)
+        want = ref.rglru_ref(a, b)
+        err = check_close("rglru_scan", ops.rglru_scan(a, b), want, B=B, S=S, W=W)
+        seq_err = check_close("rglru_scan (sequential)", rgk.launch_sequential(a, b), want, B=B, S=S, W=W)
+        del want
+        nbytes = 3 * B * S * W * a.element_size()  # a, b read, h written
+        bms, by = bound_ms(nbytes, 2 * B * S * W, "float32")  # one FMA per element
+        cluster = rgk.cluster_size(S)
+        rows.append({
+            "shape": f"{B}x{S}x{W} f32",
+            "max_abs_err": err, "sequential_max_abs_err": seq_err,
+            "cluster": cluster, "rounds": -(-S // (cluster * rgk.SUB_CHUNK * rgk.WARPS)),
+            "resident_clusters": rgk.max_active_clusters(a.dtype, W, cluster),
+            **timed("", partial(ops.rglru_scan, a, b), 20),
+            **timed("sequential_", partial(rgk.launch_sequential, a, b), 20),
+            "library_ms": None, "library_call": "none: no single PyTorch call computes a first-order linear recurrence",
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+        })
+        inputs.append((a, b))
+    for row, (a, b) in zip(rows, inputs):
+        row.update(timed("plain_", partial(ref.rglru_ref, a, b), 2))
+    return rows
 
 
 def time_rmsnorm(torch, F, ops, ref, dev, rows: int, D: int, dtype) -> dict:
@@ -375,9 +450,57 @@ def time_rmsnorm(torch, F, ops, ref, dev, rows: int, D: int, dtype) -> dict:
     }
 
 
+# (steps a thread, warps a block) that --scan-tilings builds and times; the
+# port runs the first, csrc/rglru_scan.cu's default
+SCAN_TILINGS = [(8, 4), (8, 8), (6, 4), (12, 4), (4, 4), (8, 2)]
+
+
+def scan_tilings(torch, ref, dev, W: int) -> None:
+    """The chunked scan built at each tiling of SCAN_TILINGS (nvcc with
+    ``-DRGLRU_SUB``, ``-DRGLRU_WARPS``; all at once), one line each: its
+    registers, shared memory and spills, the clusters of 8 blocks the card
+    holds at width W, and at (2, 4096, W) and (1, 4096, W) in f32 and
+    (2, 4096, W) in bf16 its time, share of the bound and distance from the
+    plain version (within the kernels' tolerance, or this raises)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from functools import partial
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rglru_scan as rgk
+
+    flag_sets = [(f"-DRGLRU_SUB={sub}", f"-DRGLRU_WARPS={warps}") for sub, warps in SCAN_TILINGS]
+    with ThreadPoolExecutor(len(flag_sets)) as pool:
+        list(pool.map(partial(build.build, ["rglru_scan"]), flag_sets))
+    g = torch.Generator(device=dev).manual_seed(6)
+    inputs = []
+    for B, dtype in ((2, torch.float32), (1, torch.float32), (2, torch.bfloat16)):
+        a = torch.sigmoid(torch.randn((B, 4096, W), generator=g, device=dev)).to(dtype)
+        b = torch.randn((B, 4096, W), generator=g, device=dev).to(dtype)
+        inputs.append((f"{B}x4096x{W} {str(dtype).removeprefix('torch.')}", a, b, ref.rglru_ref(a, b)))
+    for (sub, warps), flags in zip(SCAN_TILINGS, flag_sets):
+        if rgk.library(flags)[1][:2] != (sub, warps):
+            raise AssertionError(f"the scan built with {flags} reports the tiling {rgk.library(flags)[1]}")
+        log = build.library_path("rglru_scan", flags).with_suffix(".log").read_text()
+        row = {"steps_a_thread": sub, "warps_a_block": warps,
+               "ptxas": {k: r for k, r in ptxas_report(log).items() if "rglru_chunked" in k},
+               "resident_clusters_of_8": {str(dt): rgk.max_active_clusters(dt, W, 8, flags=flags)
+                                          for dt in (torch.float32, torch.bfloat16)}}
+        for name, a, b, want in inputs:
+            fn = partial(rgk.launch, a, b, flags=flags)
+            err = check_close(f"rglru_scan {sub}x{warps}", fn(), want, case=name)
+            device_ms, events_ms = time_ms(fn, iters=20)
+            bms, _ = bound_ms(3 * a.numel() * a.element_size(), 2 * a.numel(), "float32")
+            row[name] = {"ms": device_ms, "events_ms": events_ms, "share_of_bound": bms / device_ms,
+                         "max_abs_err": err}
+        emit("scan_tiling", **row)
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:] not in ([], ["--scan-tilings"]):
+        print(f"usage: {sys.argv[0]} [--scan-tilings]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on an NVIDIA card", file=sys.stderr)
         return 2
@@ -397,6 +520,10 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     emit("device", kind=kind, count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
          nvidia_smi=smi)
+    if sys.argv[1:] == ["--scan-tilings"]:
+        scan_tilings(torch, ref, dev, get_config("recurrentgemma-9b").lru_width)
+        print(smi, flush=True)
+        return 0
 
     # -- build: nvcc (one process per source, all at once), then the first Triton compile ----
     cuda_kernels = [k for k, (route, _, _) in SOURCES.items() if route == "cuda"]
@@ -409,10 +536,11 @@ def main() -> int:
     triton_s = time.perf_counter() - t0
     ptxas = {name: ptxas_report(build.library_path(name).with_suffix(".log").read_text()) for name in cuda_kernels}
     emit("build", nvcc_s=nvcc_s, first_triton_compile_s=triton_s, ptxas=ptxas)
-    spills = {k: r for k, r in ptxas["flash_attention"].items()
-              if "wgmma" in k and (r.get("spill_stores", 0) or r.get("spill_loads", 0))}
-    if spills:
-        raise AssertionError(f"the wgmma flash kernel spills registers: {spills}")
+    for lib, kernel in (("flash_attention", "wgmma"), ("rglru_scan", "rglru_chunked")):
+        spills = {k: r for k, r in ptxas[lib].items()
+                  if kernel in k and (r.get("spill_stores", 0) or r.get("spill_loads", 0))}
+        if spills:
+            raise AssertionError(f"the {kernel} kernels spill registers: {spills}")
 
     # -- kernels against their plain versions, then timed at the main paths' shapes ---------
     qwen, hyb = get_config("qwen3-4b"), get_config("recurrentgemma-9b")
@@ -434,7 +562,8 @@ def main() -> int:
             time_rmsnorm(torch, F, ops, ref, dev, hB * hS, hyb.d_model, torch.bfloat16),  # hybrid norm1 after a carry
             time_rmsnorm(torch, F, ops, ref, dev, hB * hS, hyb.d_model, torch.float32),  # hybrid norms on f32 sums
         ],
-        "rglru_scan": [time_rglru(torch, ops, ref, dev, hB, hS, hyb.lru_width)],
+        # the hybrid prefill's, and one prompt through Model.forward
+        "rglru_scan": time_rglru(torch, ops, ref, dev, [(hB, hS, hyb.lru_width), (1, hS, hyb.lru_width)]),
     }
     for name, rows in timing.items():
         for row in rows:
@@ -442,7 +571,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the two paths: prefill, serve, profile, check -------------------------------------------
-    launches = {name: 0 for name in [*SOURCES, "flash_attention_wgmma"]}
+    launches = dict.fromkeys(ops.launch_counts(), 0)
     for arch in PATHS:
         for counts in drive_path(torch, get_config, ops, dev, arch):
             for name, n in counts.items():
@@ -453,7 +582,8 @@ def main() -> int:
     for name, rows in timing.items():
         main_row = rows[0]
         route, src, replaces = SOURCES[name]
-        worst = sweep_err[name]["wgmma"] if name == "flash_attention" else sweep_err[name]
+        main_kernel = {"flash_attention": "wgmma", "rglru_scan": "chunked"}.get(name)
+        worst = sweep_err[name][main_kernel] if main_kernel else sweep_err[name]
         row = {
             "name": name, "route": route, "source": src, "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(worst, *(r["max_abs_err"] for r in rows)),
@@ -470,6 +600,14 @@ def main() -> int:
             }
             if n_wgmma != launches[name]:
                 raise AssertionError(f"flash launches on the main paths: {n_wgmma} of {launches[name]} on wgmma")
+        if name == "rglru_scan":  # ops launches only the chunked kernel; the sequential one is timed beside it
+            row["variants"] = {
+                "chunked": {"launches": launches[name], "shapes": [r["shape"] for r in rows],
+                            "ms": [r["ms"] for r in rows], "max_abs_err": row["max_abs_err"]},
+                "sequential": {"launches": launches["rglru_scan_sequential"], "ms": [r["sequential_ms"] for r in rows],
+                               "max_abs_err": max(sweep_err[name]["sequential"],
+                                                  *(r["sequential_max_abs_err"] for r in rows))},
+            }
         summary.append(row)
     missing = [k["name"] for k in summary if k["launches"] == 0]
     if missing:

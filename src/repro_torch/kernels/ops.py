@@ -26,7 +26,7 @@ HEAD_DIMS = _flash.HEAD_DIMS
 FLASH_ATTENTION_LAUNCHES = 0  # both flash kernels
 FLASH_ATTENTION_WGMMA_LAUNCHES = 0  # those that took the wgmma kernel
 FUSED_RMSNORM_LAUNCHES = 0
-RGLRU_SCAN_LAUNCHES = 0
+RGLRU_SCAN_LAUNCHES = 0  # the chunked kernel, the only one ops launches
 
 
 def launch_counts() -> dict[str, int]:
@@ -35,6 +35,7 @@ def launch_counts() -> dict[str, int]:
         "flash_attention_wgmma": FLASH_ATTENTION_WGMMA_LAUNCHES,
         "fused_rmsnorm": FUSED_RMSNORM_LAUNCHES,
         "rglru_scan": RGLRU_SCAN_LAUNCHES,
+        "rglru_scan_sequential": _rglru.SEQUENTIAL_LAUNCHES,  # never launched through ops
     }
 
 
@@ -44,6 +45,7 @@ def reset_launch_counts() -> None:
     FLASH_ATTENTION_WGMMA_LAUNCHES = 0
     FUSED_RMSNORM_LAUNCHES = 0
     RGLRU_SCAN_LAUNCHES = 0
+    _rglru.SEQUENTIAL_LAUNCHES = 0
 
 
 def _device_type(*tensors: torch.Tensor) -> str:

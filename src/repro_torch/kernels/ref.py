@@ -72,3 +72,57 @@ def rglru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         h = af[:, t] * h + bf[:, t]
         out[:, t] = h
     return out.to(a.dtype)
+
+
+def _fma(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """f32 ``x * y + z`` rounded once, as ``fmaf``: the f32 product is exact in
+    f64 and only the sum rounds (a second rounding to f32 can differ from one
+    true rounding only at an exact f32 midpoint)."""
+    return torch.addcmul(z.double(), x.double(), y.double()).float()
+
+
+def rglru_chunked_ref(a: torch.Tensor, b: torch.Tensor, chunk: int, *, warps: int, cluster: int) -> torch.Tensor:
+    """The scan in the chunked kernel's order of f32 arithmetic
+    (``csrc/rglru_scan.cu``, ``rglru_chunked_kernel``); the tests use it.
+
+    S splits into sub-chunks of ``chunk`` steps, ``warps`` of them a block and
+    ``cluster`` blocks a round, the rounds in turn; the tail pads with the
+    identity a = 1, b = 0. Each sub-chunk's aggregate (A, H) is its product of
+    a and its scan from 0; the warps' aggregates fold into the block's in
+    order; each round applies the blocks' aggregates to the state in time
+    order, and each block's warps' to the state that enters it; each
+    sub-chunk then runs the recurrence from the state that enters it. Every
+    multiply-add is one fused f32 operation. a, b: (B, S, W); output in a's
+    dtype."""
+    B, S, W = a.shape
+    per_round = chunk * warps * cluster
+    rounds = -(-S // per_round)
+    pad = rounds * per_round - S
+    af = torch.cat([a.float(), a.new_ones((B, pad, W), dtype=torch.float32)], dim=1)
+    bf = torch.cat([b.float(), b.new_zeros((B, pad, W), dtype=torch.float32)], dim=1)
+    af = af.view(B, rounds, cluster, warps, chunk, W)
+    bf = bf.view(B, rounds, cluster, warps, chunk, W)
+    A = torch.ones_like(af[..., 0, :])  # (B, rounds, cluster, warps, W)
+    H = torch.zeros_like(A)
+    for i in range(chunk):
+        H = _fma(af[..., i, :], H, bf[..., i, :])
+        A = A * af[..., i, :]
+    A_blk, H_blk = torch.ones_like(A[..., 0, :]), torch.zeros_like(A[..., 0, :])
+    for w in range(warps):
+        H_blk = _fma(A[..., w, :], H_blk, H[..., w, :])
+        A_blk = A_blk * A[..., w, :]
+    carry = torch.empty_like(A)
+    state = torch.zeros_like(A[:, 0, 0, 0])
+    for r in range(rounds):
+        for k in range(cluster):
+            x = state
+            for w in range(warps):
+                carry[:, r, k, w] = x
+                x = _fma(A[:, r, k, w], x, H[:, r, k, w])
+            state = _fma(A_blk[:, r, k], state, H_blk[:, r, k])
+    out = torch.empty_like(af)
+    x = carry
+    for i in range(chunk):
+        x = _fma(af[..., i, :], x, bf[..., i, :])
+        out[..., i, :] = x
+    return out.view(B, rounds * per_round, W)[:, :S].to(a.dtype)

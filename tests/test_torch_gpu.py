@@ -10,6 +10,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ops
+from repro_torch.kernels import rglru_scan as rgk
 from repro_torch.launch.serve import BatchedServer, make_requests
 from repro_torch.models import Model
 from repro_torch.models.modules import tree_map_with_path
@@ -142,22 +143,55 @@ def test_rmsnorm_kernel_vs_plain(card, shape, dtype):
     _close(got, ops.ref.rmsnorm_ref(x, s), dtype)
 
 
-# tests/test_kernels.py's RG-LRU sweep (B, S, W), plus one shape whose S is not
-# a multiple of the kernel's 16-step chunk and whose W leaves a ragged block
-SCAN_CASES = [(1, 128, 512), (2, 256, 512), (1, 200, 300), (1, 512, 128), (3, 37, 70)]
+# tests/test_kernels.py's RG-LRU sweep (B, S, W), then the chunked kernel's
+# tiling edges: S at a sub-chunk (8 steps) - 1, + 0, + 1, at a block (32) and
+# at a cluster's span (256) - 1, + 0, + 1; S over several rounds; one long
+# request; the largest batch; ragged widths 70 and 300 (300 takes 16-byte
+# loads in f32 and one element a lane in bf16, 70 one element in both)
+SCAN_CASES = [(1, 128, 512), (2, 256, 512), (1, 200, 300), (1, 512, 128), (3, 37, 70),
+              (1, 7, 512), (1, 8, 300), (1, 9, 70), (2, 31, 300), (1, 32, 512), (1, 33, 70),
+              (1, 255, 300), (1, 256, 70), (1, 257, 256), (2, 1500, 300), (1, 2049, 70),
+              (1, 8192, 256), (65535, 3, 4)]
+
+
+def _scan_inputs(card, B, S, W, dtype, seed=10):
+    g = torch.Generator(device=card).manual_seed(seed)
+    a = torch.sigmoid(torch.randn((B, S, W), generator=g, device=card)).to(TDT[dtype])
+    b = torch.randn((B, S, W), generator=g, device=card).to(TDT[dtype])
+    return a, b
+
+
+def _chunked_model(a, b):
+    return ops.ref.rglru_chunked_ref(a, b, rgk.SUB_CHUNK, warps=rgk.WARPS, cluster=rgk.cluster_size(a.shape[1]))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("B,S,W", SCAN_CASES)
 def test_rglru_scan_kernel_vs_plain(card, B, S, W, dtype):
-    g = torch.Generator(device=card).manual_seed(10)
-    a = torch.sigmoid(torch.randn((B, S, W), generator=g, device=card)).to(TDT[dtype])
-    b = torch.randn((B, S, W), generator=g, device=card).to(TDT[dtype])
+    """Through ops, which launches the chunked kernel; beside the plain
+    version, its own order of arithmetic (ref.rglru_chunked_ref) within a
+    few f32 roundings, one bf16 rounding for bf16 outputs."""
+    a, b = _scan_inputs(card, B, S, W, dtype)
     before = ops.RGLRU_SCAN_LAUNCHES
     got = ops.rglru_scan(a, b)
     torch.cuda.synchronize()
     assert ops.RGLRU_SCAN_LAUNCHES == before + 1
+    _close(got, ops.ref.rglru_ref(a, b), dtype)
+    torch.testing.assert_close(got.float(), _chunked_model(a, b).float(), rtol=1e-6 if dtype == "f32" else 2**-8,
+                               atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,W", SCAN_CASES)
+def test_rglru_sequential_kernel_vs_plain(card, B, S, W, dtype):
+    """The kernel the chunked one replaced, kept as its yardstick; its
+    counter moves by one a launch."""
+    a, b = _scan_inputs(card, B, S, W, dtype)
+    before = ops.launch_counts()["rglru_scan_sequential"]
+    got = rgk.launch_sequential(a, b)
+    assert ops.launch_counts()["rglru_scan_sequential"] == before + 1
     _close(got, ops.ref.rglru_ref(a, b), dtype)
 
 
@@ -168,16 +202,76 @@ def test_rglru_scan_kernel_carries_state_as_a_running_count(card):
     assert torch.equal(ops.rglru_scan(a, a), want)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [256, 70])
+def test_rglru_scan_kernel_bf16_running_sum_is_exact(card, W):
+    """a = 1, b = 205/2048 in bf16: the f32 sums (t+1)·b are exact, so h is
+    bf16((t+1)·b) bit for bit; a carry rounded to bf16 anywhere is not
+    (tests/test_torch_rglru.py shows that it parts)."""
+    S = 3000
+    a = torch.ones((1, S, W), dtype=torch.bfloat16, device=card)
+    b = torch.full((1, S, W), 205 / 2048, dtype=torch.bfloat16, device=card)
+    want = (torch.arange(1, S + 1, dtype=torch.float32, device=card) * (205 / 2048)).bfloat16()
+    assert torch.equal(ops.rglru_scan(a, b), want[None, :, None].expand(1, S, W))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("W", [512, 70])
+def test_rglru_scan_kernel_resets_where_a_is_zero(card, dtype, W):
+    """a = 0 at every sub-chunk's start: h there is b exactly, and after it
+    the chunked kernel runs the same FMA chain as the sequential one, so the
+    two agree bit for bit whatever the carries."""
+    a, b = _scan_inputs(card, 2, 1100, W, dtype, seed=12)
+    a[:, :: rgk.SUB_CHUNK] = 0
+    got = ops.rglru_scan(a, b)
+    assert torch.equal(got[:, :: rgk.SUB_CHUNK], b[:, :: rgk.SUB_CHUNK])
+    assert torch.equal(got, rgk.launch_sequential(a, b))
+
+
+@pytest.mark.gpu
+def test_rglru_scan_kernel_holds_f32_on_slow_decays(card):
+    """a in [0.99, 1) over 4096 steps (the RG-LRU's slow channels): the inputs
+    of tests/test_torch_rglru.py's CPU test of the chunked model; f32 2e-5."""
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.uniform(0.99, 1.0, (1, 4096, 256)).astype(np.float32)).to(card)
+    b = torch.from_numpy(rng.standard_normal((1, 4096, 256)).astype(np.float32)).to(card)
+    _close(ops.rglru_scan(a, b), ops.ref.rglru_ref(a, b), "f32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rglru_scan_kernel_is_deterministic(card, dtype):
+    a, b = _scan_inputs(card, 2, 4096, 512, dtype, seed=13)
+    assert torch.equal(ops.rglru_scan(a, b), ops.rglru_scan(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rglru_scan_kernel_reads_misaligned_inputs(card, dtype):
+    """Contiguous views 4 or 2 bytes off a 16-byte boundary take the kernel's
+    one-element loads; the result is the same."""
+    B, S, W = 2, 300, 512
+    a, b = _scan_inputs(card, B, S, W, dtype, seed=14)
+    a_off = torch.empty(B * S * W + 1, dtype=a.dtype, device=card)[1:].view(B, S, W).copy_(a)
+    b_off = torch.empty(B * S * W + 1, dtype=b.dtype, device=card)[1:].view(B, S, W).copy_(b)
+    assert a_off.data_ptr() % 16 and a_off.is_contiguous()
+    assert torch.equal(ops.rglru_scan(a_off, b_off), ops.rglru_scan(a, b))
+
+
 # The launches of one smoke forward: one flash per attn layer, each on the
 # wgmma kernel (bf16 at head dim 16), two RMSNorms per layer (four with
 # qk-norms) plus the final one, one scan per rec layer.
 SMOKE_FORWARD_LAUNCHES = {
     # 3 attn layers, qk-norms
-    "qwen3-4b": {"flash_attention": 3, "flash_attention_wgmma": 3, "fused_rmsnorm": 13, "rglru_scan": 0},
+    "qwen3-4b": {"flash_attention": 3, "flash_attention_wgmma": 3, "fused_rmsnorm": 13, "rglru_scan": 0,
+                 "rglru_scan_sequential": 0},
     # 2 attn layers
-    "gemma-2b": {"flash_attention": 2, "flash_attention_wgmma": 2, "fused_rmsnorm": 5, "rglru_scan": 0},
+    "gemma-2b": {"flash_attention": 2, "flash_attention_wgmma": 2, "fused_rmsnorm": 5, "rglru_scan": 0,
+                 "rglru_scan_sequential": 0},
     # one (rec, rec, attn) unit + two remainder rec layers
-    "recurrentgemma-9b": {"flash_attention": 1, "flash_attention_wgmma": 1, "fused_rmsnorm": 11, "rglru_scan": 4},
+    "recurrentgemma-9b": {"flash_attention": 1, "flash_attention_wgmma": 1, "fused_rmsnorm": 11, "rglru_scan": 4,
+                          "rglru_scan_sequential": 0},
 }
 
 
@@ -212,6 +306,7 @@ def test_smoke_server_on_card_launches_the_norm_kernel(card):
         "flash_attention_wgmma": 0,
         "fused_rmsnorm": (4 * cfg.n_layers + 1) * stats["decode_steps"],
         "rglru_scan": 0,
+        "rglru_scan_sequential": 0,
     }
 
 
@@ -229,5 +324,6 @@ def test_hybrid_smoke_server_on_card(card):
         "flash_attention_wgmma": 0,
         "fused_rmsnorm": (2 * cfg.n_layers + 1) * stats["decode_steps"],
         "rglru_scan": 0,
+        "rglru_scan_sequential": 0,
     }
     assert server.state["remainder"]["layer4"]["h"].abs().sum() > 0

@@ -134,7 +134,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ops.flash_attention(q, k, v)
     ops.fused_rmsnorm(q, torch.zeros(16))
     ops.rglru_scan(q[:, :, 0].contiguous(), k[:, :, 0].contiguous())
-    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 0, "rglru_scan": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 0, "rglru_scan": 0,
+                                   "rglru_scan_sequential": 0}
 
 
 @pytest.mark.parametrize("D", flash.HEAD_DIMS)

@@ -22,6 +22,7 @@ from repro.models import Model as JaxModel  # noqa: E402
 from repro.models import rglru as jrg  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rglru_scan as rgk  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import rglru as trg  # noqa: E402
 from repro_torch.models.modules import ArraySpec  # noqa: E402
@@ -93,6 +94,114 @@ def test_rglru_plain_carries_state_as_a_running_count():
     got = ref.rglru_ref(a, a)
     assert torch.equal(got, torch.arange(1, 257, dtype=torch.float32)[None, :, None].expand(1, 256, 128))
     np.testing.assert_array_equal(_np(got), _np(want))
+
+
+# ---------------------------------------------------------------------------
+# the chunked kernel's arithmetic (ref.rglru_chunked_ref): the part of the CUDA
+# kernel's design that runs here, where there is no card
+# ---------------------------------------------------------------------------
+
+
+def _chunked(a, b, chunk=rgk.SUB_CHUNK, warps=rgk.WARPS, cluster=None):
+    cluster = rgk.cluster_size(a.shape[1]) if cluster is None else cluster
+    return ref.rglru_chunked_ref(a, b, chunk, warps=warps, cluster=cluster)
+
+
+def _scan_inputs(B, S, W, dtype, seed=5):
+    rng = np.random.default_rng(seed)
+    return _pair(1 / (1 + np.exp(-rng.standard_normal((B, S, W)))), dtype), _pair(rng.standard_normal((B, S, W)), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,W,bs,bw", SCAN_CASES)
+def test_rglru_chunked_model_vs_pallas_and_plain(B, S, W, bs, bw, dtype):
+    (ja, ta), (jb, tb) = _scan_inputs(B, S, W, dtype)
+    got = _chunked(ta, tb)
+    _close(got, jops.rglru_scan(ja, jb, block_s=bs, block_w=bw, interpret=True), dtype)
+    _close(got, ref.rglru_ref(ta, tb), dtype)
+
+
+# S at each edge of the kernel's tiling: a sub-chunk (8 steps), a block (32), a
+# cluster's span (256) and several rounds; W ragged for both load widths
+CHUNK_EDGES = [(1, 1, 70), (1, 7, 70), (1, 8, 300), (1, 9, 70), (2, 31, 300), (1, 32, 70), (1, 33, 300),
+               (1, 255, 70), (1, 256, 300), (1, 257, 70), (1, 1500, 300)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,W", CHUNK_EDGES)
+def test_rglru_chunked_model_at_the_tiling_edges(B, S, W, dtype):
+    (ja, ta), (jb, tb) = _scan_inputs(B, S, W, dtype, seed=S)
+    got = _chunked(ta, tb)
+    _close(got, ref.rglru_ref(ta, tb), dtype)
+    if S in (9, 257, 1500):  # one sub-chunk, one cluster span and several rounds past the edge
+        _close(got, jops.rglru_scan(ja, jb, block_s=128, block_w=128, interpret=True), dtype)
+
+
+@pytest.mark.parametrize("chunk,warps,cluster", [(1, 1, 1), (2, 3, 2), (3, 2, 4), (5, 1, 8)])
+@pytest.mark.parametrize("S", [1, 11, 12, 13, 97])
+def test_rglru_chunked_model_at_other_tilings(chunk, warps, cluster, S):
+    """The same arithmetic with small tiles: many rounds at small S."""
+    (_, ta), (_, tb) = _scan_inputs(2, S, 9, "f32", seed=S)
+    _close(_chunked(ta, tb, chunk, warps, cluster), ref.rglru_ref(ta, tb), "f32")
+
+
+def test_rglru_chunked_model_carries_state_as_a_running_count():
+    a = torch.ones((1, 1100, 16))
+    want = torch.arange(1, 1101, dtype=torch.float32)[None, :, None].expand(1, 1100, 16)
+    assert torch.equal(_chunked(a, a), want)
+    assert torch.equal(_chunked(a, a, 2, 3, 2), want)
+
+
+def test_rglru_chunked_model_bf16_running_sum_is_exact():
+    """a = 1, b = 205/2048 in bf16: the f32 sums (t+1)·b are exact, so h is
+    bf16((t+1)·b) bit for bit. A carry rounded to bf16 between chunks is not."""
+    S, W = 3000, 8
+    a, b = torch.ones((1, S, W), dtype=torch.bfloat16), torch.full((1, S, W), 205 / 2048, dtype=torch.bfloat16)
+    want = (torch.arange(1, S + 1, dtype=torch.float32) * (205 / 2048)).bfloat16()[None, :, None].expand(1, S, W)
+    assert torch.equal(_chunked(a, b), want)
+    assert torch.equal(ref.rglru_ref(a, b), want)
+    got = jops.rglru_scan(jnp.ones((1, S, W), jnp.bfloat16), jnp.full((1, S, W), 205 / 2048, jnp.bfloat16),
+                          block_s=128, block_w=8, interpret=True)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    # the test has teeth: the same scan with its state rounded to bf16 at each
+    # block's start (every 32 steps) parts from it
+    h, rounded = torch.zeros((), dtype=torch.float32), []
+    for t in range(S):
+        h = (h.bfloat16().float() if t % (rgk.SUB_CHUNK * rgk.WARPS) == 0 else h) + b[0, t, 0].float()
+        rounded.append(h)
+    assert not torch.equal(torch.stack(rounded).bfloat16(), want[0, :, 0])
+
+
+def test_rglru_chunked_model_resets_where_a_is_zero():
+    """a = 0 at every sub-chunk's start sets h to b there, exactly."""
+    (_, ta), (_, tb) = _scan_inputs(2, 300, 70, "f32", seed=3)
+    ta[:, :: rgk.SUB_CHUNK] = 0.0
+    got = _chunked(ta, tb)
+    assert torch.equal(got[:, :: rgk.SUB_CHUNK], tb[:, :: rgk.SUB_CHUNK])
+    _close(got, ref.rglru_ref(ta, tb), "f32")
+
+
+def test_rglru_chunked_model_holds_f32_on_slow_decays():
+    """a in [0.99, 1) over 4096 steps, the RG-LRU's slow channels: h reaches
+    ~40 and the state runs through 512 sub-chunk carries; f32 2e-5."""
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.uniform(0.99, 1.0, (1, 4096, 256)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((1, 4096, 256)).astype(np.float32))
+    _close(_chunked(a, b), ref.rglru_ref(a, b), "f32")
+
+
+@pytest.mark.parametrize(
+    "S,want", [(1, 1), (32, 1), (33, 2), (64, 2), (65, 4), (128, 4), (129, 8), (256, 8), (257, 8), (4096, 8)]
+)
+def test_cluster_size_covers_S_in_one_round_up_to_eight_blocks(S, want):
+    assert rgk.cluster_size(S) == want
+
+
+@pytest.mark.parametrize("S,block_steps,want", [(16, 16, 1), (17, 16, 2), (96, 48, 2), (97, 48, 4), (4096, 96, 8)])
+def test_cluster_size_at_another_tiling(S, block_steps, want):
+    """A library built at another tiling (``rglru_scan.library(flags)``)
+    sizes its clusters by its own steps a block."""
+    assert rgk.cluster_size(S, block_steps) == want
 
 
 @pytest.mark.parametrize("bad", ["float16", "float64", "shape", "mixed_dtypes", "strided", "rank2", "meta_device"])
