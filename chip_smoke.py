@@ -19,6 +19,11 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               scan (chunked, parallel in time) beside the sequential kernel it
               replaced, at B = 2 and 1;
 
+   and the two backward kernels (flash attention's in CUDA, RMSNorm's in
+              Triton) against their plain backward versions over the forward
+              sweep, then timed at the training shape beside the plain backward,
+              the library call's backward through autograd and the bound;
+
 then two paths, each through the entry points a user calls, with random weights
 drawn from seed 0, the first freed before the second:
 
@@ -43,9 +48,26 @@ flash-attention (all wgmma), 77 RMSNorm and 26 RG-LRU scan launches, serve
 asserting 77 RMSNorm launches per decode step, and the check over 12 tokens,
 past the smoke window of 8.
 
-Then the card's ``nvidia-smi`` line, the kernels summary and, last,
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX package
-``repro``.
+then the training path, qwen3-4b again:
+
+8. train   -- ``make_train_step`` (``Model.loss``, autograd through both backward
+              kernels, in-place AdamW with f32 moments) on full qwen3-4b (36
+              layers, the config's remat "full") at
+              B = 1, S = 2048 from ``SyntheticLM``: one warm-up step, three timed
+              steps (step ms, tokens/s, peak GB, loss / grad_norm / lr, launches
+              of every kernel per step, each asserted), and torch.profiler over a
+              fourth step;
+9. trainer -- ``Trainer`` at qwen3-4b smoke on the card with the sampler and the
+              watchdog on: 3 steps and a checkpoint, a second Trainer that resumes
+              to 6, a third that runs 6 in one go; parameters and optimizer state
+              equal to the bit; heartbeat, metrics.json and host_profile.html;
+10. train_check -- one train step at qwen3-4b smoke on the card and on the CPU
+              (plain versions) from the same weights and batch: loss, moments and
+              each leaf's update within ``TRAIN_CARD_VS_CPU``.
+
+Then the card's ``nvidia-smi`` line, the kernels summary (five kernels, each
+launched on the main paths) and, last, ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX or of the JAX package ``repro``.
 
   python3 chip_smoke.py --scan-tilings
 
@@ -61,6 +83,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -70,20 +93,49 @@ ROOT = Path(__file__).resolve().parent
 PATHS = {
     "qwen3-4b": dict(B=2, S=2048, check_tokens=8,
                      prefill={"flash_attention": 36, "flash_attention_wgmma": 36, "fused_rmsnorm": 145,
-                              "rglru_scan": 0, "rglru_scan_sequential": 0},
+                              "rglru_scan": 0, "rglru_scan_sequential": 0, "flash_attention_bwd": 0,
+                              "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 0},
                      per_step={"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 145,
-                               "rglru_scan": 0, "rglru_scan_sequential": 0}),
+                               "rglru_scan": 0, "rglru_scan_sequential": 0, "flash_attention_bwd": 0,
+                               "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 0}),
     "recurrentgemma-9b": dict(B=2, S=4096, check_tokens=12,
                               prefill={"flash_attention": 12, "flash_attention_wgmma": 12, "fused_rmsnorm": 77,
-                                       "rglru_scan": 26, "rglru_scan_sequential": 0},
+                                       "rglru_scan": 26, "rglru_scan_sequential": 0, "flash_attention_bwd": 0,
+                                       "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 0},
                               per_step={"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 77,
-                                        "rglru_scan": 0, "rglru_scan_sequential": 0}),
+                                        "rglru_scan": 0, "rglru_scan_sequential": 0, "flash_attention_bwd": 0,
+                                        "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 0}),
 }
+# The training path: full qwen3-4b, uncut (36 layers), at B x S tokens a step.
+# Parameters, gradients and the two f32 AdamW moments take 16 bytes a
+# parameter, 70.6 GB of the card's 85 GB; the step's peak is 78.1 GB.
+TRAIN = dict(arch="qwen3-4b", B=1, S=2048, timed_steps=3)
+# One train step at qwen3-4b smoke, card against CPU, from the same weights and
+# batch: the loss within 0.01; each moment leaf within 5 % relative L2 (the
+# matrix products sum in another order on the card, and bf16 activations round
+# the difference up); each leaf's update (parameters after minus before)
+# within 20 % relative L2 of the CPU's (measured 0.088 on an H100). Adam's
+# first update is lr * sign(g) wherever |g| >> eps, so an entry whose gradient
+# lies within the two runs' gap of 0 may move the other way (2 lr); the
+# update's error is about twice the root of the share of such flips. An update
+# of the wrong sign, one not applied or one at twice the lr gives 1 or more.
+TRAIN_CARD_VS_CPU = dict(loss=1e-2, moment_rel_l2=5e-2, update_rel_l2=0.2)
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}  # tests/test_kernels.py
 # At the prefill's flash shape a late row's output is ~0.04 (softmax over ~2048
 # random keys), below the bf16 atol: the error must also be small beside the
 # output's RMS, so that a kernel that drops a kv tile for late rows fails.
 FLASH_MAIN_MAX_ERR_OVER_RMS = 0.1
+# grad_close's atol scales with a gradient's largest entry, which under a
+# causal mask comes from the first keys (P ~ 1 from every row of the group):
+# at the training shape it is as large as a late key's whole gradient. So each
+# flash gradient is also held block by block: the relative L2 error of every
+# (batch, head, 64 rows) block within FLASH_BWD_BLOCK_REL_L2 of its dtype.
+# Measured on an H100: bf16 0.0028-0.0030 at the training shape and at most
+# 0.0033 over the sweep (mma pair; FMA pair 0.0003), f32 1.1e-6; a kernel
+# that drops the diagonal q tile, one q-head of a group or the diagonal key
+# tile of dQ reads 0.54-1.0.
+FLASH_BWD_BLOCK_REL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}
+FLASH_BWD_BLOCK_ROWS = 64
 # The wgmma kernel feeds P to the PV product as two bf16 terms, hi = bf16(p) and
 # lo = bf16(p - hi); so does attention_ref(p_bf16=2). Both sum in f32 and round
 # the output once to bf16, so they part only where the f32 values straddle a
@@ -93,10 +145,14 @@ TWO_TERM_ATOL = 1e-4
 DECODE_CARD_VS_CPU = 2e-2  # the kernels' bf16 atol: decode's logits, card against the CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f32 outside them
-SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
+SOURCES = {  # name -> (route, source, the TPU kernel it replaces, or whose gradient it computes)
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:35"),
     "fused_rmsnorm": ("triton", "src/repro_torch/kernels/fused_rmsnorm.py", "src/repro/kernels/fused_rmsnorm.py:21"),
     "rglru_scan": ("cuda", "src/repro_torch/csrc/rglru_scan.cu", "src/repro/kernels/rglru_scan.py:33"),
+    "flash_attention_bwd": ("cuda", "src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:35"),
+    "fused_rmsnorm_bwd": ("triton", "src/repro_torch/kernels/fused_rmsnorm.py",
+                          "src/repro/kernels/fused_rmsnorm.py:21"),
 }
 
 
@@ -450,6 +506,377 @@ def time_rmsnorm(torch, F, ops, ref, dev, rows: int, D: int, dtype) -> dict:
     }
 
 
+def grad_close(name: str, got, want, **case) -> float:
+    """As ``check_close``, with the atol scaled by the gradient's largest
+    magnitude (at least 1): a gradient sums many products (dk and dv over every
+    query row of a kv group, dscale over every row), and the kernel sums them
+    in another f32 order than the plain version, so near-zero entries carry an
+    error of the order of the terms, not of the result. -> max abs error."""
+    tol = TOL[str(got.dtype).removeprefix("torch.")]
+    want = want.float()
+    scale = max(1.0, float(want.abs().max()))
+    err = (got.float() - want).abs()
+    bad = int((err > tol["atol"] * scale + tol["rtol"] * want.abs()).sum())
+    max_err = float(err.max())
+    if bad or not math.isfinite(max_err):
+        raise AssertionError(f"{name} {case}: {bad} elements out of tolerance {tol} (atol x {scale}), "
+                             f"max abs error {max_err}")
+    return max_err
+
+
+def block_rel_l2(got, want, rows: int = FLASH_BWD_BLOCK_ROWS) -> float:
+    """The largest relative L2 error over the (batch, head, ``rows`` rows)
+    blocks of two (B, N, H, D) tensors (a block whose ``want`` is 0 passes
+    only where ``got`` is 0 too)."""
+    B, N, H, _ = want.shape
+    sums = []
+    for x in (got.float() - want.float(), want.float()):
+        sq = x.new_zeros((B, -(-N // rows) * rows, H))
+        sq[:, :N] = x.square().sum(dim=3)
+        sums.append(sq.unflatten(1, (-1, rows)).sum(dim=2))
+    e, w = sums
+    return float((e / w.clamp_min(1e-30)).sqrt().max())
+
+
+def flash_grad_close(name: str, got, want, **case) -> tuple[float, float]:
+    """``grad_close``, then each (batch, head, 64 rows) block of the gradient
+    within FLASH_BWD_BLOCK_REL_L2. -> (max abs error, largest block error)."""
+    err = grad_close(name, got, want, **case)
+    dtype = str(got.dtype).removeprefix("torch.")
+    rel = block_rel_l2(got, want)
+    if not rel <= FLASH_BWD_BLOCK_REL_L2[dtype]:
+        raise AssertionError(f"{name} {case}: a block's relative L2 error {rel} exceeds "
+                             f"{FLASH_BWD_BLOCK_REL_L2[dtype]}")
+    return err, rel
+
+
+def flash_bwd_sweep(torch, ops, ref, dev) -> tuple[dict, int]:
+    """The backward kernels over FLASH_CASES in f32 and bf16, causal and not,
+    from the forward kernel's own output, through ``ops`` (the mma pair for
+    bf16 at D 16/64/128, the FMA pair otherwise; one launch counted per call),
+    and the FMA pair on the mma pair's cases too, each gradient against the
+    plain backward (``flash_grad_close``). -> (worst error by pair, and worst
+    block error by pair and dtype; cases)."""
+    from repro_torch.kernels import flash_attention as flash
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    worst, n = {"mma": 0.0, "fma": 0.0}, 0
+    for B, S, T, Hq, Hkv, D, window in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, S, Hq, D), generator=g, device=dev).to(dtype)
+            k, v = (torch.randn((B, T, Hkv, D), generator=g, device=dev).to(dtype) for _ in range(2))
+            name = flash.bwd_variant(dtype, D)
+            for causal in (True, False):
+                case = dict(B=B, S=S, T=T, Hq=Hq, Hkv=Hkv, D=D, window=window, causal=causal, dtype=str(dtype))
+                o = ops.flash_attention(q, k, v, causal=causal, window=window)
+                do = torch.randn(o.shape, generator=g, device=dev).to(dtype)
+                before = ops.launch_counts()
+                got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+                after = ops.launch_counts()
+                if (after["flash_attention_bwd"] != before["flash_attention_bwd"] + 1
+                        or after["flash_attention_bwd_mma"] != before["flash_attention_bwd_mma"] + (name == "mma")):
+                    raise AssertionError(f"flash_attention_bwd {case}: expected one launch of the {name} pair")
+                want = ref.attention_bwd_ref(*(t.transpose(1, 2) for t in (q, k, v, o, do)), causal=causal,
+                                             window=window)
+                runs = [(name, got)]
+                if name == "mma":
+                    runs.append(("fma", flash.launch_bwd_fma(q, k, v, o, do, causal=causal, window=window)))
+                for pair, grads in runs:
+                    for gname, x, w in zip(("dq", "dk", "dv"), grads, want):
+                        err, rel = flash_grad_close(f"flash_attention_bwd ({pair}) {gname}", x, w.transpose(1, 2),
+                                                    **case)
+                        worst[pair] = max(worst[pair], err)
+                        key = f"{pair}_block_rel_l2_{str(dtype).removeprefix('torch.')}"
+                        worst[key] = max(worst.get(key, 0.0), rel)
+                    n += 1
+    return worst, n
+
+
+# (rows..., D): rmsnorm_sweep's shapes plus the training path's (norm1, norm2
+# on the f32 sum, final norm; q-norm and k-norm rows)
+RMSNORM_BWD_SHAPES = [(4, 128), (2, 7, 256), (1, 1000, 512), (4, 2560), (128, 128), (32, 128), (5, 3000),
+                      (2048, 2560), (2048 * 32, 128), (2048 * 8, 128)]
+
+
+def rmsnorm_bwd_sweep(torch, ops, ref, dev) -> tuple[float, int]:
+    """The RMSNorm backward kernel over RMSNORM_BWD_SHAPES in f32 and bf16, dx
+    and dscale against the plain backward (``grad_close``), and two launches
+    on the same inputs equal to the bit (no atomics)."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    worst, n = 0.0, 0
+    for shape in RMSNORM_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            s = torch.randn(shape[-1], generator=g, device=dev) * 0.1
+            dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+            dx, ds = ops.fused_rmsnorm_bwd(x, s, dy)
+            want_dx, want_ds = ref.rmsnorm_bwd_ref(x, s, dy)
+            case = dict(shape=shape, dtype=str(dtype))
+            worst = max(worst, grad_close("fused_rmsnorm_bwd dx", dx, want_dx, **case),
+                        grad_close("fused_rmsnorm_bwd dscale", ds, want_ds, **case))
+            again = ops.fused_rmsnorm_bwd(x, s, dy)
+            if not (torch.equal(again[0], dx) and torch.equal(again[1], ds)):
+                raise AssertionError(f"fused_rmsnorm_bwd {case}: two launches on the same inputs differ")
+            n += 1
+    return worst, n
+
+
+def time_flash_bwd(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
+    """The training step's attention backward: B x S tokens, causal, bf16,
+    through ``ops`` (the mma pair) from the wgmma forward's output, held to
+    the plain backward, and timed beside the FMA pair, the plain backward and
+    SDPA's backward through autograd. Bound: 2.5 x the forward's operations
+    (five S x T x D products per head against two) at the bf16 tensor-core
+    peak."""
+    from repro_torch.kernels import flash_attention as flash
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((B, S, Hq, D), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16() for _ in range(2))
+    o = ops.flash_attention(q, k, v)
+    do = torch.randn(o.shape, generator=g, device=dev).bfloat16()
+    t = [a.transpose(1, 2) for a in (q, k, v, o, do)]
+    before = ops.launch_counts()["flash_attention_bwd_mma"]
+    got = ops.flash_attention_bwd(q, k, v, o, do)
+    if ops.launch_counts()["flash_attention_bwd_mma"] != before + 1:
+        raise AssertionError("flash_attention_bwd at the training shape did not take the mma pair")
+    want = ref.attention_bwd_ref(*t)
+    checks = {n: flash_grad_close(f"flash_attention_bwd {n}", x, w.transpose(1, 2), B=B, S=S)
+              for n, x, w in zip(("dq", "dk", "dv"), got, want)}
+    fma = flash.launch_bwd_fma(q, k, v, o, do, causal=True, window=None)
+    fma_checks = {n: flash_grad_close(f"flash_attention_bwd (fma) {n}", x, w.transpose(1, 2), B=B, S=S)
+                  for n, x, w in zip(("dq", "dk", "dv"), fma, want)}
+    del got, want, fma
+    pairs = S * (S + 1) // 2
+    flops = 2.5 * 4 * B * Hq * D * pairs
+    nbytes = 2 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D)  # q, o, do read, dq written; k, v read, dk, dv written
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    leaves = [a.detach().requires_grad_() for a in t[:3]]
+    lo = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    library = lambda: torch.autograd.grad(lo, leaves, t[4], retain_graph=True)  # noqa: E731
+    return {
+        "shape": f"q {B}x{S}x{Hq}x{D}, k/v {B}x{S}x{Hkv}x{D}, bf16, causal",
+        "variant": "mma", "max_abs_err": max(e for e, _ in checks.values()),
+        "fma_max_abs_err": max(e for e, _ in fma_checks.values()),
+        "block_rel_l2": {n: r for n, (_, r) in checks.items()},
+        "fma_block_rel_l2": {n: r for n, (_, r) in fma_checks.items()},
+        **timed("", lambda: ops.flash_attention_bwd(q, k, v, o, do), 10),
+        **timed("fma_", lambda: flash.launch_bwd_fma(q, k, v, o, do, causal=True, window=None), 3),
+        **timed("plain_", lambda: ref.attention_bwd_ref(*t), 3),
+        **timed("library_", library, 10),
+        "library_call": "torch.autograd.grad of F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+        "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes,
+    }
+
+
+def time_rmsnorm_bwd(torch, F, ops, ref, dev, rows: int, D: int, dtype) -> dict:
+    g = torch.Generator(device=dev).manual_seed(19)
+    x = torch.randn((rows, D), generator=g, device=dev).to(dtype)
+    s = torch.randn(D, generator=g, device=dev) * 0.1
+    dy = torch.randn((rows, D), generator=g, device=dev).to(dtype)
+    dx, ds = ops.fused_rmsnorm_bwd(x, s, dy)
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(x, s, dy)
+    err = max(grad_close("fused_rmsnorm_bwd dx", dx, want_dx, rows=rows, D=D),
+              grad_close("fused_rmsnorm_bwd dscale", ds, want_ds, rows=rows, D=D))
+    name = str(dtype).removeprefix("torch.")
+    nbytes = 3 * rows * D * x.element_size() + 8 * D  # x, dy read, dx written; scale read, dscale written
+    bms, by = bound_ms(nbytes, 10 * rows * D, "float32")  # ~10 f32 operations an element
+    xl = x.detach().requires_grad_()
+    wl = (1.0 + s).to(dtype).requires_grad_()
+    y = F.rms_norm(xl, (D,), weight=wl, eps=1e-6)
+    library = lambda: torch.autograd.grad(y, (xl, wl), dy, retain_graph=True)  # noqa: E731
+    return {
+        "shape": f"{rows}x{D} {name}",
+        "max_abs_err": err,
+        **timed("", lambda: ops.fused_rmsnorm_bwd(x, s, dy), 50),
+        **timed("plain_", lambda: ref.rmsnorm_bwd_ref(x, s, dy), 20),
+        **timed("library_", library, 50),
+        "library_call": "torch.autograd.grad of F.rms_norm(weight=1+scale)",
+        "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+    }
+
+
+def train_phase(torch, get_config, ops, dev) -> dict:
+    """``make_train_step`` on full qwen3-4b at TRAIN's B x S, after printing
+    the memory reckoning: a warm-up step, TRAIN["timed_steps"] timed steps on the
+    synchronised host clock with the launches of every kernel counted from 0
+    just before them, then torch.profiler over one more step. -> the phase's
+    line, with "launches" the timed steps' counts."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+
+    B, S, n = TRAIN["B"], TRAIN["S"], TRAIN["timed_steps"]
+    cfg = get_config(TRAIN["arch"])
+    n_params = cfg.n_params()
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    reckoning = {
+        "layers": cfg.n_layers, "n_params": n_params,
+        "params_grads_moments_gb": 16 * n_params / 1e9, "card_gb": card_gb,
+        "logits_f32_gb": 4 * B * S * cfg.vocab / 1e9, "remat": cfg.remat,
+    }
+    emit("train_reckoning", **reckoning)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), train=True)
+    opt = adamw_init(params)
+    step = make_train_step(model, cosine_schedule(3e-4, warmup_steps=1, total_steps=100), AdamWConfig())
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()} for i in range(n + 2)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params, opt, met = step(params, opt, batches[0])  # warm-up: Triton compiles, the gradient buffer
+    warm = {k: float(v) for k, v in met.items()}
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    steps = []
+    for i in range(1, n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batches[i])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append({"step": i + 1, "ms": ms, **{k: float(v) for k, v in met.items()}})
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: v / n for k, v in counts.items()}
+    L = cfg.n_layers
+    recompute = L if cfg.remat != "none" else 0  # "full" and "dots" rerun every unit's attention and norms
+    want = {"flash_attention": L + recompute, "flash_attention_wgmma": L + recompute, "flash_attention_bwd": L,
+            "flash_attention_bwd_mma": L, "fused_rmsnorm": 4 * L + 1 + 4 * recompute,
+            "fused_rmsnorm_bwd": 4 * L + 1, "rglru_scan": 0, "rglru_scan_sequential": 0}
+    mean_ms = sum(st["ms"] for st in steps) / n
+    out = {
+        "arch": cfg.name, "layers": L, "batch": B, "seq": S, "remat": cfg.remat, "moments": "float32",
+        "init_s": init_s, "warmup_step_ms": warmup_ms, "warmup_metrics": warm, "steps": steps,
+        "mean_step_ms": mean_ms, "tokens_per_s": B * S / (mean_ms / 1e3), "peak_memory_gb": peak_gb,
+        "launches_per_step": per_step,
+    }
+    finite = all(math.isfinite(st[k]) for st in steps for k in ("loss", "grad_norm", "lr"))
+    if not finite or per_step != want:
+        emit("train", **out)
+        raise AssertionError(f"train: finite {finite}, launches per step {per_step}, expected {want}")
+    out["profile"] = profile_step(torch, lambda: step(params, opt, batches[n + 1]))
+    del params, opt, step, batches
+    torch.cuda.empty_cache()
+    emit("train", **out)
+    return counts
+
+
+def profile_step(torch, fn) -> dict:
+    """torch.profiler over one call of ``fn`` that ends in a synchronise: wall
+    ms, device busy ms, idle share, the device ops that take the most time (as
+    ``profile_phase``), and the host ops that take the most host time of their
+    own (self CPU time: where a checkpoint's recompute runs inside the first
+    backward node of its unit, that node's self time holds it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _kernel_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    host_top = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": (1 - busy_ms / wall_ms) if busy_ms else "not measured",
+        "kernel_launches": sum(e.count for e in kernels),
+        "top": [{"name": e.key[:80], "count": e.count, "device_ms": e.self_device_time_total / 1e3} for e in top],
+        "host_top": [{"name": e.key[:80], "count": e.count, "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                     for e in host_top],
+    }
+
+
+def trainer_phase(torch, ops, dev) -> dict:
+    """``Trainer`` at qwen3-4b smoke on the card, sampler and watchdog on:
+    run A trains 3 steps and checkpoints, a second Trainer in A resumes to 6,
+    run B trains 6 in one go; A's parameters and optimizer state must equal
+    B's to the bit, and A's heartbeat, metrics.json and host_profile.html
+    exist. -> the launches of the three runs."""
+    from repro_torch.launch.train import Trainer, TrainJobConfig
+    from repro_torch.models.modules import tree_leaves
+
+    k, n = 3, 6
+    base = dict(arch=TRAIN["arch"], smoke=True, device=str(dev), global_batch=4, seq_len=64, lr=1e-2,
+                sample_period_s=0.05)
+
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = Path(tmp) / "a", Path(tmp) / "b"
+        first = Trainer(TrainJobConfig(**base, steps=k, ckpt_every=k, out_dir=str(a))).run()
+        ta = Trainer(TrainJobConfig(**base, steps=n, ckpt_every=k, out_dir=str(a)))
+        resumed = ta.run()
+        tb = Trainer(TrainJobConfig(**base, steps=n, ckpt_every=n, out_dir=str(b)))
+        whole = tb.run()
+        counts = ops.launch_counts()
+        pairs = zip(tree_leaves(ta._state_tree()), tree_leaves(tb._state_tree()))
+        mismatched = [".".join(p) for (p, x), (_, y) in pairs
+                      if not torch.equal(torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu())]
+        with open(a / "metrics.json") as f:
+            resumed_steps = [m["step"] for m in json.load(f)["steps"]]
+        files = {name: (a / name).exists() for name in ("heartbeat", "metrics.json", "host_profile.html")}
+    out = {
+        "arch": ta.cfg.name, "steps": n, "checkpoint_at": k, "first_run": first, "resumed_run": resumed,
+        "whole_run": whole, "resumed_steps": resumed_steps, "leaves_differing": mismatched, "files": files,
+        "launches": counts,
+    }
+    emit("trainer", **out)
+    if mismatched or resumed_steps != list(range(k + 1, n + 1)) or not all(files.values()):
+        raise AssertionError("trainer: the resumed run is not the uninterrupted one, or an artifact is missing")
+    return counts
+
+
+def train_check(torch, get_config, dev) -> dict:
+    """One train step at qwen3-4b smoke through the kernels on the card and
+    through the plain versions on the CPU, from the same weights and batch,
+    held to TRAIN_CARD_VS_CPU."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.models.modules import tree_leaves, tree_map_with_path
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    cfg = get_config(TRAIN["arch"], smoke=True)
+    gpu, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
+    params_cpu = cpu.init(torch.Generator().manual_seed(0), train=True)
+    params = tree_map_with_path(lambda _, x: x.to(dev, copy=True), params_cpu)  # each step updates its own copy
+    before = tree_map_with_path(lambda _, x: x.clone(), params_cpu)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0)).batch(0)
+    lr_fn = cosine_schedule(1e-2, warmup_steps=0, total_steps=10)
+    out = {}
+    for name, model, p in (("card", gpu, params), ("cpu", cpu, params_cpu)):
+        st = adamw_init(p)
+        b = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
+        p, st, met = make_train_step(model, lr_fn)(p, st, b)
+        out[name] = (p, st, {k: float(v) for k, v in met.items()})
+    (pg, sg, mg), (pc, sc, mc) = out["card"], out["cpu"]
+
+    moment_rel = max(float((x.cpu().float() - y.float()).norm() / y.float().norm().clamp_min(1e-30))
+                     for part in ("m", "v") for (_, x), (_, y) in zip(tree_leaves(sg[part]), tree_leaves(sc[part])))
+    update_rel = max(float((x.cpu() - y).norm() / (y - p0).norm().clamp_min(1e-30))
+                     for (_, x), (_, y), (_, p0) in zip(tree_leaves(pg), tree_leaves(pc), tree_leaves(before)))
+    res = {
+        "arch": cfg.name, "loss_card": mg["loss"], "loss_cpu": mc["loss"], "loss_diff": abs(mg["loss"] - mc["loss"]),
+        "grad_norm_card": mg["grad_norm"], "grad_norm_cpu": mc["grad_norm"], "lr": mc["lr"],
+        "moment_max_rel_l2": moment_rel, "update_max_rel_l2": update_rel, "bounds": TRAIN_CARD_VS_CPU,
+    }
+    emit("train_check", **res)
+    if not (res["loss_diff"] < TRAIN_CARD_VS_CPU["loss"] and moment_rel < TRAIN_CARD_VS_CPU["moment_rel_l2"]
+            and update_rel < TRAIN_CARD_VS_CPU["update_rel_l2"]):
+        raise AssertionError(f"train step, card against CPU, out of bound: {res}")
+    return res
+
+
 # (steps a thread, warps a block) that --scan-tilings builds and times; the
 # port runs the first, csrc/rglru_scan.cu's default
 SCAN_TILINGS = [(8, 4), (8, 8), (6, 4), (12, 4), (4, 4), (8, 2)]
@@ -536,7 +963,10 @@ def main() -> int:
     triton_s = time.perf_counter() - t0
     ptxas = {name: ptxas_report(build.library_path(name).with_suffix(".log").read_text()) for name in cuda_kernels}
     emit("build", nvcc_s=nvcc_s, first_triton_compile_s=triton_s, ptxas=ptxas)
-    for lib, kernel in (("flash_attention", "wgmma"), ("rglru_scan", "rglru_chunked")):
+    # the kernels the main paths run (the FMA backward pair's bf16 D = 16 dQ
+    # instance spills, but ops runs the mma pair there)
+    for lib, kernel in (("flash_attention", "wgmma"), ("rglru_scan", "rglru_chunked"),
+                        ("flash_attention_bwd", "_mma_")):
         spills = {k: r for k, r in ptxas[lib].items()
                   if kernel in k and (r.get("spill_stores", 0) or r.get("spill_loads", 0))}
         if spills:
@@ -545,12 +975,14 @@ def main() -> int:
     # -- kernels against their plain versions, then timed at the main paths' shapes ---------
     qwen, hyb = get_config("qwen3-4b"), get_config("recurrentgemma-9b")
     sweep_err, sweep_cases = {}, {}
-    sweeps = {"flash_attention": flash_sweep, "fused_rmsnorm": rmsnorm_sweep, "rglru_scan": rglru_sweep}
+    sweeps = {"flash_attention": flash_sweep, "fused_rmsnorm": rmsnorm_sweep, "rglru_scan": rglru_sweep,
+              "flash_attention_bwd": flash_bwd_sweep, "fused_rmsnorm_bwd": rmsnorm_bwd_sweep}
     for name, sweep in sweeps.items():
         sweep_err[name], sweep_cases[name] = sweep(torch, ops, ref, dev)
     emit("kernels_sweep", cases=sweep_cases, max_abs_err=sweep_err)
     qB, qS = PATHS["qwen3-4b"]["B"], PATHS["qwen3-4b"]["S"]
     hB, hS = PATHS["recurrentgemma-9b"]["B"], PATHS["recurrentgemma-9b"]["S"]
+    tB, tS = TRAIN["B"], TRAIN["S"]
     timing = {  # the first row of each kernel is its summary row
         "flash_attention": [time_flash(torch, F, ops, ref, dev, qwen, qB, qS),
                             time_flash(torch, F, ops, ref, dev, hyb, hB, hS)],
@@ -564,6 +996,14 @@ def main() -> int:
         ],
         # the hybrid prefill's, and one prompt through Model.forward
         "rglru_scan": time_rglru(torch, ops, ref, dev, [(hB, hS, hyb.lru_width), (1, hS, hyb.lru_width)]),
+        # the training step's (TRAIN: B x S tokens of qwen3-4b)
+        "flash_attention_bwd": [time_flash_bwd(torch, F, ops, ref, dev, qwen, tB, tS)],
+        "fused_rmsnorm_bwd": [
+            time_rmsnorm_bwd(torch, F, ops, ref, dev, tB * tS, qwen.d_model, torch.bfloat16),  # norm1, final_norm
+            time_rmsnorm_bwd(torch, F, ops, ref, dev, tB * tS, qwen.d_model, torch.float32),  # norm2 on the f32 sum
+            time_rmsnorm_bwd(torch, F, ops, ref, dev, tB * tS * qwen.n_heads, qwen.head_dim, torch.bfloat16),
+            time_rmsnorm_bwd(torch, F, ops, ref, dev, tB * tS * qwen.n_kv_heads, qwen.head_dim, torch.bfloat16),
+        ],
     }
     for name, rows in timing.items():
         for row in rows:
@@ -578,11 +1018,18 @@ def main() -> int:
                 launches[name] += n
         torch.cuda.empty_cache()
 
+    # -- the training path: train at full width, the Trainer at smoke size, card vs CPU -----------
+    for counts in (train_phase(torch, get_config, ops, dev), trainer_phase(torch, ops, dev)):
+        for name, n in counts.items():
+            launches[name] += n
+    torch.cuda.empty_cache()
+    train_check(torch, get_config, dev)
+
     summary = []
     for name, rows in timing.items():
         main_row = rows[0]
         route, src, replaces = SOURCES[name]
-        main_kernel = {"flash_attention": "wgmma", "rglru_scan": "chunked"}.get(name)
+        main_kernel = {"flash_attention": "wgmma", "rglru_scan": "chunked", "flash_attention_bwd": "mma"}.get(name)
         worst = sweep_err[name][main_kernel] if main_kernel else sweep_err[name]
         row = {
             "name": name, "route": route, "source": src, "replaces": replaces, "launches": launches[name],
@@ -600,6 +1047,15 @@ def main() -> int:
             }
             if n_wgmma != launches[name]:
                 raise AssertionError(f"flash launches on the main paths: {n_wgmma} of {launches[name]} on wgmma")
+        if name == "flash_attention_bwd":  # the main path's pair, and the FMA pair beside it
+            n_mma = launches["flash_attention_bwd_mma"]
+            row["variants"] = {
+                "mma": {"launches": n_mma, "ms": [r["ms"] for r in rows], "max_abs_err": row["max_abs_err"]},
+                "fma": {"launches": launches[name] - n_mma, "ms": [r["fma_ms"] for r in rows],
+                        "max_abs_err": max(sweep_err[name]["fma"], *(r["fma_max_abs_err"] for r in rows))},
+            }
+            if n_mma != launches[name]:
+                raise AssertionError(f"flash backward launches on the main paths: {n_mma} of {launches[name]} on mma")
         if name == "rglru_scan":  # ops launches only the chunked kernel; the sequential one is timed beside it
             row["variants"] = {
                 "chunked": {"launches": launches[name], "shapes": [r["shape"] for r in rows],
@@ -640,13 +1096,15 @@ def drive_path(torch, get_config, ops, dev, arch: str) -> tuple[dict, dict]:
     params = server.params
     tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (B, S))).to(dev)
     t0 = time.perf_counter()
-    model.forward(params, {"tokens": tokens})  # compiles the Triton kernel for the prefill's shapes
+    with torch.inference_mode():
+        model.forward(params, {"tokens": tokens})  # compiles the Triton kernel for the prefill's shapes
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    logits, _ = model.forward(params, {"tokens": tokens})
+    with torch.inference_mode():
+        logits, _ = model.forward(params, {"tokens": tokens})
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_counts = ops.launch_counts()
@@ -709,7 +1167,7 @@ def profile_phase(torch, model, params, tokens, dev) -> dict:
     out = {}
     for name, fn in (("prefill", lambda: model.forward(params, {"tokens": tokens})), ("decode_3_steps", decode_steps)):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, torch.inference_mode():
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -751,11 +1209,12 @@ def smoke_check(torch, get_config, Model, ops, dev, arch: str, n_tokens: int) ->
     params = tree_map_with_path(lambda _, a: a.to(dev), params_cpu)
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (1, n_tokens)))
     ops.reset_launch_counts()
-    fwd, _ = gpu.forward(params, {"tokens": toks.to(dev)})
+    with torch.inference_mode():
+        fwd, _ = gpu.forward(params, {"tokens": toks.to(dev)})
+        fwd_cpu, _ = cpu.forward(params_cpu, {"tokens": toks})
     flash_counts = {k: ops.launch_counts()[k] for k in ("flash_attention", "flash_attention_wgmma")}
     if not flash_counts["flash_attention"] == flash_counts["flash_attention_wgmma"] > 0:
         raise AssertionError(f"{arch} smoke prefill: flash launches {flash_counts}, all expected on wgmma")
-    fwd_cpu, _ = cpu.forward(params_cpu, {"tokens": toks})
     fwd = fwd.cpu().float()
     fwd_cpu = fwd_cpu.float()
     state, state_cpu = gpu.init_decode_state(1, 32), cpu.init_decode_state(1, 32)

@@ -56,7 +56,7 @@ class ModelConfig:
     # tensors (the CUDA kernel on the card, its plain version on the CPU).
     # Kept so configs compare field by field with the JAX package's.
     attention_impl: str = "xla"
-    remat: str = "full"  # ignored by the port: it has no backward pass yet
+    remat: str = "full"  # none | full | dots: the stacked units under autograd (models/transformer.py)
     input_mode: str = "tokens"  # tokens | embeddings
     logit_softcap: float = 0.0
     notes: str = ""

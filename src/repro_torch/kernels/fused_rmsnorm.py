@@ -15,6 +15,16 @@ width ``D``. Blocks of rows keep each program at a few thousand elements, so
 the narrow qk-norm rows (D = head_dim) still give each program enough work.
 
 Its plain version is ``ref.rmsnorm_ref``.
+
+The backward (:func:`launch_bwd`; the JAX package has no backward kernel, it
+trains through plain ``jnp``) is bound by bytes too: x and dy read once, dx
+written once. One program walks a stride of row blocks with the same row
+layout: it recomputes ``rsqrt(mean(x^2) + eps)`` from x and writes
+``dx = r * (g - xhat * mean(g * xhat))`` with ``g = dy * (1 + scale)``; the
+column sum ``dscale = sum_rows(dy * xhat)`` is kept per program in f32
+registers, written as one row of partials, and a second kernel sums the
+partials column by column. No atomics: the result is the same on every run.
+Its plain version is ``ref.rmsnorm_bwd_ref``.
 """
 
 from __future__ import annotations
@@ -49,14 +59,51 @@ def _kernel():
             y = x * inv[:, None] * (1.0 + s[None, :])
             tl.store(y_ptr + r64[:, None] * y_stride + c[None, :], y.to(y_ptr.dtype.element_ty), mask=m)
 
-        _KERNEL = (triton, _rmsnorm_kernel)
+        @triton.jit
+        def _rmsnorm_bwd_kernel(
+            x_ptr, dy_ptr, s_ptr, dx_ptr, part_ptr, rows, D, x_stride, dy_stride, dx_stride, eps,
+            BLOCK_R: tl.constexpr, BLOCK_D: tl.constexpr,
+        ):
+            pid = tl.program_id(0)
+            step = tl.num_programs(0) * BLOCK_R
+            c = tl.arange(0, BLOCK_D)
+            cmask = c < D
+            w = 1.0 + tl.load(s_ptr + c, mask=cmask, other=0.0).to(tl.float32)
+            dscale = tl.zeros((BLOCK_D,), dtype=tl.float32)
+            for r0 in range(pid * BLOCK_R, rows, step):
+                r = r0 + tl.arange(0, BLOCK_R)
+                r64 = r.to(tl.int64)
+                m = (r < rows)[:, None] & cmask[None, :]
+                x = tl.load(x_ptr + r64[:, None] * x_stride + c[None, :], mask=m, other=0.0).to(tl.float32)
+                dy = tl.load(dy_ptr + r64[:, None] * dy_stride + c[None, :], mask=m, other=0.0).to(tl.float32)
+                inv = 1.0 / tl.sqrt(tl.sum(x * x, axis=1) / D + eps)
+                xhat = x * inv[:, None]
+                g = dy * w[None, :]
+                mean_gx = tl.sum(g * xhat, axis=1) / D
+                dx = inv[:, None] * (g - xhat * mean_gx[:, None])
+                tl.store(dx_ptr + r64[:, None] * dx_stride + c[None, :], dx.to(dx_ptr.dtype.element_ty), mask=m)
+                dscale += tl.sum(dy * xhat, axis=0)
+            tl.store(part_ptr + pid * D + c, dscale, mask=cmask)
+
+        @triton.jit
+        def _colsum_kernel(part_ptr, out_ptr, n, D, BLOCK_N: tl.constexpr, BLOCK_C: tl.constexpr):
+            c = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
+            cmask = c < D
+            acc = tl.zeros((BLOCK_C,), dtype=tl.float32)
+            for n0 in range(0, n, BLOCK_N):
+                i = n0 + tl.arange(0, BLOCK_N)
+                m = (i < n)[:, None] & cmask[None, :]
+                acc += tl.sum(tl.load(part_ptr + i[:, None] * D + c[None, :], mask=m, other=0.0), axis=0)
+            tl.store(out_ptr + c, acc, mask=cmask)
+
+        _KERNEL = (triton, _rmsnorm_kernel, _rmsnorm_bwd_kernel, _colsum_kernel)
     return _KERNEL
 
 
 def launch(x2: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """x2: (rows, D) CUDA tensor with unit column stride; scale: (D,) f32.
     The caller (``ops.fused_rmsnorm``) has checked devices and types."""
-    triton, kern = _kernel()
+    triton, kern, _, _ = _kernel()
     rows, D = x2.shape
     y = torch.empty((rows, D), dtype=x2.dtype, device=x2.device)
     block_d = triton.next_power_of_2(D)
@@ -67,3 +114,26 @@ def launch(x2: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
         BLOCK_R=block_r, BLOCK_D=block_d, num_warps=8 if block_d >= 2048 else 4,
     )
     return y
+
+
+def launch_bwd(
+    x2: torch.Tensor, scale: torch.Tensor, dy2: torch.Tensor, eps: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """x2, dy2: (rows, D) CUDA tensors with unit column stride (dy2 in x2's
+    dtype or f32); scale: (D,) f32. The caller (``ops.fused_rmsnorm_bwd``)
+    has checked devices and types. -> (dx in x2's dtype, dscale f32)."""
+    triton, _, kern, colsum = _kernel()
+    rows, D = x2.shape
+    dx = torch.empty((rows, D), dtype=x2.dtype, device=x2.device)
+    block_d = triton.next_power_of_2(D)
+    block_r = max(1, min(64, 4096 // block_d))
+    # a stride of row blocks a program, two programs an SM: few rows of partials
+    programs = min(triton.cdiv(rows, block_r), 2 * torch.cuda.get_device_properties(x2.device).multi_processor_count)
+    part = torch.empty((programs, D), dtype=torch.float32, device=x2.device)
+    kern[(programs,)](
+        x2, dy2, scale, dx, part, rows, D, x2.stride(0), dy2.stride(0), dx.stride(0), eps,
+        BLOCK_R=block_r, BLOCK_D=block_d, num_warps=8 if block_d >= 2048 else 4,
+    )
+    dscale = torch.empty(D, dtype=torch.float32, device=x2.device)
+    colsum[(triton.cdiv(D, 128),)](part, dscale, programs, D, BLOCK_N=32, BLOCK_C=128, num_warps=4)
+    return dx, dscale

@@ -8,6 +8,13 @@ version in ``ref.py`` and the counter does not move. Any other device, an
 unsupported dtype or head dim, or a last axis that is not contiguous raises
 (the scan needs both inputs contiguous), as does a layout the wgmma flash
 kernel cannot read through TMA, on either device.
+
+Gradients: where autograd records (grad mode on and an input that requires
+grad), ``flash_attention`` and ``fused_rmsnorm`` run through a
+``torch.autograd.Function`` whose backward calls ``flash_attention_bwd`` or
+``fused_rmsnorm_bwd``, which dispatch the same way (the hand-written backward
+kernel for a CUDA tensor, the plain backward in ``ref.py`` for a CPU one).
+``rglru_scan`` has no backward yet and raises when a gradient reaches it.
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ FLASH_ATTENTION_LAUNCHES = 0  # both flash kernels
 FLASH_ATTENTION_WGMMA_LAUNCHES = 0  # those that took the wgmma kernel
 FUSED_RMSNORM_LAUNCHES = 0
 RGLRU_SCAN_LAUNCHES = 0  # the chunked kernel, the only one ops launches
+FLASH_ATTENTION_BWD_LAUNCHES = 0  # one per backward (a pair of kernels), either variant
+FLASH_ATTENTION_BWD_MMA_LAUNCHES = 0  # those that took the mma pair
+FUSED_RMSNORM_BWD_LAUNCHES = 0  # one per backward: the row pass and the column sum
 
 
 def launch_counts() -> dict[str, int]:
@@ -36,16 +46,23 @@ def launch_counts() -> dict[str, int]:
         "fused_rmsnorm": FUSED_RMSNORM_LAUNCHES,
         "rglru_scan": RGLRU_SCAN_LAUNCHES,
         "rglru_scan_sequential": _rglru.SEQUENTIAL_LAUNCHES,  # never launched through ops
+        "flash_attention_bwd": FLASH_ATTENTION_BWD_LAUNCHES,
+        "flash_attention_bwd_mma": FLASH_ATTENTION_BWD_MMA_LAUNCHES,
+        "fused_rmsnorm_bwd": FUSED_RMSNORM_BWD_LAUNCHES,
     }
 
 
 def reset_launch_counts() -> None:
     global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_WGMMA_LAUNCHES, FUSED_RMSNORM_LAUNCHES, RGLRU_SCAN_LAUNCHES
+    global FLASH_ATTENTION_BWD_LAUNCHES, FLASH_ATTENTION_BWD_MMA_LAUNCHES, FUSED_RMSNORM_BWD_LAUNCHES
     FLASH_ATTENTION_LAUNCHES = 0
     FLASH_ATTENTION_WGMMA_LAUNCHES = 0
     FUSED_RMSNORM_LAUNCHES = 0
     RGLRU_SCAN_LAUNCHES = 0
     _rglru.SEQUENTIAL_LAUNCHES = 0
+    FLASH_ATTENTION_BWD_LAUNCHES = 0
+    FLASH_ATTENTION_BWD_MMA_LAUNCHES = 0
+    FUSED_RMSNORM_BWD_LAUNCHES = 0
 
 
 def _device_type(*tensors: torch.Tensor) -> str:
@@ -66,7 +83,7 @@ def flash_attention(
     causal: bool = True,
     window: int | None = None,
 ) -> torch.Tensor:
-    device = _device_type(q, k, v)
+    _device_type(q, k, v)
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"expected q (B,S,Hq,D) and k, v (B,T,Hkv,D); got {q.shape}, {k.shape}, {v.shape}")
     B, _, Hq, D = q.shape
@@ -80,22 +97,84 @@ def flash_attention(
         raise ValueError("the head-dim axis must be contiguous")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive or None, got {window}")
-    wgmma = _flash.variant(q.dtype, D) == "wgmma"
-    if wgmma:
+    if _wgmma(q):
         _flash.check_tma_layout(q, k, v)
-    if device == "cpu":
+    if _records(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _flash_fwd(q, k, v, causal, window)
+
+
+def _records(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _wgmma(q: torch.Tensor) -> bool:
+    return _flash.variant(q.dtype, q.shape[-1]) == "wgmma"
+
+
+def _flash_fwd(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
+    if q.device.type == "cpu":
         o = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window)
         return o.transpose(1, 2)
     global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_WGMMA_LAUNCHES
     o = _flash.launch(q, k, v, causal=causal, window=window)
     FLASH_ATTENTION_LAUNCHES += 1
-    FLASH_ATTENTION_WGMMA_LAUNCHES += wgmma
+    FLASH_ATTENTION_WGMMA_LAUNCHES += _wgmma(q)
     return o
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o = _flash_fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # (B, S, Hq, D)
+    k: torch.Tensor,  # (B, T, Hkv, D)
+    v: torch.Tensor,
+    o: torch.Tensor,  # (B, S, Hq, D): the forward's output
+    do: torch.Tensor,  # its gradient
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`flash_attention` -> (dq, dk, dv), in q's dtype
+    and layout. Takes what the forward took (checked as there), plus its
+    output and the output's gradient, both of q's shape and dtype."""
+    device = _device_type(q, k, v, o, do)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if o.stride(-1) != 1:
+        raise ValueError("the head-dim axis must be contiguous")
+    do = do.contiguous()  # autograd may hand an expanded or strided gradient
+    mma = _flash.bwd_variant(q.dtype, q.shape[-1]) == "mma"
+    if mma:
+        _flash.check_tma_layout(q, k, v, o, do)
+    if device == "cpu":
+        t = [a.transpose(1, 2) for a in (q, k, v, o, do)]
+        return tuple(g.transpose(1, 2) for g in ref.attention_bwd_ref(*t, causal=causal, window=window))
+    global FLASH_ATTENTION_BWD_LAUNCHES, FLASH_ATTENTION_BWD_MMA_LAUNCHES
+    grads = _flash.launch_bwd(q, k, v, o, do, causal=causal, window=window)
+    FLASH_ATTENTION_BWD_LAUNCHES += 1
+    FLASH_ATTENTION_BWD_MMA_LAUNCHES += mma
+    return grads
 
 
 def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis; x (..., D) in f32 or bf16, scale (D,) f32."""
-    device = _device_type(x, scale)
+    _device_type(x, scale)
     D = x.shape[-1]
     if scale.shape != (D,):
         raise ValueError(f"scale shape {tuple(scale.shape)} does not match last axis {D}")
@@ -105,27 +184,85 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) ->
         raise TypeError(f"scale must be float32, got {scale.dtype}")
     if x.stride(-1) != 1 or scale.stride(-1) != 1:
         raise ValueError("the normalised axis must be contiguous")
-    if device == "cpu":
+    if _records(x, scale):
+        return _FusedRMSNorm.apply(x, scale, eps)
+    return _rmsnorm_fwd(x, scale, eps)
+
+
+def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps=eps)
     global FUSED_RMSNORM_LAUNCHES
-    y = _rmsnorm.launch(x.view(-1, D), scale, eps)
+    y = _rmsnorm.launch(x.view(-1, x.shape[-1]), scale, eps)
     FUSED_RMSNORM_LAUNCHES += 1
     return y.view(x.shape)
+
+
+class _FusedRMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = fused_rmsnorm_bwd(x, scale, dy, eps=ctx.eps)
+        return dx, dscale, None
+
+
+def fused_rmsnorm_bwd(
+    x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *, eps: float = 1e-6
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`fused_rmsnorm` -> (dx in x's dtype and shape,
+    dscale f32). dy has x's shape, in x's dtype or f32."""
+    device = _device_type(x, scale, dy)
+    D = x.shape[-1]
+    if dy.shape != x.shape or dy.dtype not in (x.dtype, torch.float32):
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must have x's shape {tuple(x.shape)}, in {x.dtype} or f32")
+    if x.stride(-1) != 1:
+        raise ValueError("the normalised axis must be contiguous")
+    dy = dy.contiguous()  # autograd may hand an expanded or strided gradient
+    if device == "cpu":
+        return ref.rmsnorm_bwd_ref(x, scale, dy, eps=eps)
+    global FUSED_RMSNORM_BWD_LAUNCHES
+    dx, dscale = _rmsnorm.launch_bwd(x.view(-1, D), scale, dy.view(-1, D), eps)
+    FUSED_RMSNORM_BWD_LAUNCHES += 1
+    return dx.view(x.shape), dscale
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t * h_{t-1} + b_t`` along S with ``h_{-1} = 0``; a, b (B, S, W)
     contiguous, one dtype, f32 or bf16. -> h (B, S, W) in a's dtype."""
-    device = _device_type(a, b)
+    _device_type(a, b)
     if a.ndim != 3 or a.shape != b.shape:
         raise ValueError(f"expected a and b of one (B, S, W) shape; got {tuple(a.shape)}, {tuple(b.shape)}")
     if a.dtype not in DTYPES or b.dtype != a.dtype:
         raise TypeError(f"dtypes {a.dtype}, {b.dtype}: need one of {DTYPES} for both")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
-    if device == "cpu":
+    if _records(a, b):
+        return _RGLRUScan.apply(a, b)
+    return _rglru_fwd(a, b)
+
+
+def _rglru_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.device.type == "cpu":
         return ref.rglru_ref(a, b)
     global RGLRU_SCAN_LAUNCHES
     h = _rglru.launch(a, b)
     RGLRU_SCAN_LAUNCHES += 1
     return h
+
+
+class _RGLRUScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        return _rglru_fwd(a, b)
+
+    @staticmethod
+    def backward(ctx, dh):
+        raise NotImplementedError(
+            "rglru_scan has no backward yet (a reverse-time scan): ROADMAP, the hybrid training slice"
+        )

@@ -13,6 +13,17 @@ import math
 import torch
 
 
+def _attention_mask(S: int, T: int, causal: bool, window: int | None, device) -> torch.Tensor:
+    q_idx = torch.arange(S, device=device)[:, None]
+    k_idx = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_idx <= q_idx
+    if window is not None:
+        mask &= (q_idx - k_idx) < window
+    return mask
+
+
 def attention_ref(
     q: torch.Tensor,  # (B, Hq, S, D)
     k: torch.Tensor,  # (B, Hkv, T, D)
@@ -34,14 +45,7 @@ def attention_ref(
     qg = q.reshape(B, Hkv, G, S, D).float()
     kf, vf = k.float(), v.float()
     s = torch.einsum("bkgsd,bktd->bkgst", qg, kf) / math.sqrt(D)
-    q_idx = torch.arange(S, device=q.device)[:, None]
-    k_idx = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_idx <= q_idx
-    if window is not None:
-        mask &= (q_idx - k_idx) < window
-    s = s.masked_fill(~mask, -math.inf)
+    s = s.masked_fill(~_attention_mask(S, T, causal, window, q.device), -math.inf)
     if p_bf16:
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
         hi = p.bfloat16().float()
@@ -55,11 +59,60 @@ def attention_ref(
     return o.reshape(B, Hq, S, D).to(q.dtype)
 
 
+def attention_bwd_ref(
+    q: torch.Tensor,  # (B, Hq, S, D)
+    k: torch.Tensor,  # (B, Hkv, T, D)
+    v: torch.Tensor,
+    o: torch.Tensor,  # (B, Hq, S, D): the forward's output
+    do: torch.Tensor,  # (B, Hq, S, D): its gradient
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`attention_ref` by its explicit formulas, in f32:
+    the row log-sum-exp from q and k, ``P = exp(s - lse)``,
+    ``Dr = rowsum(do * o)`` over the given output, ``dS = P * (dP - Dr)``
+    with ``dP = do v^T``; dk and dv summed over the q heads of each kv group.
+    -> (dq, dk, dv) in q's dtype."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, G, S, D).float()
+    dog = do.reshape(B, Hkv, G, S, D).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, kf) * scale
+    s = s.masked_fill(~_attention_mask(S, T, causal, window, q.device), -math.inf)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    dr = (dog * o.reshape(B, Hkv, G, S, D).float()).sum(dim=-1, keepdim=True)
+    ds = p * (torch.einsum("bkgsd,bktd->bkgst", dog, vf) - dr)
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf) * scale
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg) * scale
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)
+    return dq.reshape(B, Hq, S, D).to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(
+    x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *, eps: float = 1e-6
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`rmsnorm_ref` by its explicit formulas, in f32:
+    with ``r = rsqrt(mean(x^2) + eps)``, ``xhat = x r`` and
+    ``g = dy (1 + scale)``, ``dx = r (g - xhat mean(g xhat))`` and
+    ``dscale = sum over rows of dy xhat``. -> (dx in x's dtype, dscale f32)."""
+    xf, dyf = x.float(), dy.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    g = dyf * (1.0 + scale.float())
+    dx = r * (g - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+    dscale = (dyf * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale
 
 
 def rglru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -86,6 +86,7 @@ class BatchedServer:
                 self.slots[i] = queue.pop(0)
                 self.consumed[i] = 0
 
+    @torch.inference_mode()
     def run(self, requests: list[Request]) -> dict:
         queue = list(requests)
         t0 = time.time()

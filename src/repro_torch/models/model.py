@@ -1,10 +1,13 @@
-"""Top-level Model API: spec / init / forward / decode.
+"""Top-level Model API: spec / init / forward / loss / decode.
 
-``Model`` is the entry point the server, ``chip_smoke.py`` and the tests
-share. Activations are bf16, as in the JAX package. A model lives on one
-device, ``cuda`` unless the caller asks for the CPU: on the card every norm
-and the prefill attention run the hand-written kernels, on the CPU their
-plain versions.
+``Model`` is the entry point the server, the trainer, ``chip_smoke.py`` and
+the tests share. Activations are bf16, as in the JAX package. A model lives
+on one device, ``cuda`` unless the caller asks for the CPU: on the card every
+norm and the prefill attention run the hand-written kernels (and, under
+autograd, their hand-written backward kernels), on the CPU their plain
+versions. ``forward`` and ``loss`` follow the caller's autograd mode: the
+trainer differentiates them, the server and ``chip_smoke.py``'s prefill run
+them under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -57,14 +60,38 @@ class Model:
             spec["lm_head"] = lm_head_spec(cfg.vocab, cfg.d_model)
         return spec
 
-    def init(self, generator: torch.Generator | None = None) -> dict:
+    def init(self, generator: torch.Generator | None = None, *, train: bool = False) -> dict:
         """Random parameters on the model's device (seed 0 unless a generator
-        on that device is given)."""
+        on that device is given). ``train`` stores every parameter in f32, as
+        the JAX package trains them; otherwise the matrix weights the model
+        only ever reads in bf16 are stored in bf16 (``storage_dtype``)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on {self.device}")
-        return init_params(self.spec(), generator)
+        return init_params(self.spec(), generator, train=train)
+
+    @staticmethod
+    def grad_leaves(params, grads) -> dict:
+        """A params tree for one forward and backward pass whose gradients are
+        added into ``grads`` (f32, the params' structure) in place.
+
+        Each leaf is a new autograd leaf that shares its parameter's memory,
+        with ``.grad`` set to its place in ``grads``; autograd adds into a
+        ``.grad`` that is already there, so microbatches sum where they lie.
+        The layer stack's stacked weights become per-unit leaves
+        (``transformer.stack_grad_leaves``)."""
+
+        def leaf(p, g):
+            t = p.detach().requires_grad_(True)
+            t.grad = g
+            return t
+
+        def tree(p, g):
+            return {k: tree(p[k], g[k]) for k in p} if isinstance(p, dict) else leaf(p, g)
+
+        return {k: tfm.stack_grad_leaves(v, grads[k], leaf) if k == "layers" else tree(v, grads[k])
+                for k, v in params.items()}
 
     @property
     def n_params(self) -> int:
@@ -86,7 +113,6 @@ class Model:
             logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
         return logits
 
-    @torch.inference_mode()
     def forward(self, params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """-> (logits (B,S,V), load-balance loss (0: no MoE in this slice))."""
         x = self._embed(params, batch["tokens"])
@@ -97,6 +123,21 @@ class Model:
         x, x_sum = tfm.stack_apply(params["layers"], x, self.cfg, positions)
         x = rms_norm(params["final_norm"], x if x_sum is None else x_sum).to(x.dtype)
         return self.logits_fn(params, x), torch.zeros((), device=x.device)
+
+    def loss(self, params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Causal-LM cross entropy + 1e-4 z-loss + 1e-2 load-balance loss, as
+        the JAX package's ``Model.loss``: log-softmax in f32, the mean over
+        ``loss_mask`` (all ones when absent) with its sum floored at 1.
+        -> (total, {"ce", "z_loss", "lb_loss"}), all 0-d f32 tensors."""
+        logits, lb = self.forward(params, batch)
+        logits = logits.float()
+        nll = -torch.log_softmax(logits, dim=-1).gather(-1, batch["labels"].long()[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        mask = torch.ones_like(nll) if mask is None else mask.float()
+        denom = mask.sum().clamp_min(1.0)
+        ce = (nll * mask).sum() / denom
+        zl = 1e-4 * (torch.logsumexp(logits, dim=-1).square() * mask).sum() / denom
+        return ce + zl + 1e-2 * lb, {"ce": ce, "z_loss": zl, "lb_loss": lb}
 
     # -- decode -------------------------------------------------------------------
 

@@ -69,15 +69,27 @@ def tree_map_with_path(fn, tree, path: tuple[str, ...] = ()):
     return fn(path, tree)
 
 
-def storage_dtype(path: tuple[str, ...], ndim: int) -> torch.dtype:
+def tree_leaves(tree, path: tuple[str, ...] = ()):
+    """Yield ``(path, leaf)`` for every leaf of a nested dict, in its order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def storage_dtype(path: tuple[str, ...], ndim: int, *, train: bool = False) -> torch.dtype:
     """The dtype the port stores a parameter in.
 
-    bf16 only where the JAX package casts the weight to bf16 before every use,
-    so the stored values equal what it computes with: stacked weights of 3 or
-    more dims (cast before the layer scan), ``lm_head.w`` and the embedding
-    table (gathered in f32 and cast to bf16, or cast to the bf16 activations
-    for the tied unembedding). Everything else, the norm scales included,
-    stays f32."""
+    For training (``train``) every parameter is f32, as the JAX package keeps
+    them: the optimizer updates f32 values. For inference, bf16 only where the
+    JAX package casts the weight to bf16 before every use, so the stored
+    values equal what it computes with: stacked weights of 3 or more dims
+    (cast before the layer scan), ``lm_head.w`` and the embedding table
+    (gathered in f32 and cast to bf16, or cast to the bf16 activations for the
+    tied unembedding). Everything else, the norm scales included, stays f32."""
+    if train:
+        return torch.float32
     if path[:2] == ("layers", "scan") and ndim >= 3:
         return torch.bfloat16
     if path in (("lm_head", "w"), ("embed", "table")):
@@ -85,11 +97,13 @@ def storage_dtype(path: tuple[str, ...], ndim: int) -> torch.dtype:
     return torch.float32
 
 
-def init_params(spec_tree, generator: torch.Generator):
-    """Materialize parameters on ``generator``'s device in their storage dtypes.
-
-    Draws from the same distributions as the JAX package, not the same bits."""
-    return tree_map_with_path(lambda p, s: s.initializer(generator, storage_dtype(p, len(s.shape))), spec_tree)
+def init_params(spec_tree, generator: torch.Generator, *, train: bool = False):
+    """Materialize parameters on ``generator``'s device in their storage dtypes
+    (``storage_dtype``). Draws from the same distributions as the JAX
+    package, not the same bits; the draw does not depend on ``train``."""
+    return tree_map_with_path(
+        lambda p, s: s.initializer(generator, storage_dtype(p, len(s.shape), train=train)), spec_tree
+    )
 
 
 def param_count(spec_tree) -> int:
@@ -188,7 +202,9 @@ def embedding_spec(vocab: int, d_model: int) -> dict:
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    # F.embedding, not indexing: on the card its backward sums repeated tokens
+    # in a fixed order, where indexing's accumulates with atomics.
+    return F.embedding(tokens, params["table"])
 
 
 def unembed(params, x: torch.Tensor) -> torch.Tensor:

@@ -5,13 +5,22 @@ remainder], with the units' parameters stacked along a leading 'layers' axis.
 The JAX ``lax.scan`` over that axis becomes a Python loop. The port has the
 ``attn`` and ``rec`` (Griffin recurrent block) layer kinds with a dense MLP;
 the other kinds raise.
+
+Under autograd each stacked unit runs as ``cfg.remat`` says, the counterpart
+of the JAX package's ``jax.checkpoint`` around its scan body: ``"none"``
+stores every activation, ``"full"`` stores only the unit's input and
+recomputes the rest in the backward pass, ``"dots"`` stores the outputs of
+the matrix products (``aten.mm``: the counterpart of
+``dots_with_no_batch_dims_saveable``) and recomputes the rest.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from . import attention as attn_mod
 from . import rglru as rec_mod
@@ -146,14 +155,68 @@ def stack_spec(cfg) -> dict:
     return spec
 
 
+def stack_grad_leaves(params, grads, leaf):
+    """The layer stack's params tree for one backward pass: ``leaf(p, g)`` for
+    each tensor ``p`` and its gradient buffer ``g`` (``grads``, the same
+    structure), where the stacked units' weights (``params["scan"]``) become
+    lists of per-unit ``leaf(p[u], g[u])``, views of one slice each: autograd
+    would otherwise turn each unit's gradient of a slice into a zero tensor
+    the size of the whole stack. ``_unit`` reads either form."""
+
+    def tree(p, g, stacked: bool):
+        if isinstance(p, dict):
+            return {k: tree(p[k], g[k], stacked) for k in p}
+        return [leaf(p[u], g[u]) for u in range(p.shape[0])] if stacked else leaf(p, g)
+
+    return {n: tree(v, grads[n], n == "scan") for n, v in params.items()}
+
+
 def _unit(tree, i: int):
-    """Slice unit ``i`` off the stacked leading axis. Matrix weights (>= 3-D
-    when stacked) go to bf16, as the JAX package casts them before its scan;
+    """Unit ``i`` of the stacked units: a slice of each stacked tensor, or
+    element ``i`` where a leaf is a list of per-unit tensors
+    (``stack_grad_leaves``). Matrix weights (>= 2-D per unit)
+    go to bf16, as the JAX package casts them before its scan; for inference
     they are stored in bf16 already, so this is a view."""
     if isinstance(tree, dict):
         return {k: _unit(v, i) for k, v in tree.items()}
     a = tree[i]
-    return a.to(torch.bfloat16) if (tree.dtype == torch.float32 and tree.ndim >= 3) else a
+    return a.to(torch.bfloat16) if (a.dtype == torch.float32 and a.ndim >= 2) else a
+
+
+def _unit_apply(scan_params, u: int, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """Stacked unit ``u``, its weights sliced and cast inside, so that a
+    checkpoint recomputes the bf16 copies instead of storing them. The f32
+    residual sum is handed from block to block within the unit and returned
+    with x."""
+    lay = StackLayout(cfg)
+    unit_params = _unit(scan_params, u)
+    x_sum = None
+    for j, kind in enumerate(lay.unit_kinds):
+        x, x_sum = block_apply(unit_params[f"block{j}"], x, cfg, kind, _ffn_kind(cfg, cfg.first_dense + j),
+                               positions, x_sum)
+    return x, x_sum
+
+
+_MATMULS = (torch.ops.aten.mm.default,)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(mode: str):
+    """``cfg.remat`` -> a function that runs ``_unit_apply`` under the
+    checkpoint it names (None: run it as it is)."""
+    if mode == "none":
+        return None
+    if mode == "full":
+        return functools.partial(checkpoint, _unit_apply, use_reentrant=False)
+    if mode == "dots":
+        return functools.partial(
+            checkpoint, _unit_apply, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_matmuls),
+        )
+    raise ValueError(f"unknown remat mode {mode!r} (expected 'none', 'full' or 'dots')")
 
 
 def stack_apply(params, x: torch.Tensor, cfg, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -171,12 +234,9 @@ def stack_apply(params, x: torch.Tensor, cfg, positions: torch.Tensor) -> tuple[
     for i in lay.prefix:
         x, x_sum = block_apply(params["prefix"][f"layer{i}"], x, cfg, layer_kind(cfg, i), _ffn_kind(cfg, i), positions,
                                x_sum)
+    run_unit = (_remat(cfg.remat) if torch.is_grad_enabled() else None) or _unit_apply
     for u in range(lay.n_units):
-        unit_params = _unit(params["scan"], u)
-        x_sum = None
-        for j, kind in enumerate(lay.unit_kinds):
-            x, x_sum = block_apply(unit_params[f"block{j}"], x, cfg, kind, _ffn_kind(cfg, cfg.first_dense + j),
-                                   positions, x_sum)
+        x, x_sum = run_unit(params["scan"], u, x, cfg, positions)
     if lay.n_units:
         x_sum = None
     for i in lay.remainder:

@@ -14,28 +14,21 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
-from repro_torch.models.modules import storage_dtype, tree_map_with_path
+from repro_torch.models.modules import storage_dtype, tree_leaves, tree_map_with_path
 
 
-def _leaves(tree, path=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, path + (k,))
-    else:
-        yield path, tree
-
-
-def params_from_numpy(tree: dict, cfg, device: str | torch.device) -> dict:
-    """-> the port's params tree on ``device``. Raises unless ``tree`` has
-    exactly the keys and shapes of ``Model(cfg).spec()``."""
-    want = {p: s.shape for p, s in _leaves(Model(cfg, device="meta").spec())}
-    got = {p: tuple(np.shape(a)) for p, a in _leaves(tree)}
+def params_from_numpy(tree: dict, cfg, device: str | torch.device, *, train: bool = False) -> dict:
+    """-> the port's params tree on ``device``, every leaf f32 with ``train``
+    (``storage_dtype``). Raises unless ``tree`` has exactly the keys and
+    shapes of ``Model(cfg).spec()``."""
+    want = {p: s.shape for p, s in tree_leaves(Model(cfg, device="meta").spec())}
+    got = {p: tuple(np.shape(a)) for p, a in tree_leaves(tree)}
     if want != got:
         diff = sorted(set(want.items()) ^ set(got.items()))
         raise ValueError(f"params tree does not match {cfg.name}'s spec: {diff[:8]}")
 
     def convert(path, a):
         a = np.array(a, dtype=np.float32)  # a writable copy: JAX hands out read-only buffers
-        return torch.from_numpy(a).to(device=device, dtype=storage_dtype(path, a.ndim))
+        return torch.from_numpy(a).to(device=device, dtype=storage_dtype(path, a.ndim, train=train))
 
     return tree_map_with_path(convert, tree)

@@ -1,7 +1,10 @@
-"""The port on the card (``-m gpu``): each hand-written kernel against its
-plain version, and the smoke model's kernel path against its plain path on
-the CPU. Skips where there is no CUDA card; imports no JAX, so it runs on a
-machine that has none."""
+"""The port on the card (``-m gpu``): each hand-written kernel and backward
+kernel against its plain version, the smoke model's kernel path against its
+plain path on the CPU, and one train step on the card against the CPU with
+the backward kernels' launches counted. Skips where there is no CUDA card;
+imports no JAX, so it runs on a machine that has none."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -143,6 +146,118 @@ def test_rmsnorm_kernel_vs_plain(card, shape, dtype):
     _close(got, ops.ref.rmsnorm_ref(x, s), dtype)
 
 
+def _grad_close(got, want, dtype):
+    """The dtype's tolerance with the atol scaled by the gradient's largest
+    magnitude: a gradient sums many products (dk and dv over every query row
+    of a kv group), and the kernel sums them in another f32 order than the
+    plain version, so near-zero entries carry an error of the order of the
+    terms, not of the result."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = max(1.0, float(want.abs().max()))
+    tol = TOL[dtype]
+    err = (got - want).abs()
+    assert bool((err <= tol["atol"] * scale + tol["rtol"] * want.abs()).all()), (float(err.max()), scale)
+
+
+# _grad_close's atol scales with a gradient's largest entry, which under a
+# causal mask comes from the first keys; so each flash gradient is also held
+# per (batch, head, 64 rows) block at a relative L2 error (chip_smoke.py's
+# FLASH_BWD_BLOCK_REL_L2), which a kernel that drops one q tile or one q-head
+# of a group fails.
+FLASH_BWD_BLOCK_REL_L2 = {"f32": 1e-5, "bf16": 1e-2}
+
+
+def _flash_grad_close(got, want, dtype):
+    _grad_close(got, want, dtype)
+    B, N, H, _ = want.shape
+    sums = []
+    for x in (got.float() - want.float(), want.float()):
+        sq = x.new_zeros((B, -(-N // 64) * 64, H))
+        sq[:, :N] = x.square().sum(dim=3)
+        sums.append(sq.unflatten(1, (-1, 64)).sum(dim=2))
+    rel = float((sums[0] / sums[1].clamp_min(1e-30)).sqrt().max())  # a zero block must stay zero
+    assert rel <= FLASH_BWD_BLOCK_REL_L2[dtype], rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,window", FLASH_CASES)
+def test_flash_bwd_kernel_vs_plain(card, B, S, T, Hq, Hkv, D, window, dtype):
+    """The backward kernels against ref.attention_bwd_ref over the forward's
+    sweep, from the forward kernel's own output, one launch counted each."""
+    q, k, v = _qkv(card, 12, B, S, T, Hq, Hkv, D, dtype)
+    g = torch.Generator(device=card).manual_seed(13)
+    mma = flash.bwd_variant(q.dtype, D) == "mma"
+    for causal in (True, False):
+        o = ops.flash_attention(q, k, v, causal=causal, window=window)
+        do = torch.randn(o.shape, generator=g, device=card).to(o.dtype)
+        before = ops.launch_counts()
+        got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+        assert after["flash_attention_bwd_mma"] == before["flash_attention_bwd_mma"] + mma
+        t = [a.transpose(1, 2) for a in (q, k, v, o, do)]
+        want = ops.ref.attention_bwd_ref(*t, causal=causal, window=window)
+        for x, w in zip(got, want):
+            _flash_grad_close(x, w.transpose(1, 2), dtype)
+        if mma:  # the FMA pair, which ops does not pick here, holds the same tolerance
+            for x, w in zip(flash.launch_bwd_fma(q, k, v, o, do, causal=causal, window=window), want):
+                _flash_grad_close(x, w.transpose(1, 2), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,D", [("bf16", 64), ("bf16", 128), ("f32", 64)])
+def test_flash_bwd_rows_that_see_no_key(card, dtype, D, causal):
+    """S > T + window: the q tiles from row T + window - 1 on see no key, so
+    the dQ kernel loops over no key tile. Their dq is 0, they add nothing to
+    dk and dv, and the rest equals the plain backward over the rows that see
+    keys (the plain version has no answer for a row without keys)."""
+    B, S, T, Hq, Hkv, window = 1, 384, 128, 4, 2, 64
+    n = T + window - 1
+    q, k, v = _qkv(card, 21, B, S, T, Hq, Hkv, D, dtype)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    do = torch.randn(o.shape, generator=torch.Generator(device=card).manual_seed(22), device=card).to(o.dtype)
+    dq, dk, dv = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    assert all(bool(x.isfinite().all()) for x in (o, dq, dk, dv))
+    assert not bool(dq[:, n:].any())
+    qt, ot, dot = (a[:, :n].transpose(1, 2) for a in (q, o, do))
+    want = ops.ref.attention_bwd_ref(qt, k.transpose(1, 2), v.transpose(1, 2), ot, dot, causal=causal, window=window)
+    for x, w in zip((dq[:, :n], dk, dv), want):
+        _flash_grad_close(x, w.transpose(1, 2), dtype)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_kernel_is_deterministic(card):
+    q, k, v = _qkv(card, 14, 1, 384, 384, 8, 2, 128, "bf16")
+    o = ops.flash_attention(q, k, v)
+    do = torch.randn_like(o)
+    a, b = ops.flash_attention_bwd(q, k, v, o, do), ops.flash_attention_bwd(q, k, v, o, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 128), (2, 7, 256), (1, 1000, 512), (64, 2560), (300, 16), (5, 3000),
+                                   (2048, 2560), (2048 * 8, 128)])
+def test_rmsnorm_bwd_kernel_vs_plain(card, shape, dtype):
+    g = torch.Generator(device=card).manual_seed(15)
+    x = torch.randn(shape, generator=g, device=card).to(TDT[dtype])
+    s = torch.randn(shape[-1], generator=g, device=card) * 0.1
+    dy = torch.randn(shape, generator=g, device=card).to(TDT[dtype])
+    before = ops.launch_counts()["fused_rmsnorm_bwd"]
+    dx, ds = ops.fused_rmsnorm_bwd(x, s, dy)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_rmsnorm_bwd"] == before + 1
+    want_dx, want_ds = ops.ref.rmsnorm_bwd_ref(x, s, dy)
+    assert dx.dtype == x.dtype and ds.dtype == torch.float32
+    _grad_close(dx, want_dx, dtype)
+    _grad_close(ds, want_ds, "f32")
+    again = ops.fused_rmsnorm_bwd(x, s, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], ds)
+
+
 # tests/test_kernels.py's RG-LRU sweep (B, S, W), then the chunked kernel's
 # tiling edges: S at a sub-chunk (8 steps) - 1, + 0, + 1, at a block (32) and
 # at a cluster's span (256) - 1, + 0, + 1; S over several rounds; one long
@@ -265,13 +380,16 @@ def test_rglru_scan_kernel_reads_misaligned_inputs(card, dtype):
 SMOKE_FORWARD_LAUNCHES = {
     # 3 attn layers, qk-norms
     "qwen3-4b": {"flash_attention": 3, "flash_attention_wgmma": 3, "fused_rmsnorm": 13, "rglru_scan": 0,
-                 "rglru_scan_sequential": 0},
+                 "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_mma": 0,
+                 "fused_rmsnorm_bwd": 0},
     # 2 attn layers
     "gemma-2b": {"flash_attention": 2, "flash_attention_wgmma": 2, "fused_rmsnorm": 5, "rglru_scan": 0,
-                 "rglru_scan_sequential": 0},
+                 "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_mma": 0,
+                 "fused_rmsnorm_bwd": 0},
     # one (rec, rec, attn) unit + two remainder rec layers
     "recurrentgemma-9b": {"flash_attention": 1, "flash_attention_wgmma": 1, "fused_rmsnorm": 11, "rglru_scan": 4,
-                          "rglru_scan_sequential": 0},
+                          "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_mma": 0,
+                 "fused_rmsnorm_bwd": 0},
 }
 
 
@@ -307,6 +425,9 @@ def test_smoke_server_on_card_launches_the_norm_kernel(card):
         "fused_rmsnorm": (4 * cfg.n_layers + 1) * stats["decode_steps"],
         "rglru_scan": 0,
         "rglru_scan_sequential": 0,
+        "flash_attention_bwd": 0,
+        "flash_attention_bwd_mma": 0,
+        "fused_rmsnorm_bwd": 0,
     }
 
 
@@ -325,5 +446,76 @@ def test_hybrid_smoke_server_on_card(card):
         "fused_rmsnorm": (2 * cfg.n_layers + 1) * stats["decode_steps"],
         "rglru_scan": 0,
         "rglru_scan_sequential": 0,
+        "flash_attention_bwd": 0,
+        "flash_attention_bwd_mma": 0,
+        "fused_rmsnorm_bwd": 0,
     }
     assert server.state["remainder"]["layer4"]["h"].abs().sum() > 0
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield ".".join(prefix), tree
+
+
+def _smoke_train_step(card, remat=None):
+    """One train step at qwen3-4b smoke on the card and on the CPU from the same
+    weights and batch. -> (card (params, state, metrics, launches), CPU (...),
+    the weights before the step)."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    cfg = get_config("qwen3-4b", smoke=True)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
+    params_cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0), train=True)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0)).batch(0)
+    lr_fn = cosine_schedule(1e-2, warmup_steps=0, total_steps=10)
+    out = []
+    for dev in (card, torch.device("cpu")):
+        model = Model(cfg, device=dev)
+        p = tree_map_with_path(lambda _, x: x.to(dev, copy=True), params_cpu)
+        ops.reset_launch_counts()
+        p, st, met = make_train_step(model, lr_fn)(p, adamw_init(p), {k: torch.from_numpy(v).to(dev)
+                                                                     for k, v in batch.items()})
+        out.append((p, st, met, ops.launch_counts()))
+    return (*out, params_cpu)
+
+
+@pytest.mark.gpu
+def test_smoke_train_step_on_card_vs_cpu(card):
+    """chip_smoke.py's TRAIN_CARD_VS_CPU bounds: the loss within 0.01, each
+    moment leaf within 5 % relative L2, each leaf's update within 20 %
+    relative L2 (Adam's first update is lr * sign(g), so the update's error
+    counts the entries whose sign flips). Both backward kernels launch once
+    per layer (four norms a layer plus the final one), no plain backward on
+    the card."""
+    (pg, sg, mg, counts), (pc, sc, mc, _), p0 = _smoke_train_step(card)
+    assert abs(float(mg["loss"]) - float(mc["loss"])) < 1e-2
+    for part in ("m", "v"):
+        for (name, x), (_, y) in zip(_leaves(sg[part]), _leaves(sc[part])):
+            rel = float((x.cpu() - y).norm() / y.norm().clamp_min(1e-30))
+            assert rel < 5e-2, (part, name, rel)
+    for (name, x), (_, y), (_, p) in zip(_leaves(pg), _leaves(pc), _leaves(p0)):
+        rel = float((x.cpu() - y).norm() / (y - p).norm().clamp_min(1e-30))
+        assert rel < 0.2, (name, rel)
+    assert counts == {"flash_attention": 3, "flash_attention_wgmma": 3, "fused_rmsnorm": 13, "rglru_scan": 0,
+                      "rglru_scan_sequential": 0, "flash_attention_bwd": 3, "flash_attention_bwd_mma": 3,
+                      "fused_rmsnorm_bwd": 13}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_on_card_recomputes_through_the_kernels(card, remat):
+    """Under a checkpoint every unit's attention and norms run again in the
+    backward pass, through the kernels; the step equals the one without."""
+    (pg, sg, _, counts), _, _ = _smoke_train_step(card, remat)
+    (pw, sw, _, _), _, _ = _smoke_train_step(card, "none")
+    assert counts["flash_attention"] == 6 and counts["fused_rmsnorm"] == 13 + 12
+    assert counts["flash_attention_bwd"] == counts["flash_attention_bwd_mma"] == 3 and counts["fused_rmsnorm_bwd"] == 13
+    for (name, x), (_, y) in zip(_leaves({"p": pg, "m": sg["m"]}), _leaves({"p": pw, "m": sw["m"]})):
+        assert torch.equal(x, y), name

@@ -124,6 +124,145 @@ def test_attention_ref_matches_jax_ref():
 
 
 # ---------------------------------------------------------------------------
+# backward: the plain versions against autograd, the autograd Functions' CPU path
+# ---------------------------------------------------------------------------
+
+# (B, S, T, Hq, Hkv, D, window): the forward sweep's shapes, windows, gemma's
+# D = 256 MQA, the smoke head dims, S > T and S < T
+BWD_CASES = [c + (None,) for c in FLASH_CASES] + [
+    (1, 256, 256, 2, 2, 64, 16), (1, 256, 256, 2, 2, 64, 1024), (1, 128, 128, 8, 1, 256, None),
+    (1, 96, 96, 4, 1, 256, 40), (2, 64, 64, 4, 2, 16, None), (2, 40, 40, 6, 2, 8, None), (1, 60, 30, 2, 1, 16, None),
+]
+
+
+def _grad_close(got: torch.Tensor, want: torch.Tensor, dtype: str):
+    """The dtype's tolerance with the atol scaled by the gradient's largest
+    magnitude: gradients sum many products in another f32 order than
+    autograd, so near-zero entries carry an error of the order of the terms."""
+    got, want = got.float(), want.float()
+    tol = TOL[dtype]
+    scale = max(1.0, float(want.abs().max()))
+    err = (got - want).abs()
+    assert bool((err <= tol["atol"] * scale + tol["rtol"] * want.abs()).all()), (float(err.max()), scale)
+
+
+def _bwd_inputs(case, dtype, causal, seed=20):
+    B, S, T, Hq, Hkv, D, window = case
+    q, k, v = (torch.from_numpy(a).to(TDT[dtype]) for a in _qkv(seed, B, S, T, Hq, Hkv, D))
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((B, S, Hq, D), np.float32)).to(TDT[dtype])
+    return q, k, v, do, dict(causal=causal, window=window)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_attention_bwd_ref_matches_autograd_of_attention_ref(case, dtype, causal):
+    """The explicit backward formulas against torch.autograd through the
+    plain forward, from the same inputs. In bf16, Dr = rowsum(do * o) reads
+    the output rounded to bf16, as the kernel does, where autograd differs
+    from the f32 output; the bf16 tolerance covers that."""
+    q, k, v, do, kw = _bwd_inputs(case, dtype, causal)
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    o = ref.attention_ref(*leaves, **kw)
+    want = torch.autograd.grad(o, leaves, do.transpose(1, 2))
+    got = ref.attention_bwd_ref(*(t.detach() for t in leaves), o.detach(), do.transpose(1, 2), **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == TDT[dtype]
+        _grad_close(g, w, dtype)
+
+
+@pytest.mark.parametrize("case", [BWD_CASES[i] for i in (0, 2, 5, 8, 9)])
+def test_attention_bwd_ref_matches_jax_vjp(case):
+    """Across frameworks: the port's plain backward against jax.vjp of the JAX
+    package's plain attention (repro.kernels.ref.attention_ref), f32."""
+    import jax
+
+    from repro.kernels import ref as jref
+
+    B, S, T, Hq, Hkv, D, window = case
+    arrays = _qkv(21, B, S, T, Hq, Hkv, D)
+    do = np.random.default_rng(22).standard_normal((B, Hq, S, D), np.float32)
+    sw = lambda a: np.swapaxes(a, 1, 2)  # noqa: E731
+    o, vjp = jax.vjp(lambda q, k, v: jref.attention_ref(q, k, v, causal=True, window=window),
+                     *(jnp.asarray(sw(a)) for a in arrays))
+    want = vjp(jnp.asarray(do))
+    got = ref.attention_bwd_ref(*(torch.from_numpy(sw(a).copy()) for a in arrays), torch.from_numpy(np.array(o)),
+                                torch.from_numpy(do), causal=True, window=window)
+    for g, w in zip(got, want):
+        _grad_close(g, torch.from_numpy(np.array(w)), "f32")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", [BWD_CASES[i] for i in (1, 5, 8, 11)])
+def test_flash_function_cpu_path_takes_the_plain_backward(case, dtype):
+    """Autograd through ops.flash_attention on CPU tensors gives exactly the
+    plain backward from the plain forward's output, and counts no launch."""
+    q, k, v, do, kw = _bwd_inputs(case, dtype, True, seed=23)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    o = ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(o, leaves, do)
+    want = ops.flash_attention_bwd(q, k, v, o.detach(), do, **kw)
+    plain = ref.attention_bwd_ref(*(t.transpose(1, 2) for t in (q, k, v, o.detach(), do)), **kw)
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w) and torch.equal(g, p.transpose(1, 2))
+    assert set(ops.launch_counts().values()) == {0}
+
+
+RMSNORM_BWD_SHAPES = [(4, 128), (2, 7, 256), (1, 1000, 512), (3, 16), (5, 3000)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", RMSNORM_BWD_SHAPES)
+def test_rmsnorm_bwd_ref_matches_autograd_of_rmsnorm_ref(shape, dtype):
+    rng = np.random.default_rng(24)
+    x = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(TDT[dtype]).requires_grad_()
+    s = torch.from_numpy(rng.standard_normal(shape[-1], np.float32) * 0.1).requires_grad_()
+    dy = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(TDT[dtype])
+    want = torch.autograd.grad(ref.rmsnorm_ref(x, s), (x, s), dy)
+    dx, ds = ref.rmsnorm_bwd_ref(x.detach(), s.detach(), dy)
+    assert dx.dtype == TDT[dtype] and ds.dtype == torch.float32
+    _grad_close(dx, want[0], dtype)
+    _grad_close(ds, want[1], "f32")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rmsnorm_function_cpu_path_takes_the_plain_backward(dtype):
+    rng = np.random.default_rng(25)
+    x = torch.from_numpy(rng.standard_normal((6, 40), np.float32)).to(TDT[dtype])
+    s = torch.from_numpy(rng.standard_normal(40, np.float32) * 0.1)
+    dy = torch.from_numpy(rng.standard_normal((6, 40), np.float32)).to(TDT[dtype])
+    xl, sl = x.clone().requires_grad_(), s.clone().requires_grad_()
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(ops.fused_rmsnorm(xl, sl), (xl, sl), dy)
+    want = ref.rmsnorm_bwd_ref(x, s, dy)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_rglru_scan_gradient_raises():
+    a, b = torch.rand(1, 8, 4, requires_grad=True), torch.randn(1, 8, 4)
+    h = ops.rglru_scan(a, b)
+    assert torch.equal(h.detach(), ref.rglru_ref(a.detach(), b))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        h.sum().backward()
+
+
+@pytest.mark.parametrize("bad", ["o_shape", "do_dtype", "strided_o"])
+def test_flash_bwd_dispatch_rejects(bad):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(26, 1, 16, 16, 2, 1, 16))
+    o, do = q.clone(), q.clone()
+    if bad == "o_shape":
+        o = o[:, :8]
+    elif bad == "do_dtype":
+        do = do.bfloat16()
+    elif bad == "strided_o":
+        o = torch.cat([o, o], dim=-1)[..., ::2]
+    with pytest.raises((ValueError, TypeError)):
+        ops.flash_attention_bwd(q, k, v, o, do)
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
@@ -135,7 +274,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ops.fused_rmsnorm(q, torch.zeros(16))
     ops.rglru_scan(q[:, :, 0].contiguous(), k[:, :, 0].contiguous())
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 0, "rglru_scan": 0,
-                                   "rglru_scan_sequential": 0}
+                                   "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_mma": 0,
+                                   "fused_rmsnorm_bwd": 0}
 
 
 @pytest.mark.parametrize("D", flash.HEAD_DIMS)
@@ -145,6 +285,15 @@ def test_flash_variant_goes_by_dtype_and_head_dim(dtype, D):
     (below one k16 step), the FMA kernel."""
     want = "wgmma" if dtype == "bf16" and D != 8 else "fma"
     assert flash.variant(TDT[dtype], D) == want
+
+
+@pytest.mark.parametrize("D", flash.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_bwd_variant_goes_by_dtype_and_head_dim(dtype, D):
+    """bf16 at D 16/64/128 takes the mma backward; f32, and bf16 at D = 8 and
+    256, the FMA backward: every forward shape has a backward."""
+    want = "mma" if dtype == "bf16" and D in (16, 64, 128) else "fma"
+    assert flash.bwd_variant(TDT[dtype], D) == want
 
 
 @pytest.mark.parametrize(

@@ -1,0 +1,468 @@
+"""The port's training slice against the JAX package on the CPU: the loss,
+the gradients, AdamW and the cosine schedule, the train step (1 and 3 steps,
+grad_accum 2), remat, and loss-decreases. The same weights pass between the
+packages through ``params_from_numpy``; tokens come from numpy.
+
+JAX trains on its xla attention path, which rounds the scores and the softmax
+probabilities to bf16 before the PV product (``src/repro/models/attention.py``
+``_attend_full``); the port follows its flash kernel, which keeps them in f32.
+The gradient tests measure that gap against the xla path as it is, and hold
+the port tightly against the same JAX model with ``_attend_full`` replaced,
+in the test only, by f32 attention: the kernel's arithmetic.
+"""
+
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")  # the card's machine has no JAX
+import jax.numpy as jnp  # noqa: E402
+
+import repro.models.attention as jax_attention  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.launch.steps import make_train_step as jax_train_step  # noqa: E402
+from repro.models import Model as JaxModel  # noqa: E402
+from repro.optim import AdamWConfig as JaxAdamWConfig  # noqa: E402
+from repro.optim import adamw_init as jax_adamw_init  # noqa: E402
+from repro.optim import adamw_update as jax_adamw_update  # noqa: E402
+from repro.optim import cosine_schedule as jax_cosine  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch.steps import _zeros_f32, make_eval_step, make_train_step  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule, global_norm  # noqa: E402
+from repro_torch.params import params_from_numpy  # noqa: E402
+
+DENSE = ["qwen3-4b", "gemma-2b", "llama3.2-3b", "granite-3-8b"]
+F32 = dict(rtol=2e-5, atol=2e-5)  # tests/test_kernels.py's f32 tolerance
+# Loss, port against JAX's kernel path (pallas_interpret, f32 P as the port):
+# the same arithmetic up to summation order; measured 5e-7 at qwen3-4b smoke.
+LOSS_TOL_KERNEL_PATH = 1e-4
+# Loss against JAX's xla path (bf16 scores and P): measured 0.0004-0.0052 over
+# weight seeds 0-1 at qwen3-4b and gemma-2b smoke.
+LOSS_TOL_XLA = 0.02
+# Per-leaf relative L2 error of the gradients against jax.value_and_grad:
+# - on the xla path as it is: measured 0.036-0.145 over weight seeds 0-1
+#   (the bf16 rounding of scores and P; ROADMAP Queue 3);
+GRAD_REL_XLA = 0.25
+# - with f32 attention in the JAX model (the kernel's arithmetic): measured
+#   0.010-0.020, what remains of the bf16 activations' rounding, which XLA's
+#   fused backward places elsewhere than autograd does.
+GRAD_REL_F32_ATTENTION = 0.05
+# The port's custom backward (the plain backward versions, which read the
+# forward's bf16 output for Dr as the kernel does) against autograd through
+# the plain forwards: measured 0.008-0.012 per leaf.
+GRAD_REL_CUSTOM_VS_AUTOGRAD = 0.03
+
+
+def _f32_attend_full(q, k, v, cfg, *, q_offset: int = 0, window: int | None = None):
+    """JAX's ``_attend_full`` with the scores and P in f32 and the output
+    rounded once to q's dtype: what the flash kernel computes."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D).astype(jnp.float32)
+    s = jnp.einsum("bskgd,btkd->bkgst", qg, k.astype(jnp.float32)) / math.sqrt(D)
+    mask = jax_attention._mask(jnp.arange(S) + q_offset, jnp.arange(T), window)
+    p = jax.nn.softmax(jnp.where(mask[None, None, None], s, -jnp.inf), axis=-1)
+    o = jnp.einsum("bkgst,btkd->bskgd", p, v.astype(jnp.float32))
+    return o.reshape(B, S, Hq, D).astype(q.dtype)
+
+
+@pytest.fixture
+def f32_attention(monkeypatch):
+    monkeypatch.setattr(jax_attention, "_attend_full", _f32_attend_full)
+
+
+def _bridged(arch, seed=0, impl="xla"):
+    """(JAX model, JAX params, port model, port f32 params) on one set of weights."""
+    jm = JaxModel(dataclasses.replace(jax_config(arch, smoke=True), attention_impl=impl))
+    jp = jm.init(jax.random.key(seed))
+    cfg = get_config(arch, smoke=True)
+    return jm, jp, Model(cfg, device="cpu"), params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu", train=True)
+
+
+def _batch(vocab, B=2, S=16, seed=0):
+    toks = np.random.default_rng(seed).integers(0, vocab, (B, S + 1)).astype(np.int32)
+    mask = np.ones((B, S), np.float32)
+    mask[0, -3:] = 0.0  # a masked tail: the denominator is the mask's sum
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:], "loss_mask": mask}
+
+
+def _jb(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+def _tb(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def _flat(tree):
+    """{key path: f32 numpy copy} for a JAX or a port tree."""
+    def conv(x):
+        return x.detach().float().numpy().copy() if isinstance(x, torch.Tensor) else np.array(x, np.float32)
+
+    return {jax.tree_util.keystr(p): conv(x) for p, x in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def _rel_l2(got, want) -> dict:
+    g, w = _flat(got), _flat(want)
+    assert g.keys() == w.keys()
+    return {k: float(np.linalg.norm(g[k] - w[k]) / max(np.linalg.norm(w[k]), 1e-30)) for k in w}
+
+
+def _port_grads(model, params, batch):
+    grads = _zeros_f32(params)
+    loss, aux = model.loss(model.grad_leaves(params, grads), batch)
+    loss.backward()
+    return loss.detach(), aux, grads
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("impl", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b"])
+def test_loss_matches_jax(arch, impl):
+    jm, jp, tm, tp = _bridged(arch, impl=impl)
+    b = _batch(tm.cfg.vocab)
+    jl, jaux = jax.jit(jm.loss)(jp, _jb(b))
+    with torch.no_grad():
+        tl, taux = tm.loss(tp, _tb(b))
+    tol = LOSS_TOL_KERNEL_PATH if impl == "pallas_interpret" else LOSS_TOL_XLA
+    assert abs(float(tl) - float(jl)) < tol
+    assert abs(float(taux["ce"]) - float(jaux["ce"])) < tol
+    assert abs(float(taux["z_loss"]) - float(jaux["z_loss"])) < tol * 1e-2
+    assert float(taux["lb_loss"]) == float(jaux["lb_loss"]) == 0.0
+
+
+def test_loss_without_mask_is_the_mean_over_all_tokens():
+    cfg = get_config("qwen3-4b", smoke=True)
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0), train=True)
+    b = _tb(_batch(cfg.vocab))
+    with torch.no_grad():
+        full, _ = model.loss(params, {**b, "loss_mask": torch.ones_like(b["loss_mask"])})
+        none, _ = model.loss(params, {k: v for k, v in b.items() if k != "loss_mask"})
+    assert torch.equal(full, none)
+
+
+# ---------------------------------------------------------------------------
+# gradients
+# ---------------------------------------------------------------------------
+
+
+def _grad_errors(arch):
+    jm, jp, tm, tp = _bridged(arch)
+    b = _batch(tm.cfg.vocab)
+    _, jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(jp, _jb(b))
+    _, _, tg = _port_grads(tm, tp, _tb(b))
+    for k, g in _flat(tg).items():
+        assert np.isfinite(g).all() and np.abs(g).max() > 0, k
+    return _rel_l2(tg, jg)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b"])
+def test_grads_match_jax_xla_path(arch):
+    errs = _grad_errors(arch)
+    assert max(errs.values()) < GRAD_REL_XLA, max(errs.items(), key=lambda kv: kv[1])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b"])
+def test_grads_match_jax_with_f32_attention(arch, f32_attention):
+    errs = _grad_errors(arch)
+    assert max(errs.values()) < GRAD_REL_F32_ATTENTION, max(errs.items(), key=lambda kv: kv[1])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_custom_backward_matches_autograd_through_the_plain_forwards(arch, monkeypatch):
+    """The autograd Functions (their CPU path: the plain backward formulas)
+    against autograd through the plain forwards, whole model."""
+    cfg = get_config(arch, smoke=True)
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0), train=True)
+    b = _tb(_batch(cfg.vocab))
+    _, _, custom = _port_grads(model, params, b)
+    monkeypatch.setattr(ops, "_records", lambda *tensors: False)  # no Function: autograd sees the plain ops
+    _, _, plain = _port_grads(model, params, b)
+    errs = _rel_l2(custom, plain)
+    assert max(errs.values()) < GRAD_REL_CUSTOM_VS_AUTOGRAD, max(errs.items(), key=lambda kv: kv[1])
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_gives_the_gradients_of_no_remat(remat):
+    """A checkpoint recomputes the same forward (the kernels' plain versions
+    are deterministic), so the gradients are equal to the bit."""
+    cfg = get_config("qwen3-4b", smoke=True)
+    assert cfg.remat == "none"
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0), train=True)
+    b = _tb(_batch(cfg.vocab))
+    _, _, want = _port_grads(Model(cfg, device="cpu"), params, b)
+    _, _, got = _port_grads(Model(dataclasses.replace(cfg, remat=remat), device="cpu"), params, b)
+    g, w = _flat(got), _flat(want)
+    assert all(np.array_equal(g[k], w[k]) for k in w)
+
+
+def test_stacked_weights_get_one_gradient_buffer():
+    """The per-unit gradient leaves write into slices of the stacked buffer."""
+    cfg = get_config("qwen3-4b", smoke=True)
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0), train=True)
+    grads = _zeros_f32(params)
+    leaves = Model.grad_leaves(params, grads)
+    wq = leaves["layers"]["scan"]["block0"]["attn"]["wq"]
+    assert isinstance(wq, list) and len(wq) == cfg.n_layers
+    assert wq[1].grad.data_ptr() == grads["layers"]["scan"]["block0"]["attn"]["wq"][1].data_ptr()
+    assert wq[1].data_ptr() == params["layers"]["scan"]["block0"]["attn"]["wq"][1].data_ptr()
+
+
+def test_inference_forward_is_unchanged_by_trainable_params():
+    """forward follows the caller's autograd mode: the same logits with f32
+    trainable leaves under grad mode as with the serving params under
+    inference_mode."""
+    cfg = get_config("qwen3-4b", smoke=True)
+    model = Model(cfg, device="cpu")
+    serve = model.init(torch.Generator().manual_seed(0))
+    train = model.init(torch.Generator().manual_seed(0), train=True)
+    tokens = torch.from_numpy(_batch(cfg.vocab)["tokens"])
+    with torch.inference_mode():
+        want, _ = model.forward(serve, {"tokens": tokens})
+    got, _ = model.forward(model.grad_leaves(train, _zeros_f32(train)), {"tokens": tokens})
+    assert got.requires_grad and torch.equal(got.detach(), want)
+
+
+# ---------------------------------------------------------------------------
+# AdamW and the schedule (tests/test_substrate.py's TestAdamW, both packages)
+# ---------------------------------------------------------------------------
+
+
+def _tree(seed, shapes=((2,), (3, 4), (2, 3, 5))):
+    rng = np.random.default_rng(seed)
+    return {"a": rng.standard_normal(shapes[0], np.float32),
+            "b": {"w": rng.standard_normal(shapes[1], np.float32), "u": rng.standard_normal(shapes[2], np.float32)}}
+
+
+def _t(tree, dtype=torch.float32):
+    return jax.tree.map(lambda a: torch.from_numpy(np.array(a, np.float32)).to(dtype), tree)
+
+
+class TestAdamW:
+    def test_matches_reference_math(self):
+        p, g = {"w": torch.tensor([1.0])}, {"w": torch.tensor([0.5])}
+        st = adamw_init(p)
+        cfg = AdamWConfig(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, clip_norm=1e9)
+        new_p, st2, _ = adamw_update(g, st, p, lr=0.1, cfg=cfg)
+        # bias-corrected first step: update = lr * g/|g| = lr (adam property)
+        np.testing.assert_allclose(float(new_p["w"][0]), 1.0 - 0.1, rtol=1e-5)
+        assert int(st2["step"]) == 1
+
+    def test_weight_decay_pulls_to_zero(self):
+        p, g = {"w": torch.tensor([10.0])}, {"w": torch.tensor([0.0])}
+        new_p, _, _ = adamw_update(g, adamw_init(p), p, lr=0.1, cfg=AdamWConfig(weight_decay=0.1))
+        assert float(new_p["w"][0]) < 10.0
+
+    def test_clipping_bounds_update(self):
+        p, g = {"w": torch.tensor([0.0])}, {"w": torch.tensor([1e6])}
+        _, _, m = adamw_update(g, adamw_init(p), p, lr=0.1, cfg=AdamWConfig(clip_norm=1.0))
+        assert float(m["clip_scale"]) == pytest.approx(1e-6, rel=1e-3)
+
+    def test_state_mirrors_param_tree(self):
+        p = _t(_tree(0))
+        st = adamw_init(p)
+        assert jax.tree.structure(st["m"]) == jax.tree.structure(p) == jax.tree.structure(st["v"])
+        assert st["step"].dtype == torch.int32 and int(st["step"]) == 0
+
+    def test_updates_in_place(self):
+        p, g = _t(_tree(1)), _t(_tree(2))
+        st = adamw_init(p)
+        ptrs = [t.data_ptr() for t in jax.tree.leaves(p) + jax.tree.leaves(st["m"])]
+        new_p, new_st, _ = adamw_update(g, st, p, lr=0.1)
+        assert new_p is p and new_st is st
+        assert ptrs == [t.data_ptr() for t in jax.tree.leaves(p) + jax.tree.leaves(st["m"])]
+
+    @pytest.mark.parametrize("moments", ["f32", "bf16"])
+    @pytest.mark.parametrize("clip_norm", [1e9, 1.0])
+    def test_matches_jax_over_steps(self, moments, clip_norm):
+        """Five steps on one tree in both packages, the same gradients each
+        step: parameters and moments at f32 2e-5, bias correction at every
+        step, clipping when it binds (gradients of norm ~5 against 1), and
+        bf16 moments stored rounded with f32 math in between."""
+        cfg = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip_norm=clip_norm)
+        jp = jax.tree.map(jnp.asarray, _tree(3))
+        jst = jax_adamw_init(jp, moment_dtype=jnp.bfloat16 if moments == "bf16" else jnp.float32)
+        tp = _t(_tree(3))
+        tst = adamw_init(tp, moment_dtype=torch.bfloat16 if moments == "bf16" else torch.float32)
+        for step in range(5):
+            g = _tree(10 + step)
+            jp, jst, jm = jax_adamw_update(jax.tree.map(jnp.asarray, g), jst, jp, lr=0.05, cfg=JaxAdamWConfig(**cfg))
+            tp, tst, tm = adamw_update(_t(g), tst, tp, lr=0.05, cfg=AdamWConfig(**cfg))
+            for name in ("grad_norm", "clip_scale"):
+                np.testing.assert_allclose(float(tm[name]), float(jm[name]), **F32)
+            assert int(tst["step"]) == int(jst["step"]) == step + 1
+            for got, want in ((tp, jp), (tst["m"], jst["m"]), (tst["v"], jst["v"])):
+                g_, w_ = _flat(got), _flat(want)
+                for k in w_:
+                    np.testing.assert_allclose(g_[k], w_[k], **F32)
+            if moments == "bf16":
+                assert all(t.dtype == torch.bfloat16 for t in jax.tree.leaves(tst["m"]))
+
+    def test_global_norm(self):
+        t = _tree(4)
+        want = math.sqrt(sum(float(np.square(a).sum()) for a in jax.tree.leaves(t)))
+        np.testing.assert_allclose(float(global_norm(_t(t))), want, rtol=1e-6)
+
+    def test_schedule_warmup_and_decay(self):
+        lr = cosine_schedule(1.0, warmup_steps=10, total_steps=100)
+        assert float(lr(0)) == 0.0
+        assert float(lr(10)) == pytest.approx(1.0, rel=1e-3)
+        assert float(lr(100)) == pytest.approx(0.1, rel=1e-2)
+        assert float(lr(5)) == pytest.approx(0.5, rel=1e-3)
+
+    @pytest.mark.parametrize("warmup,total", [(10, 100), (0, 7), (3, 2)])
+    def test_schedule_matches_jax_at_every_step(self, warmup, total):
+        jl, tl = jax_cosine(3e-3, warmup_steps=warmup, total_steps=total), cosine_schedule(3e-3, warmup_steps=warmup,
+                                                                                             total_steps=total)
+        for step in range(total + 3):
+            np.testing.assert_allclose(float(tl(torch.tensor(step, dtype=torch.int32))), float(jl(step)), **F32)
+
+
+# ---------------------------------------------------------------------------
+# the train step against JAX's
+# ---------------------------------------------------------------------------
+# Adam's update is about lr * sign(g) wherever |g| >> eps, whatever |g| is, so
+# an entry whose gradient lies within the two packages' gradient gap of 0 may
+# move the other way, 2 lr from JAX's. Each leaf's update (the parameters
+# after the steps minus before) is held at a relative L2 error against JAX's,
+# about twice the root of the share of such flips: measured 0.14-0.21 over
+# these cases (0.5-2 % of the entries flipped). An update of the wrong sign,
+# one not applied or one at twice the lr gives 1 or more. The moments, which
+# carry the gradients' values, are held at a relative L2 error too.
+UPDATE_REL = 0.3
+MOMENT_REL_ONE_STEP = 0.05  # measured 0.010-0.023 with f32 attention
+LOSS_REL_THREE_STEPS = 0.05  # measured 0.2-2.0 % at step 3 (lr 1e-2 moves the smoke model fast)
+
+
+def _run_both(arch, steps, grad_accum=1, B=2):
+    jm, jp, tm, tp = _bridged(arch)
+    lr_j, lr_t = jax_cosine(1e-2, warmup_steps=0, total_steps=10), cosine_schedule(1e-2, warmup_steps=0,
+                                                                                   total_steps=10)
+    jstep = jax.jit(jax_train_step(jm, lr_j, JaxAdamWConfig(), grad_accum=grad_accum))
+    tstep = make_train_step(tm, lr_t, AdamWConfig(), grad_accum=grad_accum)
+    jst, tst = jax_adamw_init(jp), adamw_init(tp)
+    p0 = _flat(tp)
+    out = []
+    for i in range(steps):
+        b = _batch(tm.cfg.vocab, B=B, seed=100 + i)
+        jp, jst, jmet = jstep(jp, jst, _jb(b))
+        tp, tst, tmet = tstep(tp, tst, _tb(b))
+        out.append((jmet, tmet))
+    return jp, jst, tp, tst, p0, out
+
+
+def _check_against_jax(jp, jst, tp, tst, p0, out, steps):
+    for jmet, tmet in out:
+        assert set(tmet) == {"loss", "lr", "ce", "z_loss", "lb_loss", "grad_norm", "clip_scale"}
+        np.testing.assert_allclose(float(tmet["lr"]), float(jmet["lr"]), **F32)
+    assert abs(float(out[0][1]["loss"]) - float(out[0][0]["loss"])) < LOSS_TOL_KERNEL_PATH
+    tf, jf = _flat(tp), _flat(jp)
+    for k in jf:
+        update, want = tf[k] - p0[k], jf[k] - p0[k]
+        assert np.any(update), k  # every leaf moved
+        assert np.linalg.norm(update - want) <= UPDATE_REL * np.linalg.norm(want), k
+    if steps == 1:
+        for name in ("m", "v"):
+            errs = _rel_l2(tst[name], jst[name])
+            assert max(errs.values()) < MOMENT_REL_ONE_STEP, (name, max(errs.items(), key=lambda kv: kv[1]))
+    else:
+        jl, tl = float(out[-1][0]["loss"]), float(out[-1][1]["loss"])
+        assert abs(tl - jl) < LOSS_REL_THREE_STEPS * jl
+    assert int(tst["step"]) == int(jst["step"]) == steps
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b"])
+def test_train_step_matches_jax(arch, steps, f32_attention):
+    _check_against_jax(*_run_both(arch, steps), steps)
+
+
+def test_train_step_grad_accum_matches_jax(f32_attention):
+    _check_against_jax(*_run_both("qwen3-4b", 1, grad_accum=2, B=4), 1)
+
+
+def test_grad_accum_sums_the_microbatches():
+    """grad_accum=2 over a batch of 4 against one pass over the same 4 rows:
+    with a full mask the two losses are the same mean, so the moments agree
+    to f32 rounding (the order of the sums differs)."""
+    cfg = get_config("qwen3-4b", smoke=True)
+    model = Model(cfg, device="cpu")
+    b = _batch(cfg.vocab, B=4, seed=5)
+    b["loss_mask"][:] = 1.0
+    states = []
+    for accum in (1, 2):
+        params = model.init(torch.Generator().manual_seed(0), train=True)
+        st = adamw_init(params)
+        _, st, met = make_train_step(model, cosine_schedule(1e-2, warmup_steps=0), grad_accum=accum)(
+            params, st, _tb(b))
+        states.append((st, met))
+    (st1, m1), (st2, m2) = states
+    np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]), rtol=1e-5)
+    errs = _rel_l2(st2["m"], st1["m"])
+    assert max(errs.values()) < 1e-2, max(errs.items(), key=lambda kv: kv[1])
+
+
+def test_train_step_rejects_a_batch_that_does_not_split():
+    cfg = get_config("qwen3-4b", smoke=True)
+    model = Model(cfg, device="cpu")
+    params = model.init(train=True)
+    step = make_train_step(model, cosine_schedule(1e-2), grad_accum=2)
+    with pytest.raises(ValueError, match="microbatches"):
+        step(params, adamw_init(params), _tb(_batch(cfg.vocab, B=3)))
+
+
+def test_eval_step_is_the_loss():
+    cfg = get_config("qwen3-4b", smoke=True)
+    model = Model(cfg, device="cpu")
+    params = model.init(train=True)
+    b = _tb(_batch(cfg.vocab))
+    out = make_eval_step(model)(params, b)
+    with torch.no_grad():
+        want, aux = model.loss(params, b)
+    assert torch.equal(out["loss"], want) and torch.equal(out["ce"], aux["ce"])
+    assert not out["loss"].requires_grad
+
+
+# ---------------------------------------------------------------------------
+# end to end (tests/test_smoke_archs.py's loss-decreases case)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_train_step_decreases_loss(arch):
+    """Normalised SGD on a repeated batch through the port's autograd: the
+    loss falls within 6 steps, every gradient finite."""
+    cfg = get_config(arch, smoke=True)
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0), train=True)
+    b = _tb(_batch(cfg.vocab, seed=1))
+    losses = []
+    for _ in range(6):
+        loss, _, grads = _port_grads(model, params, b)
+        losses.append(float(loss))
+        gnorm = float(global_norm(grads))
+        assert math.isfinite(gnorm) and gnorm > 0
+        with torch.no_grad():
+            for p, g in zip(jax.tree.leaves(params), jax.tree.leaves(grads)):
+                p.sub_(0.05 * g / (gnorm + 1e-6))
+    assert math.isfinite(losses[0]) and losses[-1] < losses[0], losses
+
+
+def test_hybrid_training_raises_at_the_scan():
+    """recurrentgemma trains once the scan has a backward (ROADMAP's next slice)."""
+    cfg = get_config("recurrentgemma-9b", smoke=True)
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0), train=True)
+    with pytest.raises(NotImplementedError, match="rglru_scan"):
+        _port_grads(model, params, _tb(_batch(cfg.vocab)))

@@ -1,0 +1,272 @@
+"""The port's Trainer and its substrate on the CPU: tests/test_train_serve.py's
+TestTrainer cases on ``--device cpu``, tests/test_substrate.py's TestData and
+TestCheckpoint cases against the port's copies (plus the bf16 round trip and
+the data the JAX package's pipeline makes), the CLI, and the host plane."""
+
+import json
+import os
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+try:
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+except ImportError:  # keep property tests running where hypothesis is absent
+    from _hypothesis_fallback import given, settings
+    from _hypothesis_fallback import strategies as st
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core import AnomalyEvent, Rule, SamplerConfig, make_sampler
+from repro_torch.data import DataConfig, Pipeline, SyntheticLM
+from repro_torch.launch import steps as steps_module
+from repro_torch.launch.train import Trainer, TrainJobConfig, main
+
+
+def job(tmp_path, **kw):
+    base = dict(
+        arch="qwen3-4b",
+        smoke=True,
+        device="cpu",
+        steps=6,
+        global_batch=4,
+        seq_len=32,
+        lr=1e-2,
+        out_dir=str(tmp_path),
+        ckpt_every=3,
+        profile=True,
+        sample_period_s=0.05,
+        resume=True,
+    )
+    base.update(kw)
+    return TrainJobConfig(**base)
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+class TestTrainer:
+    def test_loss_decreases_and_artifacts_written(self, tmp_path):
+        summary = Trainer(job(tmp_path, steps=8)).run()
+        assert summary["steps"] == 8 and summary["device"] == "cpu"
+        assert summary["final_loss"] < summary["first_loss"]
+        assert os.path.exists(tmp_path / "metrics.json")
+        assert os.path.exists(tmp_path / "heartbeat")
+        # host-plane profile written (the always-on toolchain)
+        assert os.path.exists(tmp_path / "host_profile.html")
+
+    def test_checkpoint_resume_exact(self, tmp_path):
+        t1 = Trainer(job(tmp_path, steps=6))
+        t1.run()
+        # second run continues from the step 6 checkpoint, runs to 9
+        t2 = Trainer(job(tmp_path, steps=9))
+        t2.run()
+        assert t2.step == 9
+        with open(tmp_path / "metrics.json") as f:
+            log = json.load(f)
+        assert [m["step"] for m in log["steps"]] == [7, 8, 9]
+
+    def test_resume_reproduces_uninterrupted_run(self, tmp_path):
+        """train(5) + resume(5) == train(10): the loss curve, and the
+        parameters and optimizer state at the end, bit for bit."""
+        a, b = tmp_path / "a", tmp_path / "b"
+        Trainer(job(a, steps=5, ckpt_every=5, profile=False)).run()
+        ta = Trainer(job(a, steps=10, ckpt_every=5, profile=False))
+        ta.run()
+        tb = Trainer(job(b, steps=10, ckpt_every=10, profile=False))
+        tb.run()
+        with open(a / "metrics.json") as f:
+            la = {m["step"]: m["loss"] for m in json.load(f)["steps"]}
+        with open(b / "metrics.json") as f:
+            lb = {m["step"]: m["loss"] for m in json.load(f)["steps"]}
+        for s in (6, 8, 10):
+            assert la[s] == pytest.approx(lb[s], rel=1e-4), f"divergence at step {s}"
+        for (pa, x), (pb, y) in zip(_flat(ta._state_tree()), _flat(tb._state_tree())):
+            assert pa == pb and np.array_equal(np.asarray(x), np.asarray(y)), pa
+
+    def test_watchdog_takes_an_emergency_checkpoint(self, tmp_path):
+        """An extra rule that every window meets fires the warn -> emergency
+        checkpoint flow."""
+        rule = Rule(pattern="thread::", threshold=0.0, consecutive=1, min_window_total=1, self_only=False,
+                    kind="TEST_RULE")
+        trainer = Trainer(job(tmp_path, steps=40, ckpt_every=100, extra_rules=[rule], sample_period_s=0.02))
+        summary = trainer.run()
+        assert any("TEST_RULE" in a for a in summary["anomalies"])
+        tags = [json.load(open(tmp_path / "ckpt" / d / "manifest.json"))["tag"]
+                for d in os.listdir(tmp_path / "ckpt") if d.startswith("step_") and not d.endswith(".tmp")]
+        assert "emergency" in tags
+
+    def test_emergency_checkpoint_fired_mid_step_holds_a_whole_step(self, tmp_path, monkeypatch):
+        """The detector fires on the watchdog's thread while a step is running,
+        after AdamW has updated the parameters and moments in place but before
+        the Trainer counts the step: the emergency checkpoint holds one whole
+        step, equal to the state of an uninterrupted run at that step."""
+        a, b = tmp_path / "a", tmp_path / "b"
+        trainer = Trainer(job(a, steps=3, ckpt_every=100, profile=False))
+        real_update = steps_module.adamw_update
+
+        def update_then_fire(grads, opt_state, params, **kw):
+            out = real_update(grads, opt_state, params, **kw)
+            if int(opt_state["step"]) == 2:  # the second step, its update applied
+                event = AnomalyEvent("TEST_RULE", ("thread::x",), 1.0, Rule(), 0)
+                watchdog = threading.Thread(target=trainer._on_anomaly, args=(event,))
+                watchdog.start()
+                watchdog.join()
+            return out
+
+        monkeypatch.setattr(steps_module, "adamw_update", update_then_fire)
+        trainer.run()
+        ckpt = CheckpointManager(str(a / "ckpt"))
+        emergency = [s for s in ckpt.list_steps() if ckpt.restore(s)[1]["tag"] == "emergency"]
+        assert emergency == [2]
+        tree, _ = ckpt.restore(2)
+        monkeypatch.setattr(steps_module, "adamw_update", real_update)
+        whole = Trainer(job(b, steps=2, ckpt_every=100, profile=False))
+        whole.run()
+        assert int(tree["opt"]["step"]) == 2
+        for (pa, x), (pb, y) in zip(_flat(tree), _flat(whole._state_tree())):
+            assert pa == pb and np.array_equal(np.asarray(x), np.asarray(y)), pa
+
+    def test_cli_on_the_cpu(self, tmp_path):
+        """``python -m repro_torch.launch.train --arch qwen3-4b --device cpu --steps 5``"""
+        main(["--arch", "qwen3-4b", "--device", "cpu", "--steps", "5", "--out", str(tmp_path), "--no-resume"])
+        with open(tmp_path / "metrics.json") as f:
+            summary = json.load(f)["summary"]
+        assert summary["steps"] == 5 and summary["final_loss"] < summary["first_loss"]
+
+    def test_daemon_backend_is_not_ported(self, tmp_path):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(job(tmp_path, profile_backend="daemon"))
+
+
+class TestData:
+    def cfg(self, **kw):
+        return DataConfig(vocab=97, seq_len=32, global_batch=8, **kw)
+
+    def test_deterministic_and_resumable(self):
+        ds = SyntheticLM(self.cfg())
+        b1, b2 = ds.batch(7), ds.batch(7)
+        np.testing.assert_array_equal(b1["tokens"], b2["tokens"])
+        assert not np.array_equal(ds.batch(8)["tokens"], b1["tokens"])
+
+    def test_labels_are_shifted_tokens(self):
+        b = SyntheticLM(self.cfg()).batch(0)
+        np.testing.assert_array_equal(b["tokens"][:, 1:], b["labels"][:, :-1])
+
+    def test_host_sharding_partitions_batch(self):
+        shards = [SyntheticLM(self.cfg(n_hosts=4, host_id=h)).batch(3)["tokens"] for h in range(4)]
+        assert all(s.shape[0] == 2 for s in shards)
+        assert not np.array_equal(shards[0], shards[1])
+
+    def test_tokens_in_vocab(self):
+        b = SyntheticLM(self.cfg()).batch(1)
+        assert b["tokens"].min() >= 0 and b["tokens"].max() < 97
+
+    def test_pipeline_prefetch_and_state(self):
+        pipe = Pipeline(SyntheticLM(self.cfg()), prefetch=2)
+        next(pipe)
+        b = next(pipe)
+        assert pipe.state_dict()["next_step"] == 2
+        pipe.load_state_dict({"next_step": 1})
+        np.testing.assert_array_equal(b["tokens"], next(pipe)["tokens"])
+        pipe.close()
+
+    @settings(max_examples=20, deadline=None)
+    @given(st.integers(min_value=0, max_value=1000), st.integers(min_value=0, max_value=1000))
+    def test_prop_distinct_steps_distinct_batches(self, s1, s2):
+        ds = SyntheticLM(self.cfg())
+        t1, t2 = ds.batch(s1)["tokens"], ds.batch(s2)["tokens"]
+        assert np.array_equal(t1, t2) == (s1 == s2)
+
+    @pytest.mark.parametrize("step", [0, 5])
+    def test_batches_equal_the_jax_packages(self, step):
+        jdata = pytest.importorskip("repro.data")
+        kw = dict(vocab=151_936, seq_len=64, global_batch=2, seed=3)
+        want = jdata.SyntheticLM(jdata.DataConfig(**kw)).batch(step)
+        got = SyntheticLM(DataConfig(**kw)).batch(step)
+        assert want.keys() == got.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+class TestCheckpoint:
+    def tree(self, scale=1.0):
+        return {
+            "params": {"w": torch.full((4, 4), scale), "b": torch.arange(3, dtype=torch.int32)},
+            "opt": {"step": torch.tensor(7, dtype=torch.int32)},
+            "data": {"next_step": np.asarray(12)},
+        }
+
+    def test_roundtrip(self, tmp_path):
+        mgr = CheckpointManager(str(tmp_path))
+        mgr.save(5, self.tree(), blocking=True)
+        step, tree, manifest = mgr.restore_latest()
+        assert step == 5 and manifest["tag"] == "periodic"
+        assert torch.equal(tree["params"]["w"], self.tree()["params"]["w"])
+        assert torch.equal(tree["params"]["b"], self.tree()["params"]["b"])
+        assert tree["opt"]["step"].dtype == torch.int32 and int(tree["opt"]["step"]) == 7
+        assert int(tree["data"]["next_step"]) == 12
+
+    def test_bf16_roundtrips_bit_for_bit(self, tmp_path):
+        x = torch.randn(5, 7).bfloat16()
+        x[0, :3] = torch.tensor([float("inf"), -0.0, 1e-40])  # inf, signed zero, a subnormal
+        mgr = CheckpointManager(str(tmp_path))
+        mgr.save(1, {"x": x, "m": x.float()}, blocking=True)
+        _, tree, manifest = mgr.restore_latest()
+        assert manifest["leaves"]["x"]["dtype"] == "bfloat16" and manifest["leaves"]["m"]["dtype"] == "float32"
+        assert tree["x"].dtype == torch.bfloat16
+        assert torch.equal(tree["x"].view(torch.int16), x.view(torch.int16))
+        assert torch.equal(tree["m"], x.float())
+
+    def test_save_copies_before_returning(self, tmp_path):
+        """The train loop may update its tensors in place as soon as an async
+        save returns."""
+        mgr = CheckpointManager(str(tmp_path))
+        t = self.tree()
+        mgr.save(1, t)
+        t["params"]["w"].add_(100.0)
+        mgr.wait()
+        _, tree, _ = mgr.restore_latest()
+        assert torch.equal(tree["params"]["w"], self.tree()["params"]["w"])
+
+    def test_async_save_then_wait(self, tmp_path):
+        mgr = CheckpointManager(str(tmp_path))
+        mgr.save(1, self.tree(1.0))
+        mgr.wait()
+        assert mgr.list_steps() == [1]
+
+    def test_keep_policy_gc(self, tmp_path):
+        mgr = CheckpointManager(str(tmp_path), keep=2)
+        for s in (1, 2, 3, 4):
+            mgr.save(s, self.tree(s), blocking=True)
+        assert mgr.list_steps() == [3, 4]
+
+    def test_crash_safe_tmp_never_restored(self, tmp_path):
+        mgr = CheckpointManager(str(tmp_path))
+        mgr.save(1, self.tree(), blocking=True)
+        os.makedirs(tmp_path / "step_0000000002.tmp")  # simulated crashed save
+        step, _, _ = mgr.restore_latest()
+        assert step == 1
+
+    def test_emergency_tagging(self, tmp_path):
+        mgr = CheckpointManager(str(tmp_path))
+        ev = AnomalyEvent("LIVELOCK_SUSPECT", ("a", "b"), 0.97, Rule(), 3)
+        mgr.save_emergency(lambda: (9, self.tree()), ev)
+        _, _, manifest = mgr.restore_latest()
+        assert manifest["tag"] == "emergency"
+        assert manifest["extra"]["anomaly"]["share"] == pytest.approx(0.97)
+
+
+def test_sampler_records_this_thread():
+    sampler = make_sampler(SamplerConfig(period_s=0.01))
+    sampler.sample_now()
+    tree = sampler.stop()
+    assert tree.total() >= 1
+    assert any("test_sampler_records_this_thread" in "/".join(p) for p in tree.shares())
