@@ -8,7 +8,8 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
 1. device  -- the card, torch/CUDA versions, ``nvidia-smi`` name and power limit;
 2. build   -- nvcc build of the CUDA kernels from ``src/repro_torch/csrc`` (one
               nvcc per source, all at once), then the first Triton compile, each
-              timed;
+              timed; no kernel of the flash backward library, the wgmma forward
+              or the chunked scan may spill registers;
 3. kernels -- every hand-written kernel against its plain PyTorch version on the
               card over the sweep of the CPU tests plus the main paths' shapes
               (f32 2e-5, bf16 2e-2), both flash kernels (wgmma for bf16 at head
@@ -22,7 +23,9 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
    and the two backward kernels (flash attention's in CUDA, RMSNorm's in
               Triton) against their plain backward versions over the forward
               sweep, then timed at the training shape beside the plain backward,
-              the library call's backward through autograd and the bound;
+              the library call's backward through autograd and the bound; the
+              flash backward as the wgmma pair (from the forward's lse, held to
+              the plain lse), beside the mma and FMA pairs it replaced;
 
 then two paths, each through the entry points a user calls, with random weights
 drawn from seed 0, the first freed before the second:
@@ -89,22 +92,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 # Each path: its prefill shape and the kernel launches its prefill and each
-# decode step must make.
+# decode step must make (every counter of ops.launch_counts(), 0 unless named).
+NO_LAUNCHES = dict.fromkeys(("flash_attention", "flash_attention_wgmma", "fused_rmsnorm", "rglru_scan",
+                             "rglru_scan_sequential", "flash_attention_bwd", "flash_attention_bwd_wgmma",
+                             "flash_attention_bwd_mma", "fused_rmsnorm_bwd"), 0)
 PATHS = {
     "qwen3-4b": dict(B=2, S=2048, check_tokens=8,
-                     prefill={"flash_attention": 36, "flash_attention_wgmma": 36, "fused_rmsnorm": 145,
-                              "rglru_scan": 0, "rglru_scan_sequential": 0, "flash_attention_bwd": 0,
-                              "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 0},
-                     per_step={"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 145,
-                               "rglru_scan": 0, "rglru_scan_sequential": 0, "flash_attention_bwd": 0,
-                               "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 0}),
+                     prefill={**NO_LAUNCHES, "flash_attention": 36, "flash_attention_wgmma": 36, "fused_rmsnorm": 145},
+                     per_step={**NO_LAUNCHES, "fused_rmsnorm": 145}),
     "recurrentgemma-9b": dict(B=2, S=4096, check_tokens=12,
-                              prefill={"flash_attention": 12, "flash_attention_wgmma": 12, "fused_rmsnorm": 77,
-                                       "rglru_scan": 26, "rglru_scan_sequential": 0, "flash_attention_bwd": 0,
-                                       "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 0},
-                              per_step={"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 77,
-                                        "rglru_scan": 0, "rglru_scan_sequential": 0, "flash_attention_bwd": 0,
-                                        "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 0}),
+                              prefill={**NO_LAUNCHES, "flash_attention": 12, "flash_attention_wgmma": 12,
+                                       "fused_rmsnorm": 77, "rglru_scan": 26},
+                              per_step={**NO_LAUNCHES, "fused_rmsnorm": 77}),
 }
 # The training path: full qwen3-4b, uncut (36 layers), at B x S tokens a step.
 # Parameters, gradients and the two f32 AdamW moments take 16 bytes a
@@ -176,8 +175,9 @@ def _kernel_events(prof):
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 2, sessions: int = 5) -> tuple[float, float]:
-    """-> (device ms, events ms) per call of ``fn`` over ``iters`` back-to-back calls.
+def time_ms(fn, iters: int = 10, warmup: int = 2, sessions: int = 5) -> tuple[float, float, dict]:
+    """-> (device ms, events ms, device ms by kernel name) per call of ``fn``
+    over ``iters`` back-to-back calls.
 
     Device ms sums the profiler's kernel times: the card's own time for the
     work. Events ms is CUDA events around the loop; it is larger where the
@@ -185,7 +185,10 @@ def time_ms(fn, iters: int = 10, warmup: int = 2, sessions: int = 5) -> tuple[fl
     tens of microseconds of Python). The profiler on the card's machine now
     and then records no device events for a session, or fewer kernels than
     ``fn`` was called (every call launches at least one); the loop is then
-    profiled again, and after ``sessions`` such sessions this raises."""
+    profiled again, and after ``sessions`` such sessions this raises. It may
+    drop a record and still pass that check where a call launches several
+    kernels, so device ms can read low there: events ms is the ruler for
+    such a call (the flash backward pairs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -201,15 +204,37 @@ def time_ms(fn, iters: int = 10, warmup: int = 2, sessions: int = 5) -> tuple[fl
             end.record()
             end.synchronize()
         kernels = _kernel_events(prof)
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+        by_kernel = {e.key[:80]: e.self_device_time_total / 1e3 / iters for e in kernels}
+        device_ms = sum(by_kernel.values())
         if device_ms > 0 and sum(e.count for e in kernels) >= iters:
-            return device_ms, start.elapsed_time(end) / iters
+            return device_ms, start.elapsed_time(end) / iters, by_kernel
     raise RuntimeError(f"the profiler recorded too few kernels in {sessions} sessions of {iters} calls")
 
 
-def timed(prefix: str, fn, iters: int) -> dict:
-    device_ms, events_ms = time_ms(fn, iters=iters)
-    return {f"{prefix}ms": device_ms, f"{prefix}events_ms": events_ms}
+def events_ms(fn, iters: int, warmup: int = 1) -> float:
+    """CUDA events around ``iters`` back-to-back calls of ``fn``, per call,
+    with no profiler: for a plain version whose Python loop launches tens of
+    thousands of kernels a call, more than the profiler records whole."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def timed(prefix: str, fn, iters: int, by_kernel: bool = False) -> dict:
+    """``time_ms`` as a row's fields; ``by_kernel`` adds the device ms by kernel name."""
+    device_ms, events, kernels = time_ms(fn, iters=iters)
+    out = {f"{prefix}ms": device_ms, f"{prefix}events_ms": events}
+    if by_kernel:
+        out[f"{prefix}by_kernel_ms"] = kernels
+    return out
 
 
 def check_close(name: str, got, want, **case) -> float:
@@ -412,6 +437,11 @@ def time_flash(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
     excess = two_term_excess(got, ref.attention_ref(qt, kt, vt, window=window, p_bf16=2).transpose(1, 2))
     if not excess <= TWO_TERM_ATOL:
         raise AssertionError(f"flash_attention at the prefill shape: {excess} beyond one bf16 rounding of p_bf16=2")
+    with_lse, lse = ops.flash_attention(q, k, v, window=window, return_lse=True)  # the training instance
+    if not torch.equal(with_lse, got):
+        raise AssertionError("flash_attention at the prefill shape: the output with lse differs from the one without")
+    lse_rel = lse_close("flash lse", lse, ref.attention_ref(qt, kt, vt, window=window, return_lse=True)[1], B=B, S=S)
+    del with_lse, lse
     one_term = ref.attention_ref(qt, kt, vt, window=window, p_bf16=1).transpose(1, 2)
     one_term_err = float((one_term.float() - want.float()).abs().max())
     fma = flash.launch_fma(q, k, v, causal=True, window=window)
@@ -435,7 +465,8 @@ def time_flash(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
         "shape": f"q {B}x{S}x{Hq}x{D}, k/v {B}x{S}x{Hkv}x{D}, bf16, causal"
                  + (f", window {window}" if window else ""),
         "variant": "wgmma", "max_abs_err": err, "output_rms": rms, "two_term_excess": excess,
-        "one_term_err_over_rms": one_term_err / rms, "fma_max_abs_err": fma_err,
+        "one_term_err_over_rms": one_term_err / rms, "fma_max_abs_err": fma_err, "lse_rel_err": lse_rel,
+        "output_with_lse_equal": True,
         **timed("", lambda: ops.flash_attention(q, k, v, window=window), 20),
         **timed("fma_", lambda: flash.launch_fma(q, k, v, causal=True, window=window), 3),
         **timed("plain_", lambda: ref.attention_ref(qt, kt, vt, window=window), 3),
@@ -449,11 +480,10 @@ def time_rglru(torch, ops, ref, dev, shapes: list[tuple[int, int, int]]) -> list
     """The prefill's scan at each (B, S, W) of ``shapes``: a and b from the
     gates, f32, through ``ops`` (the chunked kernel), timed beside the
     sequential kernel it replaced and the plain version. The plain version, a
-    Python loop over S, is profiled last for every shape: after a session of
-    its tens of thousands of kernels, the profiler on the card's machine drops
-    the first kernel record of each later session, which ``time_ms`` takes for
-    a lost launch. ``resident_clusters``: how many of the chunked kernel's
-    clusters the card holds at once."""
+    Python loop over S, is timed on CUDA events alone (``events_ms``): the
+    profiler loses records of its tens of thousands of kernels a call, and
+    of the sessions after it. ``resident_clusters``: how many of the chunked
+    kernel's clusters the card holds at once."""
     from functools import partial
 
     from repro_torch.kernels import rglru_scan as rgk
@@ -481,8 +511,8 @@ def time_rglru(torch, ops, ref, dev, shapes: list[tuple[int, int, int]]) -> list
             "bound_ms": bms, "bound_by": by, "bytes": nbytes,
         })
         inputs.append((a, b))
-    for row, (a, b) in zip(rows, inputs):
-        row.update(timed("plain_", partial(ref.rglru_ref, a, b), 2))
+    for row, (a, b) in zip(rows, inputs):  # after every profiled session, as a precaution
+        row.update(plain_ms=events_ms(partial(ref.rglru_ref, a, b), 2), plain_timed_by="cuda events")
     return rows
 
 
@@ -550,17 +580,41 @@ def flash_grad_close(name: str, got, want, **case) -> tuple[float, float]:
     return err, rel
 
 
+# The wgmma forward's lse against the plain version's (attention_ref with
+# return_lse): both sum exp over the same bf16 inputs in f32, in other orders
+# (and the kernel in the log2 domain), so they part by a few f32 roundings of
+# the row sum and of the scaled scores, ~1e-6 relative; LSE_REL bounds
+# |got - want| / (|want| + 1) with room for long rows. Rows that see no key
+# are +inf on both sides.
+LSE_REL = 1e-4
+
+
+def lse_close(name: str, got, want, **case) -> float:
+    """Raise unless the kernel's lse is within LSE_REL of the plain one (+inf
+    exactly where the plain one is); -> the largest relative error."""
+    inf = want == math.inf
+    if not bool(((got == math.inf) == inf).all()):
+        raise AssertionError(f"{name} {case}: lse is +inf on other rows than the plain version's")
+    rel = float(((got - want).abs() / (want.abs() + 1))[~inf].max()) if bool((~inf).any()) else 0.0
+    if not rel <= LSE_REL:
+        raise AssertionError(f"{name} {case}: lse relative error {rel} exceeds {LSE_REL}")
+    return rel
+
+
 def flash_bwd_sweep(torch, ops, ref, dev) -> tuple[dict, int]:
     """The backward kernels over FLASH_CASES in f32 and bf16, causal and not,
-    from the forward kernel's own output, through ``ops`` (the mma pair for
-    bf16 at D 16/64/128, the FMA pair otherwise; one launch counted per call),
-    and the FMA pair on the mma pair's cases too, each gradient against the
-    plain backward (``flash_grad_close``). -> (worst error by pair, and worst
-    block error by pair and dtype; cases)."""
+    from the forward kernel's own output (and its lse where the wgmma pair
+    reads it, held to the plain lse), through ``ops`` (the wgmma pair for bf16
+    at D 16/64/128, the FMA pair otherwise; one launch counted per call), and
+    on the wgmma pair's cases the pairs ops does not pick too: the mma pair,
+    and the FMA pair where it is built (not bf16 at D = 16); each gradient
+    against the plain backward (``flash_grad_close``). The wgmma pair runs
+    twice on each case: equal bits. -> (worst error by pair, worst block
+    error by pair and dtype, worst lse error; cases)."""
     from repro_torch.kernels import flash_attention as flash
 
     g = torch.Generator(device=dev).manual_seed(16)
-    worst, n = {"mma": 0.0, "fma": 0.0}, 0
+    worst, n = {"wgmma": 0.0, "mma": 0.0, "fma": 0.0, "wgmma_lse_rel": 0.0}, 0
     for B, S, T, Hq, Hkv, D, window in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((B, S, Hq, D), generator=g, device=dev).to(dtype)
@@ -568,19 +622,32 @@ def flash_bwd_sweep(torch, ops, ref, dev) -> tuple[dict, int]:
             name = flash.bwd_variant(dtype, D)
             for causal in (True, False):
                 case = dict(B=B, S=S, T=T, Hq=Hq, Hkv=Hkv, D=D, window=window, causal=causal, dtype=str(dtype))
-                o = ops.flash_attention(q, k, v, causal=causal, window=window)
+                t = [x.transpose(1, 2) for x in (q, k, v)]
+                lse = None
+                if name == "wgmma":
+                    o, lse = ops.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+                    _, want_lse = ref.attention_ref(*t, causal=causal, window=window, return_lse=True)
+                    worst["wgmma_lse_rel"] = max(worst["wgmma_lse_rel"], lse_close("flash lse", lse, want_lse, **case))
+                else:
+                    o = ops.flash_attention(q, k, v, causal=causal, window=window)
                 do = torch.randn(o.shape, generator=g, device=dev).to(dtype)
                 before = ops.launch_counts()
-                got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+                got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
                 after = ops.launch_counts()
+                wgmma = name == "wgmma"
                 if (after["flash_attention_bwd"] != before["flash_attention_bwd"] + 1
-                        or after["flash_attention_bwd_mma"] != before["flash_attention_bwd_mma"] + (name == "mma")):
+                        or after["flash_attention_bwd_wgmma"] != before["flash_attention_bwd_wgmma"] + wgmma):
                     raise AssertionError(f"flash_attention_bwd {case}: expected one launch of the {name} pair")
-                want = ref.attention_bwd_ref(*(t.transpose(1, 2) for t in (q, k, v, o, do)), causal=causal,
+                want = ref.attention_bwd_ref(*(x.transpose(1, 2) for x in (q, k, v, o, do)), causal=causal,
                                              window=window)
                 runs = [(name, got)]
-                if name == "mma":
-                    runs.append(("fma", flash.launch_bwd_fma(q, k, v, o, do, causal=causal, window=window)))
+                if name == "wgmma":
+                    again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
+                    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                        raise AssertionError(f"flash_attention_bwd (wgmma) {case}: two launches differ")
+                    runs.append(("mma", flash.launch_bwd_mma(q, k, v, o, do, causal=causal, window=window)))
+                    if D in flash.FMA_BWD_BF16_HEAD_DIMS:
+                        runs.append(("fma", flash.launch_bwd_fma(q, k, v, o, do, causal=causal, window=window)))
                 for pair, grads in runs:
                     for gname, x, w in zip(("dq", "dk", "dv"), grads, want):
                         err, rel = flash_grad_close(f"flash_attention_bwd ({pair}) {gname}", x, w.transpose(1, 2),
@@ -623,31 +690,34 @@ def rmsnorm_bwd_sweep(torch, ops, ref, dev) -> tuple[float, int]:
 
 def time_flash_bwd(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
     """The training step's attention backward: B x S tokens, causal, bf16,
-    through ``ops`` (the mma pair) from the wgmma forward's output, held to
-    the plain backward, and timed beside the FMA pair, the plain backward and
-    SDPA's backward through autograd. Bound: 2.5 x the forward's operations
-    (five S x T x D products per head against two) at the bf16 tensor-core
-    peak."""
+    through ``ops`` (the wgmma pair) from the wgmma forward's output and lse,
+    held to the plain backward, and timed beside the pairs it replaced (the
+    mma pair, the FMA pair), the plain backward and SDPA's backward through
+    autograd. Bound: 2.5 x the forward's operations (five S x T x D products
+    per head against two) at the bf16 tensor-core peak."""
     from repro_torch.kernels import flash_attention as flash
 
     g = torch.Generator(device=dev).manual_seed(18)
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = torch.randn((B, S, Hq, D), generator=g, device=dev).bfloat16()
     k, v = (torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16() for _ in range(2))
-    o = ops.flash_attention(q, k, v)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
     do = torch.randn(o.shape, generator=g, device=dev).bfloat16()
     t = [a.transpose(1, 2) for a in (q, k, v, o, do)]
-    before = ops.launch_counts()["flash_attention_bwd_mma"]
-    got = ops.flash_attention_bwd(q, k, v, o, do)
-    if ops.launch_counts()["flash_attention_bwd_mma"] != before + 1:
-        raise AssertionError("flash_attention_bwd at the training shape did not take the mma pair")
+    lse_rel = lse_close("flash lse", lse, ref.attention_ref(*t[:3], return_lse=True)[1], B=B, S=S)
+    before = ops.launch_counts()["flash_attention_bwd_wgmma"]
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    if ops.launch_counts()["flash_attention_bwd_wgmma"] != before + 1:
+        raise AssertionError("flash_attention_bwd at the training shape did not take the wgmma pair")
+    if not all(torch.equal(x, y) for x, y in zip(got, ops.flash_attention_bwd(q, k, v, o, do, lse=lse))):
+        raise AssertionError("flash_attention_bwd (wgmma) at the training shape: two launches differ")
     want = ref.attention_bwd_ref(*t)
-    checks = {n: flash_grad_close(f"flash_attention_bwd {n}", x, w.transpose(1, 2), B=B, S=S)
-              for n, x, w in zip(("dq", "dk", "dv"), got, want)}
-    fma = flash.launch_bwd_fma(q, k, v, o, do, causal=True, window=None)
-    fma_checks = {n: flash_grad_close(f"flash_attention_bwd (fma) {n}", x, w.transpose(1, 2), B=B, S=S)
-                  for n, x, w in zip(("dq", "dk", "dv"), fma, want)}
-    del got, want, fma
+    checks = {}
+    for pair, grads in (("wgmma", got), ("mma", flash.launch_bwd_mma(q, k, v, o, do, causal=True, window=None)),
+                        ("fma", flash.launch_bwd_fma(q, k, v, o, do, causal=True, window=None))):
+        checks[pair] = {n: flash_grad_close(f"flash_attention_bwd ({pair}) {n}", x, w.transpose(1, 2), B=B, S=S)
+                        for n, x, w in zip(("dq", "dk", "dv"), grads, want)}
+    del got, want
     pairs = S * (S + 1) // 2
     flops = 2.5 * 4 * B * Hq * D * pairs
     nbytes = 2 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D)  # q, o, do read, dq written; k, v read, dk, dv written
@@ -657,12 +727,12 @@ def time_flash_bwd(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
     library = lambda: torch.autograd.grad(lo, leaves, t[4], retain_graph=True)  # noqa: E731
     return {
         "shape": f"q {B}x{S}x{Hq}x{D}, k/v {B}x{S}x{Hkv}x{D}, bf16, causal",
-        "variant": "mma", "max_abs_err": max(e for e, _ in checks.values()),
-        "fma_max_abs_err": max(e for e, _ in fma_checks.values()),
-        "block_rel_l2": {n: r for n, (_, r) in checks.items()},
-        "fma_block_rel_l2": {n: r for n, (_, r) in fma_checks.items()},
-        **timed("", lambda: ops.flash_attention_bwd(q, k, v, o, do), 10),
-        **timed("fma_", lambda: flash.launch_bwd_fma(q, k, v, o, do, causal=True, window=None), 3),
+        "variant": "wgmma", "max_abs_err": max(e for e, _ in checks["wgmma"].values()), "lse_rel_err": lse_rel,
+        **{f"{p}_max_abs_err": max(e for e, _ in c.values()) for p, c in checks.items() if p != "wgmma"},
+        **{f"{p}_block_rel_l2": {n: r for n, (_, r) in c.items()} for p, c in checks.items()},
+        **timed("", lambda: ops.flash_attention_bwd(q, k, v, o, do, lse=lse), 20, by_kernel=True),
+        **timed("mma_", lambda: flash.launch_bwd_mma(q, k, v, o, do, causal=True, window=None), 10, by_kernel=True),
+        **timed("fma_", lambda: flash.launch_bwd_fma(q, k, v, o, do, causal=True, window=None), 3, by_kernel=True),
         **timed("plain_", lambda: ref.attention_bwd_ref(*t), 3),
         **timed("library_", library, 10),
         "library_call": "torch.autograd.grad of F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
@@ -689,7 +759,7 @@ def time_rmsnorm_bwd(torch, F, ops, ref, dev, rows: int, D: int, dtype) -> dict:
     return {
         "shape": f"{rows}x{D} {name}",
         "max_abs_err": err,
-        **timed("", lambda: ops.fused_rmsnorm_bwd(x, s, dy), 50),
+        **timed("", lambda: ops.fused_rmsnorm_bwd(x, s, dy), 50, by_kernel=True),
         **timed("plain_", lambda: ref.rmsnorm_bwd_ref(x, s, dy), 20),
         **timed("library_", library, 50),
         "library_call": "torch.autograd.grad of F.rms_norm(weight=1+scale)",
@@ -746,9 +816,9 @@ def train_phase(torch, get_config, ops, dev) -> dict:
     per_step = {k: v / n for k, v in counts.items()}
     L = cfg.n_layers
     recompute = L if cfg.remat != "none" else 0  # "full" and "dots" rerun every unit's attention and norms
-    want = {"flash_attention": L + recompute, "flash_attention_wgmma": L + recompute, "flash_attention_bwd": L,
-            "flash_attention_bwd_mma": L, "fused_rmsnorm": 4 * L + 1 + 4 * recompute,
-            "fused_rmsnorm_bwd": 4 * L + 1, "rglru_scan": 0, "rglru_scan_sequential": 0}
+    want = {**NO_LAUNCHES, "flash_attention": L + recompute, "flash_attention_wgmma": L + recompute,
+            "flash_attention_bwd": L, "flash_attention_bwd_wgmma": L, "fused_rmsnorm": 4 * L + 1 + 4 * recompute,
+            "fused_rmsnorm_bwd": 4 * L + 1}
     mean_ms = sum(st["ms"] for st in steps) / n
     out = {
         "arch": cfg.name, "layers": L, "batch": B, "seq": S, "remat": cfg.remat, "moments": "float32",
@@ -915,7 +985,7 @@ def scan_tilings(torch, ref, dev, W: int) -> None:
         for name, a, b, want in inputs:
             fn = partial(rgk.launch, a, b, flags=flags)
             err = check_close(f"rglru_scan {sub}x{warps}", fn(), want, case=name)
-            device_ms, events_ms = time_ms(fn, iters=20)
+            device_ms, events_ms, _ = time_ms(fn, iters=20)
             bms, _ = bound_ms(3 * a.numel() * a.element_size(), 2 * a.numel(), "float32")
             row[name] = {"ms": device_ms, "events_ms": events_ms, "share_of_bound": bms / device_ms,
                          "max_abs_err": err}
@@ -963,14 +1033,13 @@ def main() -> int:
     triton_s = time.perf_counter() - t0
     ptxas = {name: ptxas_report(build.library_path(name).with_suffix(".log").read_text()) for name in cuda_kernels}
     emit("build", nvcc_s=nvcc_s, first_triton_compile_s=triton_s, ptxas=ptxas)
-    # the kernels the main paths run (the FMA backward pair's bf16 D = 16 dQ
-    # instance spills, but ops runs the mma pair there)
-    for lib, kernel in (("flash_attention", "wgmma"), ("rglru_scan", "rglru_chunked"),
-                        ("flash_attention_bwd", "_mma_")):
+    # no kernel of the flash backward library spills, nor the wgmma forward
+    # (with and without the lse output) or the chunked scan
+    for lib, kernel in (("flash_attention", "wgmma"), ("rglru_scan", "rglru_chunked"), ("flash_attention_bwd", "")):
         spills = {k: r for k, r in ptxas[lib].items()
-                  if kernel in k and (r.get("spill_stores", 0) or r.get("spill_loads", 0))}
+                  if kernel in k and k != "warnings" and (r.get("spill_stores", 0) or r.get("spill_loads", 0))}
         if spills:
-            raise AssertionError(f"the {kernel} kernels spill registers: {spills}")
+            raise AssertionError(f"{lib} kernels spill registers: {spills}")
 
     # -- kernels against their plain versions, then timed at the main paths' shapes ---------
     qwen, hyb = get_config("qwen3-4b"), get_config("recurrentgemma-9b")
@@ -1029,7 +1098,7 @@ def main() -> int:
     for name, rows in timing.items():
         main_row = rows[0]
         route, src, replaces = SOURCES[name]
-        main_kernel = {"flash_attention": "wgmma", "rglru_scan": "chunked", "flash_attention_bwd": "mma"}.get(name)
+        main_kernel = {"flash_attention": "wgmma", "rglru_scan": "chunked", "flash_attention_bwd": "wgmma"}.get(name)
         worst = sweep_err[name][main_kernel] if main_kernel else sweep_err[name]
         row = {
             "name": name, "route": route, "source": src, "replaces": replaces, "launches": launches[name],
@@ -1047,15 +1116,23 @@ def main() -> int:
             }
             if n_wgmma != launches[name]:
                 raise AssertionError(f"flash launches on the main paths: {n_wgmma} of {launches[name]} on wgmma")
-        if name == "flash_attention_bwd":  # the main path's pair, and the FMA pair beside it
-            n_mma = launches["flash_attention_bwd_mma"]
+        if name == "flash_attention_bwd":  # the main path's pair, and the two it replaced
+            n_wgmma, n_mma = launches["flash_attention_bwd_wgmma"], launches["flash_attention_bwd_mma"]
             row["variants"] = {
-                "mma": {"launches": n_mma, "ms": [r["ms"] for r in rows], "max_abs_err": row["max_abs_err"]},
-                "fma": {"launches": launches[name] - n_mma, "ms": [r["fma_ms"] for r in rows],
+                "wgmma": {"launches": n_wgmma, "ms": [r["ms"] for r in rows],
+                          "events_ms": [r["events_ms"] for r in rows], "max_abs_err": row["max_abs_err"],
+                          "block_rel_l2": max(sweep_err[name]["wgmma_block_rel_l2_bfloat16"],
+                                              *(max(r["wgmma_block_rel_l2"].values()) for r in rows))},
+                "mma": {"launches": n_mma, "ms": [r["mma_ms"] for r in rows],
+                        "events_ms": [r["mma_events_ms"] for r in rows],
+                        "max_abs_err": max(sweep_err[name]["mma"], *(r["mma_max_abs_err"] for r in rows))},
+                "fma": {"launches": launches[name] - n_wgmma, "ms": [r["fma_ms"] for r in rows],
+                        "events_ms": [r["fma_events_ms"] for r in rows],
                         "max_abs_err": max(sweep_err[name]["fma"], *(r["fma_max_abs_err"] for r in rows))},
             }
-            if n_mma != launches[name]:
-                raise AssertionError(f"flash backward launches on the main paths: {n_mma} of {launches[name]} on mma")
+            if n_wgmma != launches[name] or n_mma:
+                raise AssertionError(f"flash backward launches on the main paths: {n_wgmma} of {launches[name]} on "
+                                     f"wgmma, {n_mma} on the mma pair")
         if name == "rglru_scan":  # ops launches only the chunked kernel; the sequential one is timed beside it
             row["variants"] = {
                 "chunked": {"launches": launches[name], "shapes": [r["shape"] for r in rows],

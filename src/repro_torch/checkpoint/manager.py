@@ -14,6 +14,9 @@ complete, so a crash mid-save can never corrupt the restore point.
   in the manifest, and restores bit for bit.
 * ``save_emergency``: the detector callback (threshold violation ->
   checkpoint + warning), tagged in the manifest with the triggering event.
+* ``keep``: the newest ``keep`` steps stay on disk. A step saved again
+  (periodic and emergency, or several emergencies in one stall) counts once,
+  where the reference's list counts saves and deletes a step it still lists.
 * ``restore_latest``: the restart path; tolerant of a trailing ``.tmp`` from a
   crashed save. Leaves come back as CPU torch tensors in their saved dtypes.
 """
@@ -137,6 +140,8 @@ class CheckpointManager:
                 shutil.rmtree(final)
             os.rename(tmp, final)
             with self._lock:
+                if step in self.saved_steps:  # saved again: one entry a step, at its newest place
+                    self.saved_steps.remove(step)
                 self.saved_steps.append(step)
                 self._gc()
 

@@ -45,6 +45,10 @@
 //     the qwen3-4b shape, chip_smoke.py's bf16_p_err_over_rms), past the
 //     0.1 x RMS guard the kernel is held to; two terms cost a third more
 //     tensor work and keep the output within one bf16 rounding of f32 P;
+//   * for training (LSE), each row's statistic lse = ln 2 * (m + log2 l) goes
+//     to an f32 buffer for the backward (csrc/flash_attention_bwd.cu), +inf
+//     for a row that sees no key and for the padding rows S..lse_stride; the
+//     instance without it, which prefill and decode run, is unchanged;
 //   * kv tiles wholly masked for the whole block are never loaded; the grid
 //     runs the last q tiles first (the longest under a causal mask, so the
 //     tail of the grid holds short blocks), and the q-heads that share a
@@ -278,11 +282,11 @@ __device__ __forceinline__ void pv_mma(float (&d)[N / 2], const uint32_t (&a)[4]
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) { return *reinterpret_cast<uint32_t*>(&x); }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, Strides os, int B, int S, int T_len,
-    int Hq, int Hkv, int causal, int window, float scale_log2) {
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, Strides os, float* __restrict__ lse,
+    int64_t lse_stride, int B, int S, int T_len, int Hq, int Hkv, int causal, int window, float scale_log2) {
   using C = Cfg<D>;
   constexpr int BLOCK_N = C::BLOCK_N;
   extern __shared__ uint8_t smem_raw[];
@@ -470,6 +474,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma_kernel(
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       inv[r] = 1.f / fmaxf(l, 1e-30f);
+      if constexpr (LSE) {
+        const int row = row0 + r * 8;
+        if (lane % 4 == 0 && row < lse_stride) {
+          const bool seen = row < S && m_run[r] > 0.5f * NEG_INF;  // some key was visible
+          lse[((int64_t)b * Hq + h) * lse_stride + row] =
+              seen ? (m_run[r] + log2f(l)) * 0.6931471805599453f : INFINITY;
+        }
+      }
     }
     __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
@@ -487,47 +499,22 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so the library does not
-// link libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
+using sm90::encode_fn;
 
 // A tiled map over a (B, rows, H, D) bf16 tensor with element strides `st`,
 // boxes of (box_cols x box_rows) at one (b, h).
 bool encode(CUtensorMap* map, const void* base, int B, int rows, int H, int D, Strides st, int box_cols,
             int box_rows, bool swizzle32) {
-  // A stride of an axis of size 1 is never used; give it a legal value.
-  const int64_t s_s = rows > 1 ? st.s : D, s_h = H > 1 ? st.h : D, s_b = B > 1 ? st.b : D;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)(s_s * 2), (cuuint64_t)(s_h * 2), (cuuint64_t)(s_b * 2)};
-  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                 swizzle32 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B,
-                                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS;
+  return sm90::encode_map(map, base, B, rows, H, D, st.b, st.s, st.h, box_cols, box_rows, swizzle32);
 }
 
 // Errors of the host side, apart from the cudaError_t values of a launch.
 constexpr int ERR_NO_ENCODER = -1, ERR_TENSOR_MAP = -2;
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len, int Hq, int Hkv,
-           int causal, int window, Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t stream) {
+template <int D, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t lse_stride, int B, int S,
+           int T_len, int Hq, int Hkv, int causal, int window, Strides qs, Strides ks, Strides vs, Strides os,
+           cudaStream_t stream) {
   using C = Cfg<D>;
   if (encode_fn() == nullptr) return ERR_NO_ENCODER;
   CUtensorMap tq, tk, tv;
@@ -536,14 +523,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
       !encode(&tv, v, B, T_len, Hkv, D, vs, C::DB, C::BLOCK_N, D < 64))
     return ERR_TENSOR_MAP;
   cudaError_t err =
-      cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (S + BLOCK_M - 1) / BLOCK_M;
   // 1 / sqrt(d) in double then f32, as the TPU kernel, times log2 e for exp2f.
   const float scale_log2 = (float)(1.0 / sqrt((double)D)) * 1.4426950408889634f;
-  flash_fwd_wgmma_kernel<D><<<n_qt * B * Hq, THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), os, B, S, T_len, Hq, Hkv, causal, window, scale_log2);
+  flash_fwd_wgmma_kernel<D, LSE><<<n_qt * B * Hq, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), os, lse, lse_stride, B, S, T_len, Hq, Hkv, causal, window,
+      scale_log2);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t lse_stride, int B, int S,
+           int T_len, int Hq, int Hkv, int causal, int window, Strides qs, Strides ks, Strides vs, Strides os,
+           cudaStream_t stream) {
+  if (lse != nullptr)
+    return launch<D, true>(q, k, v, o, lse, lse_stride, B, S, T_len, Hq, Hkv, causal, window, qs, ks, vs, os, stream);
+  return launch<D, false>(q, k, v, o, nullptr, 0, B, S, T_len, Hq, Hkv, causal, window, qs, ks, vs, os, stream);
 }
 
 }  // namespace wgmma_flash
@@ -570,23 +567,31 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // The wgmma kernel: bf16 q, k, v and o, D in {16, 64, 128, 256}. Arguments as
-// flash_attention_fwd's. TMA reads through the strides, so the base pointers
-// must be 16-byte aligned and every stride a multiple of 8 elements. Returns
-// 0, a launch's cudaError_t, -1 when the driver has no cuTensorMapEncodeTiled,
-// or -2 when a tensor map cannot be encoded.
-extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S,
-                                         int T_len, int Hq, int Hkv, int D, int causal, int window, int64_t q_sb,
-                                         int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                                         int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
-                                         int64_t o_sh, void* stream) {
+// flash_attention_fwd's, with lse: null, or an f32 buffer of B * Hq rows of
+// lse_stride >= S floats (a multiple of 64) for the rows' statistics. TMA
+// reads through the strides, so the base pointers must be 16-byte aligned and
+// every stride a multiple of 8 elements. Returns 0, a launch's cudaError_t, -1
+// when the driver has no cuTensorMapEncodeTiled, or -2 when a tensor map
+// cannot be encoded.
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                                         int64_t lse_stride, int B, int S, int T_len, int Hq, int Hkv, int D,
+                                         int causal, int window, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                                         int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+                                         int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, void* stream) {
   if (B <= 0 || S <= 0 || T_len <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if (lse != nullptr && lse_stride < S) return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FLASH_WGMMA_CASE(DIM)                                                                                       \
+  case DIM:                                                                                                         \
+    return wgmma_flash::launch<DIM>(q, k, v, o, lse, lse_stride, B, S, T_len, Hq, Hkv, causal, window, qs, ks, vs, \
+                                    os, st);
   switch (D) {
-    case 16: return wgmma_flash::launch<16>(q, k, v, o, B, S, T_len, Hq, Hkv, causal, window, qs, ks, vs, os, st);
-    case 64: return wgmma_flash::launch<64>(q, k, v, o, B, S, T_len, Hq, Hkv, causal, window, qs, ks, vs, os, st);
-    case 128: return wgmma_flash::launch<128>(q, k, v, o, B, S, T_len, Hq, Hkv, causal, window, qs, ks, vs, os, st);
-    case 256: return wgmma_flash::launch<256>(q, k, v, o, B, S, T_len, Hq, Hkv, causal, window, qs, ks, vs, os, st);
+    FLASH_WGMMA_CASE(16)
+    FLASH_WGMMA_CASE(64)
+    FLASH_WGMMA_CASE(128)
+    FLASH_WGMMA_CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_WGMMA_CASE
 }

@@ -1,4 +1,4 @@
-// Flash attention backward for Hopper (sm_90a), CUDA C++: two variants of two kernels.
+// Flash attention backward for Hopper (sm_90a), CUDA C++: three variants of two kernels.
 //
 // The JAX package has no backward kernel: its Pallas kernel
 // src/repro/kernels/flash_attention.py (_flash_kernel, launched by
@@ -16,25 +16,56 @@
 //   Dr = rowsum(dO * O), dP = dO V^T, dS = P * (dP - Dr),
 //   dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), dV = P^T dO,
 //
-// dK and dV summed over the q-heads of each kv group. O is the forward's
-// output as stored; the row statistics are not stored by the forward (its
-// kernels stay as they are), so they are recomputed here by a pass over K.
+// dK and dV summed over the q-heads of each kv group; a row that sees no key
+// has lse = +inf, so P = 0. O is the forward's output as stored.
 //
 // What bounds it on the H100: operations, as the forward (~2.5 x its work:
-// five products of S x T x D per head against the forward's two). Two
+// five products of S x T x D per head against the forward's two). Three
 // variants, picked by dtype and head dim alone (kernels/flash_attention.py
-// bwd_variant), each a pair of kernels, all deterministic (no atomics):
+// bwd_variant; the mma pair is kept as a yardstick that ops never picks),
+// each a pair of kernels, all deterministic (no atomics):
 //
-// The mma variant (bf16 at D in {16, 64, 128}: the models' training path)
-// runs the five products on the tensor cores with mma.sync m16n8k16 (bf16
-// operands, f32 sums), four warps a block, each warp 16 rows of the block's
-// own tile; tiles are staged in shared memory as they are and, where a
-// product reads them along the other axis, transposed, so every fragment is
-// one 32-bit load (rows padded by 8 bf16: the 8 rows of a fragment load hit
-// distinct banks). P and dS enter the next product from the accumulator
-// registers, rounded to bf16 as the operand type requires. It is simple, not
-// pipelined: no TMA, no wgmma, no overlap of loads with products (a later
-// redesign).
+// The wgmma variant (bf16 at D in {16, 64, 128}: the models' training path)
+// is built for that bound with Hopper's tensor-core pipeline, as the
+// forward's wgmma kernel (flash_attention_sm90.cuh holds the building blocks):
+// a producer warpgroup of which one thread keeps TMA loads in flight through
+// mbarrier rings, two consumer warpgroups running wgmma (setmaxnreg 24/240, so
+// dK and dV, 64 f32 a thread each at D = 128, sit beside the two 64 x 64
+// score tiles without spills), 128-byte swizzle (32-byte at D = 16) in the
+// tensor maps and the descriptors alike. The forward writes the rows' lse, so
+// nothing recomputes the row statistics: 7 products where the bound counts 5
+// (the mma pair ran 8). No operand is ever transposed by hand: wgmma reads a
+// tile whose rows are the reduction axis MN-major (the descriptor's transpose
+// bit), and P^T and dS^T enter their products as register fragments, the
+// accumulator layout of S^T and dP^T.
+//
+//   * flash_bwd_dq_wgmma_kernel, one block per (b, q-head, 128 query rows),
+//     the last rows first (the longest under a causal mask): Dr for its rows
+//     from dO and O (to scratch for the second kernel); Q and dO loaded once;
+//     64-key K/V tiles through a 2-stage ring; per tile S = Q K^T and
+//     dP = dO V^T (SS, two commit groups, so P's exponentials run while dP is
+//     multiplied), P and dS in registers, dQ += dS K (RS, K MN-major);
+//   * flash_bwd_dkdv_wgmma_kernel, one block per (b, kv-head, pair of 64-key
+//     tiles j and n - 1 - j): under a causal mask a pair sees the same number
+//     of q tiles in every block, so 128 equal blocks fill the card at the
+//     training shape where one block per key tile would leave the first
+//     tiles' blocks running alone. K and V stay in shared memory while a
+//     3-stage ring brings each q-head's Q, dO, lse and Dr tiles (TMA, and a
+//     bulk copy for the f32 rows); the two consumer warpgroups take alternate
+//     q tiles: S^T = K Q^T and dP^T = V dO^T (SS), P^T and dS^T in registers,
+//     dV += P^T dO and dK += dS^T Q (RS, dO and Q MN-major). At each key
+//     tile's end the warpgroups add their partial sums through shared memory
+//     in a fixed order and write dK and dV.
+//
+// The mma variant (bf16 at D in {16, 64, 128}), the first tensor-core pair,
+// runs the five products with mma.sync m16n8k16 (bf16 operands, f32 sums),
+// four warps a block, each warp 16 rows of the block's own tile; tiles are
+// staged in shared memory as they are and, where a product reads them along
+// the other axis, transposed, so every fragment is one 32-bit load (rows
+// padded by 8 bf16: the 8 rows of a fragment load hit distinct banks). P and
+// dS enter the next product from the accumulator registers. Not pipelined:
+// no TMA, no wgmma, no overlap of loads with products; it recomputes the row
+// statistics:
 //
 //   * flash_bwd_dq_mma_kernel, one block per (b, q-head, 64 query rows):
 //     Dr, then the row statistics from S = Q K^T over the visible 64-key
@@ -45,9 +76,10 @@
 //     32-row q tiles that see its keys: S^T = K Q^T and dP^T = V dO^T, P^T and
 //     dS^T from the scratch lse and Dr, dV += P^T dO and dK += dS^T Q.
 //
-// The FMA variant (f32 at any D, bf16 at D = 8 and 256) is the first kernel
-// written, built to be right and simple: f32 FMAs out of shared memory, so
-// shared-memory bandwidth is its limit, as for the forward's FMA kernel:
+// The FMA variant (f32 at any D, bf16 at D = 8 and 256; bf16 at D = 16 is
+// not built, the wgmma pair's) is the first kernel written, built to be right
+// and simple: f32 FMAs out of shared memory, so shared-memory bandwidth is its
+// limit, as for the forward's FMA kernel:
 //
 //   * flash_bwd_dq_kernel, one block per (b, q-head, BLOCK query rows),
 //     TPR threads a row: Dr from dO and O; a pass over the visible K tiles
@@ -66,11 +98,15 @@
 // threads a row, the other head dims tiles of 64 and 4 threads a row; every
 // block has 256 threads.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -398,7 +434,9 @@ template <typename T>
 cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
   switch (D) {
     case 8: return launch<T, 8>(a, stream);
-    case 16: return launch<T, 16>(a, stream);
+    case 16:  // bf16 at D = 16 is the wgmma pair's; its FMA instance is not built
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) return cudaErrorInvalidValue;
+      else return launch<T, 16>(a, stream);
     case 64: return launch<T, 64>(a, stream);
     case 128: return launch<T, 128>(a, stream);
     case 256: return launch<T, 256>(a, stream);
@@ -769,6 +807,520 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 }  // namespace mma_bwd
 
+// ---------------------------------------------------------------------------
+// The wgmma variant: bf16, D in {16, 64, 128}
+// ---------------------------------------------------------------------------
+
+namespace wgmma_bwd {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int THREADS = 384;    // warpgroups 0-1 consume, warpgroup 2 produces (one thread issues the copies)
+constexpr int CONSUMERS = 256;
+constexpr int ROWS = 64;        // rows of a K, V, Q or dO tile that a product reads; one consumer warpgroup's M
+constexpr int DQ_ROWS = 128;    // query rows of a dQ block: one 64-row slice per consumer warpgroup
+constexpr int DQ_KEYS = 64;     // keys of a K/V tile of the dQ kernel (128 measured slower, and spills)
+constexpr int DQ_STAGES = 2;    // K/V ring of the dQ kernel
+constexpr int DKDV_STAGES = 3;  // Q/dO/lse/Dr ring of the dK/dV kernel
+constexpr int MIN_SMEM = 116 * 1024;  // one block an SM, so setmaxnreg.inc finds what the producer gave up
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  static constexpr int DB = D < 64 ? D : 64;  // columns of a TMA box: one swizzle row
+  static constexpr int ROW_BYTES = DB * 2;    // 32 at D = 16, else 128
+  static constexpr uint64_t SWIZZLE = D < 64 ? sm90::SWIZZLE_32B : sm90::SWIZZLE_128B;
+  static constexpr int ATOM = 8 * ROW_BYTES;  // bytes of 8 swizzled rows: the descriptors' stride offset
+  static constexpr int NCB = D / DB;          // column blocks of a tile, each [rows][DB]
+  static constexpr int TILE = ROWS * D * 2;   // bytes of a 64-row tile
+  static constexpr int DQ_KV = DQ_KEYS * D * 2;  // bytes of a K or V tile of the dQ kernel
+  // dQ kernel: Q and dO of the block (128 rows each), then the K/V ring
+  static constexpr int DQ_BAR = 4 * TILE + DQ_STAGES * 2 * DQ_KV;
+  static constexpr int DQ_USED = DQ_BAR + 64 + 1024;
+  static constexpr int DQ_SMEM = DQ_USED > MIN_SMEM ? DQ_USED : MIN_SMEM;
+  // dK/dV kernel: K, V; the Q ring, the dO ring; lse and Dr of each stage;
+  // the two warpgroups' partial sums (64 x D f32 each); the barriers
+  static constexpr int KV_Q = 2 * TILE;
+  static constexpr int KV_DO = KV_Q + DKDV_STAGES * TILE;
+  static constexpr int KV_STATS = KV_DO + DKDV_STAGES * TILE;
+  static constexpr int KV_RED = KV_STATS + DKDV_STAGES * 2 * ROWS * 4;
+  static constexpr int KV_BAR = KV_RED + 2 * ROWS * D * 4;
+  static constexpr int KV_USED = KV_BAR + 128 + 1024;
+  static constexpr int KV_SMEM = KV_USED > MIN_SMEM ? KV_USED : MIN_SMEM;
+};
+
+// D[64 x N] (+)= A B, A and B K-major in shared memory (N = 64 or 128).
+template <int N>
+__device__ __forceinline__ void ss_mma(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 64) sm90::wgmma_ss_n64(d, da, db, scale_d);
+  else sm90::wgmma_ss_n128(d, da, db, scale_d);
+}
+
+// D[64 x N] += A B, A in registers, B MN-major in shared memory (N = 16, 64, 128).
+template <int N>
+__device__ __forceinline__ void rs_mma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 16) sm90::wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 64) sm90::wgmma_rs_n64(d, a, db);
+  else sm90::wgmma_rs_n128(d, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// acc (+)= A B^T over D for one warpgroup: A the 64 rows at `a` of a tile of
+// `a_rows` rows, B the N-row tile at `b`, both [NCB][rows][DB] swizzled.
+template <int D, int N>
+__device__ __forceinline__ void rows_dot_rows(float (&acc)[N / 2], uint32_t a, int a_rows, uint32_t b) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int cb = kk * 16 / C::DB, within = (kk * 16 % C::DB) * 2;
+    const uint64_t da = sm90::make_desc(a + cb * a_rows * C::ROW_BYTES + within, 16, C::ATOM, C::SWIZZLE);
+    const uint64_t db = sm90::make_desc(b + cb * N * C::ROW_BYTES + within, 16, C::ATOM, C::SWIZZLE);
+    ss_mma<N>(acc, da, db, kk > 0);
+  }
+}
+
+// acc[64 x D] += A[64 x K] T, A as bf16 fragments (K / 16 k16 steps), T the
+// K-row tile at `t` read MN-major (its rows are the reduction axis).
+template <int D, int K>
+__device__ __forceinline__ void frags_dot_tile(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4], uint32_t t) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    rs_mma<D>(acc, a[kk], sm90::make_desc(t + kk * 16 * C::ROW_BYTES, K * C::ROW_BYTES, C::ATOM, C::SWIZZLE));
+}
+
+__device__ __forceinline__ bool visible(int q, int key, int S, int T_len, int causal, int window) {
+  bool ok = q < S && key < T_len;
+  if (causal) ok = ok && key <= q;
+  if (window > 0) ok = ok && q - key < window;
+  return ok;
+}
+
+// One block per (b, q-head, 128 query rows), the longest (last) q tiles first:
+// Dr = rowsum(dO * O) for the block's rows (to `dr` for the dK/dV kernel),
+// then over the visible 64-key tiles S = Q K^T and dP = dO V^T (SS), P and
+// dS in registers from the forward's lse, dQ += dS K (RS, K MN-major).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v, const bf16* __restrict__ o,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, float* __restrict__ dr_out, bf16* __restrict__ dq,
+    int64_t ls, int B, int S, int T_len, int Hq, int Hkv, int causal, int window, Strides os, Strides dos,
+    Strides dqs, float scale, float scale_log2) {
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* q_tile = smem;                 // [NCB][128 rows][DB]
+  uint8_t* do_tile = smem + 2 * C::TILE;  // [NCB][128 rows][DB]
+  uint8_t* k_tiles = smem + 4 * C::TILE;  // [STAGES][NCB][DQ_KEYS][DB]
+  uint8_t* v_tiles = k_tiles + DQ_STAGES * C::DQ_KV;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::DQ_BAR);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + DQ_STAGES;
+
+  const int n_qt = (S + DQ_ROWS - 1) / DQ_ROWS;
+  const int per_tile = B * Hq;
+  const int m0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / per_tile) * DQ_ROWS;
+  const int bh = static_cast<int>(blockIdx.x) % per_tile;
+  const int b = bh / Hq, h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
+
+  const int m_last = min(m0 + DQ_ROWS, S) - 1;
+  const int k_lo = window > 0 ? max(0, m0 - window + 1) : 0;
+  const int k_hi = causal ? min(T_len, m_last + 1) : T_len;
+  const int kt0 = k_lo / DQ_KEYS;
+  const int n_tiles = max(0, (k_hi + DQ_KEYS - 1) / DQ_KEYS - kt0);
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], CONSUMERS);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");  // the producer needs few
+    if (threadIdx.x == 2 * 128) {
+      sm90::mbar_arrive_expect_tx(q_full, 4 * C::TILE);
+      for (int cb = 0; cb < C::NCB; ++cb) {
+        sm90::tma_load_4d(q_tile + cb * DQ_ROWS * C::ROW_BYTES, &tm_q, q_full, cb * C::DB, m0, h, b);
+        sm90::tma_load_4d(do_tile + cb * DQ_ROWS * C::ROW_BYTES, &tm_do, q_full, cb * C::DB, m0, h, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % DQ_STAGES;
+        sm90::mbar_wait(&empty[s], ((i / DQ_STAGES) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * C::DQ_KV);
+        const int k0 = (kt0 + i) * DQ_KEYS;
+        for (int cb = 0; cb < C::NCB; ++cb) {
+          const int off = s * C::DQ_KV + cb * DQ_KEYS * C::ROW_BYTES;
+          sm90::tma_load_4d(k_tiles + off, &tm_k, &full[s], cb * C::DB, k0, hk, b);
+          sm90::tma_load_4d(v_tiles + off, &tm_v, &full[s], cb * C::DB, k0, hk, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");  // 2 x 128 x 240 + 128 x 24 <= 64K
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int wrow0 = m0 + wg * 64;
+    const int row0 = wrow0 + (t / 32) * 16 + lane / 4;  // this thread's rows: row0 and row0 + 8
+    const int col_lane = 2 * (lane % 4);
+    const int64_t stat0 = (int64_t)bh * ls;
+
+    // Dr over the stored output, 4 threads a row (a quarter of D each), and
+    // the rows' lse in the log2 domain (+inf past S: P = 0 there).
+    float dr[2], lse2[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;
+      float acc = 0.f;
+      if (row < S) {
+        const bf16* orow = o + b * os.b + (int64_t)row * os.s + h * os.h + (lane % 4) * (D / 4);
+        const bf16* drow = dout + b * dos.b + (int64_t)row * dos.s + h * dos.h + (lane % 4) * (D / 4);
+#pragma unroll
+        for (int c = 0; c < D / 4; c += 4) {
+          const uint2 ov = *reinterpret_cast<const uint2*>(orow + c);
+          const uint2 dv = *reinterpret_cast<const uint2*>(drow + c);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+            acc = fmaf(df.x, of.x, acc);
+            acc = fmaf(df.y, of.y, acc);
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      dr[r] = acc;
+      if (lane % 4 == 0 && row < ls) dr_out[stat0 + row] = acc;  // 0 on the padding rows
+      lse2[r] = row < S ? lse[stat0 + row] * LOG2E : INFINITY;
+    }
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const uint32_t q_base = sm90::smem_u32(q_tile) + wg * 64 * C::ROW_BYTES;
+    const uint32_t do_base = sm90::smem_u32(do_tile) + wg * 64 * C::ROW_BYTES;
+    sm90::mbar_wait(q_full, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % DQ_STAGES;
+      const int k0 = (kt0 + i) * DQ_KEYS;
+      sm90::mbar_wait(&full[s], (i / DQ_STAGES) & 1);
+      const uint32_t k_base = sm90::smem_u32(k_tiles + s * C::DQ_KV);
+      const uint32_t v_base = sm90::smem_u32(v_tiles + s * C::DQ_KV);
+
+      float sc[DQ_KEYS / 2], dp[DQ_KEYS / 2];
+#pragma unroll
+      for (int j = 0; j < DQ_KEYS / 2; ++j) sc[j] = dp[j] = 0.f;
+      sm90::fence_operands(sc);
+      sm90::fence_operands(dp);
+      sm90::wgmma_fence();
+      rows_dot_rows<D, DQ_KEYS>(sc, q_base, DQ_ROWS, k_base);  // S = Q K^T
+      sm90::wgmma_commit();
+      rows_dot_rows<D, DQ_KEYS>(dp, do_base, DQ_ROWS, v_base);  // dP = dO V^T
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // S has landed; P's exponentials run while dP is multiplied
+      sm90::fence_operands(sc);
+
+      // P = exp2(S * scale * log2 e - lse * log2 e), dS = P (dP - Dr); masked
+      // only where the tile crosses the diagonal, the window edge or T.
+      const bool need_mask = k0 + DQ_KEYS > T_len || (causal && k0 + DQ_KEYS - 1 > wrow0) ||
+                             (window > 0 && wrow0 + 63 - k0 >= window);
+#pragma unroll
+      for (int j = 0; j < DQ_KEYS / 2; ++j) {
+        const int r = (j >> 1) & 1;
+        sc[j] = exp2f(sc[j] * scale_log2 - lse2[r]);
+        if (need_mask && !visible(row0 + r * 8, k0 + (j >> 2) * 8 + col_lane + (j & 1), S, T_len, causal, window))
+          sc[j] = 0.f;
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(dp);
+#pragma unroll
+      for (int j = 0; j < DQ_KEYS / 2; ++j) dp[j] = sc[j] * (dp[j] - dr[(j >> 1) & 1]);
+      uint32_t ds[DQ_KEYS / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < DQ_KEYS / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) ds[kk][r] = pack(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+
+      // dQ += dS K: K's rows are the keys, the reduction axis: MN-major.
+      sm90::fence_operands(acc);
+      sm90::wgmma_fence();
+      frags_dot_tile<D, DQ_KEYS>(acc, ds, k_base);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_operands(acc);
+      sm90::mbar_arrive(&empty[s]);
+    }
+
+    bf16* qb = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+    for (int j = 0; j < D / 2; j += 2) {
+      const int row = row0 + ((j >> 1) & 1) * 8;
+      if (row < S)
+        *reinterpret_cast<__nv_bfloat162*>(qb + (int64_t)row * dqs.s + (j >> 2) * 8 + col_lane) =
+            __floats2bfloat162_rn(acc[j] * scale, acc[j + 1] * scale);
+    }
+  }
+}
+
+// The first key of the n-th key tile (n = 0, 1) of dK/dV block `pair`: tiles j and n_kt - 1 - j.
+__device__ __forceinline__ int key_tile_start(int pair, int n, int T_len) {
+  const int n_kt = (T_len + ROWS - 1) / ROWS;
+  return (n == 0 ? pair : n_kt - 1 - pair) * ROWS;
+}
+__device__ __forceinline__ int key_tiles_of_pair(int pair, int T_len) {
+  return 2 * pair + 1 == (T_len + ROWS - 1) / ROWS ? 1 : 2;
+}
+
+// out[key, :] = (mine + theirs) * mult in bf16 for this thread's keys < T_len:
+// one warpgroup's partial sum plus the other's, read from shared memory.
+template <int D>
+__device__ __forceinline__ void write_sum(const float (&mine)[D / 2], const float* theirs, float mult, bf16* out,
+                                         int64_t row_stride, int key0, int T_len, int t, int col_lane) {
+#pragma unroll
+  for (int j = 0; j < D / 2; j += 2) {
+    const int key = key0 + ((j >> 1) & 1) * 8;
+    const float x = (mine[j] + theirs[j * 128 + t]) * mult;
+    const float y = (mine[j + 1] + theirs[(j + 1) * 128 + t]) * mult;
+    if (key < T_len)
+      *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)key * row_stride + (j >> 2) * 8 + col_lane) =
+          __floats2bfloat162_rn(x, y);
+  }
+}
+
+__device__ __forceinline__ int q_first(int k0, int causal) { return causal ? k0 : 0; }
+__device__ __forceinline__ int q_end(int k0, int S, int window) {
+  return window > 0 ? min(S, k0 + ROWS - 1 + window) : S;
+}
+
+// One block per (b, kv-head, pair of 64-key tiles j and n - 1 - j): under a
+// causal mask the pair sees the same number of q tiles in every block. For
+// each key tile, K and V stay in shared memory while a ring brings each
+// q-head's 64-row Q, dO, lse and Dr tiles; the two consumer warpgroups take
+// alternate tiles: S^T = K Q^T and dP^T = V dO^T (SS), P^T and dS^T in
+// registers, dV += P^T dO and dK += dS^T Q (RS, dO and Q MN-major). At the
+// key tile's end the warpgroups add their partial sums through shared
+// memory in a fixed order (deterministic) and write dK, dV.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+    const float* __restrict__ lse, const float* __restrict__ dr, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    int64_t ls, int B, int S, int T_len, int Hq, int Hkv, int causal, int window, Strides dks, Strides dvs,
+    float scale, float scale_log2) {
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* k_tile = smem;                  // [NCB][64][DB]
+  uint8_t* v_tile = smem + C::TILE;
+  uint8_t* q_tiles = smem + C::KV_Q;       // [STAGES][NCB][64][DB]
+  uint8_t* do_tiles = smem + C::KV_DO;
+  float* lse_s = reinterpret_cast<float*>(smem + C::KV_STATS);  // [STAGES][64]
+  float* dr_s = lse_s + DKDV_STAGES * ROWS;
+  float* red = reinterpret_cast<float*>(smem + C::KV_RED);  // [2][D / 2][128]: dK from wg 1, dV from wg 0
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::KV_BAR);
+  uint64_t* kv_full = bars;
+  uint64_t* kv_empty = bars + 1;
+  uint64_t* full = bars + 2;
+  uint64_t* empty = bars + 2 + DKDV_STAGES;
+
+  const int n_pairs = ((T_len + ROWS - 1) / ROWS + 1) / 2;
+  const int pair = static_cast<int>(blockIdx.x) % n_pairs;
+  const int bk = static_cast<int>(blockIdx.x) / n_pairs;
+  const int b = bk / Hkv, hk = bk % Hkv, G = Hq / Hkv;
+  const int n_keys = key_tiles_of_pair(pair, T_len);
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    sm90::mbar_init(kv_empty, CONSUMERS);
+    for (int s = 0; s < DKDV_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128);  // one warpgroup consumes a stage
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");  // the producer needs few
+    if (threadIdx.x == 2 * 128) {
+      int it = 0;
+      for (int n = 0; n < n_keys; ++n) {
+        const int k0 = key_tile_start(pair, n, T_len);
+        if (n > 0) sm90::mbar_wait(kv_empty, (n - 1) & 1);
+        sm90::mbar_arrive_expect_tx(kv_full, 2 * C::TILE);
+        for (int cb = 0; cb < C::NCB; ++cb) {
+          sm90::tma_load_4d(k_tile + cb * ROWS * C::ROW_BYTES, &tm_k, kv_full, cb * C::DB, k0, hk, b);
+          sm90::tma_load_4d(v_tile + cb * ROWS * C::ROW_BYTES, &tm_v, kv_full, cb * C::DB, k0, hk, b);
+        }
+        const int qf = q_first(k0, causal), qe = q_end(k0, S, window);
+        for (int g = 0; g < G; ++g) {
+          const int h = hk * G + g;
+          const int64_t stat0 = ((int64_t)b * Hq + h) * ls;
+          for (int q0 = qf; q0 < qe; q0 += ROWS, ++it) {
+            const int s = it % DKDV_STAGES;
+            sm90::mbar_wait(&empty[s], ((it / DKDV_STAGES) & 1) ^ 1);
+            sm90::mbar_arrive_expect_tx(&full[s], 2 * C::TILE + 2 * ROWS * 4);
+            for (int cb = 0; cb < C::NCB; ++cb) {
+              const int off = s * C::TILE + cb * ROWS * C::ROW_BYTES;
+              sm90::tma_load_4d(q_tiles + off, &tm_q, &full[s], cb * C::DB, q0, h, b);
+              sm90::tma_load_4d(do_tiles + off, &tm_do, &full[s], cb * C::DB, q0, h, b);
+            }
+            sm90::bulk_load(lse_s + s * ROWS, lse + stat0 + q0, ROWS * 4, &full[s]);
+            sm90::bulk_load(dr_s + s * ROWS, dr + stat0 + q0, ROWS * 4, &full[s]);
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");  // 2 x 128 x 240 + 128 x 24 <= 64K
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int col_lane = 2 * (lane % 4);
+    const uint32_t k_base = sm90::smem_u32(k_tile), v_base = sm90::smem_u32(v_tile);
+    int it = 0;
+    for (int n = 0; n < n_keys; ++n) {
+      const int k0 = key_tile_start(pair, n, T_len);
+      const int key0 = k0 + (t / 32) * 16 + lane / 4;  // this thread's keys: key0 and key0 + 8
+      float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+      sm90::mbar_wait(kv_full, n & 1);
+      const int qf = q_first(k0, causal), qe = q_end(k0, S, window);
+      for (int g = 0; g < G; ++g) {
+        for (int q0 = qf; q0 < qe; q0 += ROWS, ++it) {
+          if ((it & 1) != wg) continue;  // the other warpgroup's tile
+          const int s = it % DKDV_STAGES;
+          sm90::mbar_wait(&full[s], (it / DKDV_STAGES) & 1);
+          const uint32_t q_base = sm90::smem_u32(q_tiles + s * C::TILE);
+          const uint32_t do_base = sm90::smem_u32(do_tiles + s * C::TILE);
+          const float* lse_t = lse_s + s * ROWS;
+          const float* dr_t = dr_s + s * ROWS;
+
+          float st[32], dpt[32];  // S^T and dP^T: 64 keys x 64 query rows
+#pragma unroll
+          for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+          sm90::fence_operands(st);
+          sm90::fence_operands(dpt);
+          sm90::wgmma_fence();
+          rows_dot_rows<D, ROWS>(st, k_base, ROWS, q_base);
+          sm90::wgmma_commit();
+          rows_dot_rows<D, ROWS>(dpt, v_base, ROWS, do_base);
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<1>();  // S^T has landed; P^T's exponentials run while dP^T is multiplied
+          sm90::fence_operands(st);
+
+          const bool need_mask = q0 + ROWS > S || k0 + ROWS > T_len || (causal && k0 + ROWS - 1 > q0) ||
+                                 (window > 0 && q0 + ROWS - 1 - k0 >= window);
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const int qc = (j >> 2) * 8 + col_lane + (j & 1);
+            st[j] = exp2f(st[j] * scale_log2 - lse_t[qc] * LOG2E);
+            if (need_mask && !visible(q0 + qc, key0 + ((j >> 1) & 1) * 8, S, T_len, causal, window)) st[j] = 0.f;
+          }
+          sm90::wgmma_wait<0>();
+          sm90::fence_operands(dpt);
+#pragma unroll
+          for (int j = 0; j < 32; ++j) dpt[j] = st[j] * (dpt[j] - dr_t[(j >> 2) * 8 + col_lane + (j & 1)]);
+          uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              pf[kk][r] = pack(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+              dsf[kk][r] = pack(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+            }
+
+          // dV += P^T dO and dK += dS^T Q: dO's and Q's rows are the query
+          // rows, the reduction axis: MN-major.
+          sm90::fence_operands(acc_v);
+          sm90::fence_operands(acc_k);
+          sm90::wgmma_fence();
+          frags_dot_tile<D, ROWS>(acc_v, pf, do_base);
+          frags_dot_tile<D, ROWS>(acc_k, dsf, q_base);
+          sm90::wgmma_commit();
+          sm90::wgmma_wait_all();
+          sm90::fence_operands(acc_v);
+          sm90::fence_operands(acc_k);
+          sm90::mbar_arrive(&empty[s]);
+        }
+      }
+
+      // The two warpgroups hold partial sums over alternate q tiles of the
+      // same keys, in the same fragment layout: warpgroup 1 hands its dK to
+      // warpgroup 0 and warpgroup 0 its dV to warpgroup 1, each adds the
+      // other's to its own (a fixed order) and writes one of the two.
+      float* red_k = red;
+      float* red_v = red + (D / 2) * 128;
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) {
+        if (wg == 1) red_k[j * 128 + t] = acc_k[j];
+        else red_v[j * 128 + t] = acc_v[j];
+      }
+      sm90::mbar_arrive(kv_empty);  // K and V are read for the last time
+      sm90::named_sync(1, CONSUMERS);
+      if (wg == 0)
+        write_sum<D>(acc_k, red_k, scale, dk + b * dks.b + hk * dks.h, dks.s, key0, T_len, t, col_lane);
+      else
+        write_sum<D>(acc_v, red_v, 1.f, dv + b * dvs.b + hk * dvs.h, dvs.s, key0, T_len, t, col_lane);
+      sm90::named_sync(1, CONSUMERS);  // the buffers are free for the next key tile
+    }
+  }
+}
+
+// Errors of the host side, beside the cudaError_t values of a launch.
+constexpr int ERR_NO_ENCODER = -1, ERR_TENSOR_MAP = -2;
+
+template <int D>
+int launch(const Args& a, int64_t ls, cudaStream_t stream) {
+  using C = Cfg<D>;
+  if (sm90::encode_fn() == nullptr) return ERR_NO_ENCODER;
+  const bool sw32 = D < 64;
+  CUtensorMap tq128, tdo128, tk_dq, tv_dq, tq, tdo, tk, tv;
+  auto map = [&](CUtensorMap* m, const void* base, int rows, int H, Strides st, int box_rows) {
+    return sm90::encode_map(m, base, a.B, rows, H, D, st.b, st.s, st.h, C::DB, box_rows, sw32);
+  };
+  if (!map(&tq128, a.q, a.S, a.Hq, a.qs, DQ_ROWS) || !map(&tdo128, a.dout, a.S, a.Hq, a.dos, DQ_ROWS) ||
+      !map(&tq, a.q, a.S, a.Hq, a.qs, ROWS) || !map(&tdo, a.dout, a.S, a.Hq, a.dos, ROWS) ||
+      !map(&tk_dq, a.k, a.T_len, a.Hkv, a.ks, DQ_KEYS) || !map(&tv_dq, a.v, a.T_len, a.Hkv, a.vs, DQ_KEYS) ||
+      !map(&tk, a.k, a.T_len, a.Hkv, a.ks, ROWS) || !map(&tv, a.v, a.T_len, a.Hkv, a.vs, ROWS))
+    return ERR_TENSOR_MAP;
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::KV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const float scale = (float)(1.0 / sqrt((double)D));  // as the forward
+  const float scale_log2 = scale * LOG2E;               // as the forward's wgmma kernel
+  const int n_qt = (a.S + DQ_ROWS - 1) / DQ_ROWS;
+  flash_bwd_dq_wgmma_kernel<D><<<n_qt * a.B * a.Hq, THREADS, C::DQ_SMEM, stream>>>(
+      tq128, tdo128, tk_dq, tv_dq, static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout), a.lse, a.dr,
+      static_cast<bf16*>(a.dq), ls, a.B, a.S, a.T_len, a.Hq, a.Hkv, a.causal, a.window, a.os, a.dos, a.dqs, scale,
+      scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n_pairs = ((a.T_len + ROWS - 1) / ROWS + 1) / 2;
+  flash_bwd_dkdv_wgmma_kernel<D><<<n_pairs * a.B * a.Hkv, THREADS, C::KV_SMEM, stream>>>(
+      tq, tdo, tk, tv, a.lse, a.dr, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), ls, a.B, a.S, a.T_len,
+      a.Hq, a.Hkv, a.causal, a.window, a.dks, a.dvs, scale, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wgmma_bwd
+
 }  // namespace
 
 // dq, dk, dv of attention, from q, k, v, the forward's output o and its
@@ -817,6 +1369,37 @@ extern "C" int flash_attention_bwd_mma(const void* q, const void* k, const void*
     case 16: return (int)mma_bwd::launch<16>(a, st);
     case 64: return (int)mma_bwd::launch<64>(a, st);
     case 128: return (int)mma_bwd::launch<128>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The wgmma variant: bf16 for all eight tensors, D in {16, 64, 128}. lse
+// holds the forward's row statistics (flash_attention_fwd_wgmma with an lse
+// buffer; +inf past S) and dr is scratch, both B * Hq rows of lse_stride
+// floats, a multiple of 64 and at least S, 16-byte aligned. Other arguments
+// as flash_attention_bwd's, without the dtype; every tensor's base must be
+// 16-byte aligned and every stride a multiple of 8 elements (TMA). Returns 0,
+// a launch's cudaError_t, -1 when the driver has no cuTensorMapEncodeTiled,
+// or -2 when a tensor map cannot be encoded.
+extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
+                                         const void* dout, void* dq, void* dk, void* dv, float* lse, float* dr,
+                                         int64_t lse_stride, int B, int S, int T_len, int Hq, int Hkv, int D,
+                                         int causal, int window, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                                         int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+                                         int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t do_sb,
+                                         int64_t do_ss, int64_t do_sh, int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
+                                         int64_t dk_sb, int64_t dk_ss, int64_t dk_sh, int64_t dv_sb, int64_t dv_ss,
+                                         int64_t dv_sh, void* stream) {
+  if (B <= 0 || S <= 0 || T_len <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if (lse_stride < S || lse_stride % wgmma_bwd::ROWS != 0) return (int)cudaErrorInvalidValue;
+  const Args a{q,  k,  v,  o,   dout,   dq,     dk,   dv, lse, dr, B, S, T_len, Hq, Hkv, causal, window,
+               {q_sb, q_ss, q_sh},    {k_sb, k_ss, k_sh},    {v_sb, v_ss, v_sh},    {o_sb, o_ss, o_sh},
+               {do_sb, do_ss, do_sh}, {dq_sb, dq_ss, dq_sh}, {dk_sb, dk_ss, dk_sh}, {dv_sb, dv_ss, dv_sh}};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return wgmma_bwd::launch<16>(a, lse_stride, st);
+    case 64: return wgmma_bwd::launch<64>(a, lse_stride, st);
+    case 128: return wgmma_bwd::launch<128>(a, lse_stride, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,19 +1,22 @@
-// Hopper (sm_90a) building blocks of the wgmma flash-attention kernel in
-// flash_attention.cu, as raw PTX through inline asm (no CUTLASS, so nvcc
-// builds the file in seconds):
+// Hopper (sm_90a) building blocks of the wgmma flash-attention kernels in
+// flash_attention.cu (forward) and flash_attention_bwd.cu (backward), as raw
+// PTX through inline asm (no CUTLASS, so nvcc builds each file in seconds):
 //   * mbarriers: init, arrive, arrive with an expected byte count, wait on a
-//     phase parity;
+//     phase parity; a named barrier over some of a block's warps;
 //   * TMA: a 4-d tiled load of a box into shared memory that completes on an
-//     mbarrier;
+//     mbarrier, the host's encoding of its tensor map over a (B, rows, H, D)
+//     bf16 tensor, and a 1-d bulk copy of contiguous bytes;
 //   * wgmma: shared-memory matrix descriptors, fence/commit/wait, and the
-//     m64nNk16 bf16 products with f32 accumulators the kernel issues:
-//     Q K^T with both operands in shared memory (N = 64, 128) and P V with P
-//     in registers and V in shared memory (N = 16, 64, 128).
+//     m64nNk16 bf16 products with f32 accumulators the kernels issue: both
+//     operands in shared memory, K-major (N = 64, 128), and A in registers
+//     with B MN-major in shared memory (N = 16, 64, 128).
 // See the PTX ISA, sections "Asynchronous Warpgroup Level Matrix Multiply"
 // and "cp.async.bulk.tensor".
 
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -73,6 +76,59 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
       : "memory");
 }
 
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// memory to shared memory at `dst`; the bytes complete on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads') over `threads` threads, a multiple of 32.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so no library links
+// libcuda. Null when the driver lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tiled map over a (B, rows, H, D) bf16 tensor with element strides
+// (s_b, s_s, s_h), boxes of (box_cols x box_rows) at one (b, h), 128-byte
+// swizzle (32-byte when `swizzle32`). Coordinates past the edge read as 0.
+inline bool encode_map(CUtensorMap* map, const void* base, int B, int rows, int H, int D, int64_t s_b, int64_t s_s,
+                       int64_t s_h, int box_cols, int box_rows, bool swizzle32) {
+  // A stride of an axis of size 1 is never used; give it a legal value.
+  if (rows <= 1) s_s = D;
+  if (H <= 1) s_h = D;
+  if (B <= 1) s_b = D;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(s_s * 2), (cuuint64_t)(s_h * 2), (cuuint64_t)(s_b * 2)};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                 swizzle32 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B,
+                                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
+}
+
 // -- wgmma -------------------------------------------------------------------
 
 // Swizzle modes of a shared-memory matrix descriptor (bits 62-63).
@@ -90,6 +146,11 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t smem_addr, uint32_t lbo_b
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// Wait until at most N committed groups are still running (they finish in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keep the compiler from moving reads or writes of a register that an
 // asynchronous wgmma is accumulating into across the fence/wait around it.

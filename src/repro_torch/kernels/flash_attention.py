@@ -14,15 +14,25 @@ Both read q, k, v and write o in the model's (B, S, H, D) layout through
 strides. Their plain version is ``ref.attention_ref``.
 
 Their gradient is computed by ``csrc/flash_attention_bwd.cu``, whose header
-says how. ``bwd_variant`` picks one of its two kernel pairs by dtype and head
-dim alone, so every dtype and head dim the forward takes has a backward:
+says how. ``bwd_variant`` picks one of its kernel pairs by dtype and head dim
+alone, so every dtype and head dim the forward takes has a backward:
 
-- ``"mma"``: bf16 at D in {16, 64, 128} (the models' training path); tensor
-  cores through ``mma.sync``, the C entry point ``flash_attention_bwd_mma``;
+- ``"wgmma"``: bf16 at D in {16, 64, 128} (the models' training path);
+  tensor cores through wgmma, TMA and mbarrier rings, reading the row
+  statistics ``lse`` that the wgmma forward writes (``launch_wgmma(...,
+  lse=...)``); the C entry point ``flash_attention_bwd_wgmma``;
 - ``"fma"``: f32 at any head dim, and bf16 at D = 8 and 256; f32 FMAs, the C
   entry point ``flash_attention_bwd``.
 
-Their plain version is ``ref.attention_bwd_ref``.
+The ``"mma"`` pair (``mma.sync``, bf16 at D in {16, 64, 128}) is the pair the
+wgmma one replaced; ``launch_bwd_mma`` runs it as a yardstick, ``ops`` never
+does. Their plain version is ``ref.attention_bwd_ref``.
+
+``lse`` is f32 (B, Hq, S), the natural-log row statistic of
+``ref.attention_ref(return_lse=True)``, +inf for a row that sees no key. The
+kernels keep it in a row of ``lse_stride(S)`` floats per (batch, head), so that
+the backward can copy 64 rows of it with one 16-byte aligned bulk copy; the
+tensors handed out are views of the first S.
 """
 
 from __future__ import annotations
@@ -36,8 +46,12 @@ from . import build
 HEAD_DIMS = (8, 16, 64, 128, 256)
 WGMMA_HEAD_DIMS = (16, 64, 128, 256)
 MMA_BWD_HEAD_DIMS = (16, 64, 128)
+WGMMA_BWD_HEAD_DIMS = MMA_BWD_HEAD_DIMS
+FMA_BWD_BF16_HEAD_DIMS = (8, 64, 128, 256)  # the FMA pair is not built for bf16 at D = 16 (the wgmma pair's)
+LSE_ROWS = 64  # the backward's q tile: lse rows are padded to a multiple of it
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}  # variant -> ctypes function
+MMA_BWD_LAUNCHES = 0  # launches of the mma backward pair, the yardstick ops never runs
 # Host-side errors of flash_attention_fwd_wgmma, beside the cudaError_t of a launch
 _HOST_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled", -2: "a TMA tensor map could not be encoded"}
 
@@ -49,19 +63,42 @@ def variant(dtype: torch.dtype, D: int) -> str:
 
 def bwd_variant(dtype: torch.dtype, D: int) -> str:
     """The backward kernel pair that runs attention's gradient in ``dtype`` at head dim ``D``."""
-    return "mma" if dtype == torch.bfloat16 and D in MMA_BWD_HEAD_DIMS else "fma"
+    return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_BWD_HEAD_DIMS else "fma"
+
+
+def lse_stride(S: int) -> int:
+    """Floats per (batch, head) row of an ``lse`` buffer: S rounded up to LSE_ROWS."""
+    return -(-S // LSE_ROWS) * LSE_ROWS
+
+
+def new_lse(B: int, Hq: int, S: int, device) -> torch.Tensor:
+    """An ``lse`` buffer for the wgmma forward to fill: the (B, Hq, S) view of
+    (B, Hq, lse_stride(S)) floats; the forward writes +inf into the padding."""
+    return torch.empty((B, Hq, lse_stride(S)), dtype=torch.float32, device=device)[..., :S]
+
+
+def check_lse_layout(lse: torch.Tensor) -> None:
+    """Raise unless ``lse`` (B, Hq, S) is a ``new_lse`` view, the layout the
+    wgmma backward reads: f32 rows of ``lse_stride(S)`` floats from a 16-byte
+    aligned base (the wgmma forward fills it)."""
+    B, Hq, S = lse.shape
+    n = lse_stride(S)
+    if not (lse.dtype == torch.float32 and lse.stride() == (Hq * n, n, 1) and lse.data_ptr() % 16 == 0
+            and lse.untyped_storage().nbytes() >= (lse.storage_offset() + B * Hq * n) * 4):
+        raise ValueError(f"lse of strides {lse.stride()} is not a new_lse view (rows of {n} floats): the wgmma "
+                         "backward reads the lse that flash_attention(..., return_lse=True) wrote")
 
 
 def check_tma_layout(*tensors: torch.Tensor) -> None:
-    """TMA (the wgmma forward) and the 16-byte loads of the mma backward read
-    rows of 16-byte aligned memory: raise unless every base address is 16-byte
-    aligned and every stride of an axis longer than 1 is a multiple of 8 bf16
-    elements (the model's tensors always are)."""
+    """TMA (the wgmma forward and backward) and the 16-byte loads of the mma
+    backward read rows of 16-byte aligned memory: raise unless every base
+    address is 16-byte aligned and every stride of an axis longer than 1 is a
+    multiple of 8 bf16 elements (the model's tensors always are)."""
     for t in tensors:
         strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
         if t.data_ptr() % 16 or any(s % 8 for s in strides):
             raise ValueError(
-                f"the wgmma flash kernel and the mma backward read 16-byte rows: they need a 16-byte aligned base "
+                f"the wgmma flash kernels and the mma backward read 16-byte rows: they need a 16-byte aligned base "
                 f"and strides that are multiples of 8 elements, got strides {t.stride()} at address "
                 f"{t.data_ptr():#x}"
             )
@@ -76,7 +113,7 @@ def _fn(name: str):
             fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i] + [i64] * 12 + [p]
         else:
             fn = lib.flash_attention_fwd_wgmma
-            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i] + [i64] * 12 + [p]
+            fn.argtypes = [p, p, p, p, p, i64, i, i, i, i, i, i, i, i] + [i64] * 12 + [p]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
@@ -89,21 +126,25 @@ def _bwd_fn(name: str):
         if name == "bwd_fma":
             fn = lib.flash_attention_bwd
             fn.argtypes = [p] * 10 + [i] * 9 + [i64] * 24 + [p]
-        else:
+        elif name == "bwd_mma":
             fn = lib.flash_attention_bwd_mma
             fn.argtypes = [p] * 10 + [i] * 8 + [i64] * 24 + [p]
+        else:
+            fn = lib.flash_attention_bwd_wgmma
+            fn.argtypes = [p] * 10 + [i64] + [i] * 8 + [i64] * 24 + [p]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
 
 
-def _run(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int | None):
+def _run(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int | None,
+         lse: torch.Tensor | None = None):
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     o = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
-    dtype = [_DTYPE_CODE[q.dtype]] if name == "fma" else []
+    extra = [_DTYPE_CODE[q.dtype]] if name == "fma" else [0 if lse is None else lse.data_ptr(), lse_stride(S)]
     err = _fn(name)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *dtype,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *extra,
         B, S, T, Hq, Hkv, D, int(causal), -1 if window is None else int(window),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -118,59 +159,86 @@ def launch_fma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: boo
     return _run("fma", q, k, v, causal, window)
 
 
-def launch_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, window: int | None) -> torch.Tensor:
+def launch_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, window: int | None,
+                 lse: torch.Tensor | None = None) -> torch.Tensor:
     """The wgmma kernel, bf16 at a head dim of ``WGMMA_HEAD_DIMS``, inputs
-    laid out as ``check_tma_layout`` asks."""
-    return _run("wgmma", q, k, v, causal, window)
+    laid out as ``check_tma_layout`` asks. With ``lse`` (a ``new_lse``
+    buffer) it also writes the rows' statistics there."""
+    return _run("wgmma", q, k, v, causal, window, lse)
 
 
-def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, window: int | None) -> torch.Tensor:
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, window: int | None,
+           lse: torch.Tensor | None = None) -> torch.Tensor:
     """q: (B, S, Hq, D), k/v: (B, T, Hkv, D) CUDA tensors with unit stride on
     D. The caller (``ops.flash_attention``) has checked devices, types and
     shapes. Launches the kernel ``variant`` names on the current stream and
-    returns o: (B, S, Hq, D)."""
-    run = launch_wgmma if variant(q.dtype, q.shape[-1]) == "wgmma" else launch_fma
-    return run(q, k, v, causal=causal, window=window)
+    returns o: (B, S, Hq, D); with ``lse`` (a ``new_lse`` buffer, the wgmma
+    kernel only) the rows' statistics go there too."""
+    if variant(q.dtype, q.shape[-1]) == "wgmma":
+        return launch_wgmma(q, k, v, causal=causal, window=window, lse=lse)
+    if lse is not None:
+        raise ValueError("only the wgmma flash kernel writes the row statistics")
+    return launch_fma(q, k, v, causal=causal, window=window)
 
 
-def _run_bwd(name: str, q, k, v, o, do, causal: bool, window: int | None):
+def _run_bwd(name: str, q, k, v, o, do, causal: bool, window: int | None, lse: torch.Tensor | None = None):
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
-    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)  # row statistics, first kernel -> second
-    dr = torch.empty_like(lse)
     tensors = (q, k, v, o, do, dq, dk, dv)
-    dtype = [_DTYPE_CODE[q.dtype]] if name == "bwd_fma" else []
+    if name == "bwd_wgmma":
+        dr = torch.empty((B, Hq, lse_stride(S)), dtype=torch.float32, device=q.device)  # dQ kernel -> dK/dV kernel
+        extra = [lse_stride(S)]
+    else:  # the row statistics, recomputed by the first kernel for the second
+        lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+        dr = torch.empty_like(lse)
+        extra = [_DTYPE_CODE[q.dtype]] if name == "bwd_fma" else []
     err = _bwd_fn(name)(
-        *(t.data_ptr() for t in tensors), lse.data_ptr(), dr.data_ptr(), *dtype,
+        *(t.data_ptr() for t in tensors), lse.data_ptr(), dr.data_ptr(), *extra,
         B, S, T, Hq, Hkv, D, int(causal), -1 if window is None else int(window),
         *(s for t in tensors for s in t.stride()[:3]),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash_attention backward ({name}) kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention backward ({name}) kernel launch failed: "
+                           f"{_HOST_ERRORS.get(err, f'cudaError {err}')}")
     return dq, dk, dv
 
 
 def launch_bwd_fma(q, k, v, o, do, *, causal: bool, window: int | None):
-    """The FMA backward pair, f32 or bf16 at any head dim of ``HEAD_DIMS``."""
+    """The FMA backward pair: f32 at any head dim of ``HEAD_DIMS``, bf16 at one
+    of ``FMA_BWD_BF16_HEAD_DIMS``."""
     return _run_bwd("bwd_fma", q, k, v, o, do, causal, window)
 
 
 def launch_bwd_mma(q, k, v, o, do, *, causal: bool, window: int | None):
     """The mma backward pair, bf16 at a head dim of ``MMA_BWD_HEAD_DIMS``,
     every tensor laid out as ``check_tma_layout`` asks (16-byte loads)."""
-    return _run_bwd("bwd_mma", q, k, v, o, do, causal, window)
+    global MMA_BWD_LAUNCHES
+    grads = _run_bwd("bwd_mma", q, k, v, o, do, causal, window)
+    MMA_BWD_LAUNCHES += 1
+    return grads
+
+
+def launch_bwd_wgmma(q, k, v, o, do, lse, *, causal: bool, window: int | None):
+    """The wgmma backward pair, bf16 at a head dim of ``WGMMA_BWD_HEAD_DIMS``,
+    every tensor laid out as ``check_tma_layout`` asks; ``lse`` the row
+    statistics the wgmma forward wrote (``check_lse_layout``)."""
+    check_lse_layout(lse)
+    return _run_bwd("bwd_wgmma", q, k, v, o, do, causal, window, lse)
 
 
 def launch_bwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor, *, causal: bool,
-    window: int | None,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor | None, *, causal: bool, window: int | None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel pair ``bwd_variant`` names: q, o, do (B, S, Hq, D)
     and k, v (B, T, Hkv, D) CUDA tensors of one dtype with unit stride on D,
-    as the forward took them; o is the forward's output. The caller
-    (``ops.flash_attention_bwd``) has checked devices, types, shapes and, for
-    the mma pair, the layout. -> (dq, dk, dv), contiguous, in q's dtype."""
-    run = launch_bwd_mma if bwd_variant(q.dtype, q.shape[-1]) == "mma" else launch_bwd_fma
-    return run(q, k, v, o, do, causal=causal, window=window)
+    as the forward took them; o is the forward's output, ``lse`` its row
+    statistics (read by the wgmma pair, which needs them; the FMA pair
+    recomputes them). The caller (``ops.flash_attention_bwd``) has checked
+    devices, types, shapes and, for the wgmma pair, the layout and ``lse``.
+    -> (dq, dk, dv), contiguous, in q's dtype."""
+    if bwd_variant(q.dtype, q.shape[-1]) == "wgmma":
+        return launch_bwd_wgmma(q, k, v, o, do, lse, causal=causal, window=window)
+    return launch_bwd_fma(q, k, v, o, do, causal=causal, window=window)

@@ -18,12 +18,16 @@ Its plain version is ``ref.rmsnorm_ref``.
 
 The backward (:func:`launch_bwd`; the JAX package has no backward kernel, it
 trains through plain ``jnp``) is bound by bytes too: x and dy read once, dx
-written once. One program walks a stride of row blocks with the same row
-layout: it recomputes ``rsqrt(mean(x^2) + eps)`` from x and writes
-``dx = r * (g - xhat * mean(g * xhat))`` with ``g = dy * (1 + scale)``; the
-column sum ``dscale = sum_rows(dy * xhat)`` is kept per program in f32
-registers, written as one row of partials, and a second kernel sums the
-partials column by column. No atomics: the result is the same on every run.
+written once. One program per SM (two at narrow rows, ``_bwd_tiling``)
+walks a stride of row blocks, each block several rows wide (``BLOCK_R``
+rows of ``BLOCK_D`` columns, about 8K elements) so a program has many loads in
+flight, and ``tl.range(..., num_stages=3)`` loads the next blocks' x and dy
+while this block's math runs. It recomputes ``rsqrt(mean(x^2) + eps)`` from x
+and writes ``dx = r * (g - xhat * mean(g * xhat))`` with ``g = dy * (1 +
+scale)``; the column sum ``dscale = sum_rows(dy * xhat)`` is kept per program
+in f32 registers and written as one row of partials, few rows since there are
+few programs, and a second kernel sums the partials over many narrow column
+strips. No atomics: the result is the same on every run.
 Its plain version is ``ref.rmsnorm_bwd_ref``.
 """
 
@@ -70,7 +74,7 @@ def _kernel():
             cmask = c < D
             w = 1.0 + tl.load(s_ptr + c, mask=cmask, other=0.0).to(tl.float32)
             dscale = tl.zeros((BLOCK_D,), dtype=tl.float32)
-            for r0 in range(pid * BLOCK_R, rows, step):
+            for r0 in tl.range(pid * BLOCK_R, rows, step, num_stages=3):
                 r = r0 + tl.arange(0, BLOCK_R)
                 r64 = r.to(tl.int64)
                 m = (r < rows)[:, None] & cmask[None, :]
@@ -90,7 +94,7 @@ def _kernel():
             c = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
             cmask = c < D
             acc = tl.zeros((BLOCK_C,), dtype=tl.float32)
-            for n0 in range(0, n, BLOCK_N):
+            for n0 in tl.range(0, n, BLOCK_N, num_stages=2):
                 i = n0 + tl.arange(0, BLOCK_N)
                 m = (i < n)[:, None] & cmask[None, :]
                 acc += tl.sum(tl.load(part_ptr + i[:, None] * D + c[None, :], mask=m, other=0.0), axis=0)
@@ -116,6 +120,17 @@ def launch(x2: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return y
 
 
+def _bwd_tiling(rows: int, D: int, n_sm: int) -> tuple[int, int, int, int]:
+    """-> (BLOCK_D, BLOCK_R, programs, warps) of the backward's row kernel:
+    blocks of about 8K elements, one program of 8 warps an SM at wide rows,
+    two of 4 warps at narrow ones (their partial rows of dscale stay few
+    either way). Chosen by timing the four training shapes on an H100."""
+    block_d = 1 << max(0, D - 1).bit_length()
+    block_r = max(1, min(128, 8192 // block_d))
+    wide = block_d >= 1024
+    return block_d, block_r, min(-(-rows // block_r), (1 if wide else 2) * n_sm), 8 if wide else 4
+
+
 def launch_bwd(
     x2: torch.Tensor, scale: torch.Tensor, dy2: torch.Tensor, eps: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -125,15 +140,13 @@ def launch_bwd(
     triton, _, kern, colsum = _kernel()
     rows, D = x2.shape
     dx = torch.empty((rows, D), dtype=x2.dtype, device=x2.device)
-    block_d = triton.next_power_of_2(D)
-    block_r = max(1, min(64, 4096 // block_d))
-    # a stride of row blocks a program, two programs an SM: few rows of partials
-    programs = min(triton.cdiv(rows, block_r), 2 * torch.cuda.get_device_properties(x2.device).multi_processor_count)
+    n_sm = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    block_d, block_r, programs, warps = _bwd_tiling(rows, D, n_sm)
     part = torch.empty((programs, D), dtype=torch.float32, device=x2.device)
     kern[(programs,)](
         x2, dy2, scale, dx, part, rows, D, x2.stride(0), dy2.stride(0), dx.stride(0), eps,
-        BLOCK_R=block_r, BLOCK_D=block_d, num_warps=8 if block_d >= 2048 else 4,
+        BLOCK_R=block_r, BLOCK_D=block_d, num_warps=warps,
     )
     dscale = torch.empty(D, dtype=torch.float32, device=x2.device)
-    colsum[(triton.cdiv(D, 128),)](part, dscale, programs, D, BLOCK_N=32, BLOCK_C=128, num_warps=4)
+    colsum[(triton.cdiv(D, 32),)](part, dscale, programs, D, BLOCK_N=64, BLOCK_C=32, num_warps=4)
     return dx, dscale

@@ -14,6 +14,9 @@ grad), ``flash_attention`` and ``fused_rmsnorm`` run through a
 ``torch.autograd.Function`` whose backward calls ``flash_attention_bwd`` or
 ``fused_rmsnorm_bwd``, which dispatch the same way (the hand-written backward
 kernel for a CUDA tensor, the plain backward in ``ref.py`` for a CPU one).
+Flash attention's forward then also keeps the rows' statistics ``lse`` for
+the backward where the backward reads them (the plain version, and the
+wgmma backward pair).
 ``rglru_scan`` has no backward yet and raises when a gradient reaches it.
 """
 
@@ -34,8 +37,8 @@ FLASH_ATTENTION_LAUNCHES = 0  # both flash kernels
 FLASH_ATTENTION_WGMMA_LAUNCHES = 0  # those that took the wgmma kernel
 FUSED_RMSNORM_LAUNCHES = 0
 RGLRU_SCAN_LAUNCHES = 0  # the chunked kernel, the only one ops launches
-FLASH_ATTENTION_BWD_LAUNCHES = 0  # one per backward (a pair of kernels), either variant
-FLASH_ATTENTION_BWD_MMA_LAUNCHES = 0  # those that took the mma pair
+FLASH_ATTENTION_BWD_LAUNCHES = 0  # one per backward (a pair of kernels), either variant ops picks
+FLASH_ATTENTION_BWD_WGMMA_LAUNCHES = 0  # those that took the wgmma pair
 FUSED_RMSNORM_BWD_LAUNCHES = 0  # one per backward: the row pass and the column sum
 
 
@@ -47,21 +50,23 @@ def launch_counts() -> dict[str, int]:
         "rglru_scan": RGLRU_SCAN_LAUNCHES,
         "rglru_scan_sequential": _rglru.SEQUENTIAL_LAUNCHES,  # never launched through ops
         "flash_attention_bwd": FLASH_ATTENTION_BWD_LAUNCHES,
-        "flash_attention_bwd_mma": FLASH_ATTENTION_BWD_MMA_LAUNCHES,
+        "flash_attention_bwd_wgmma": FLASH_ATTENTION_BWD_WGMMA_LAUNCHES,
+        "flash_attention_bwd_mma": _flash.MMA_BWD_LAUNCHES,  # never launched through ops
         "fused_rmsnorm_bwd": FUSED_RMSNORM_BWD_LAUNCHES,
     }
 
 
 def reset_launch_counts() -> None:
     global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_WGMMA_LAUNCHES, FUSED_RMSNORM_LAUNCHES, RGLRU_SCAN_LAUNCHES
-    global FLASH_ATTENTION_BWD_LAUNCHES, FLASH_ATTENTION_BWD_MMA_LAUNCHES, FUSED_RMSNORM_BWD_LAUNCHES
+    global FLASH_ATTENTION_BWD_LAUNCHES, FLASH_ATTENTION_BWD_WGMMA_LAUNCHES, FUSED_RMSNORM_BWD_LAUNCHES
     FLASH_ATTENTION_LAUNCHES = 0
     FLASH_ATTENTION_WGMMA_LAUNCHES = 0
     FUSED_RMSNORM_LAUNCHES = 0
     RGLRU_SCAN_LAUNCHES = 0
     _rglru.SEQUENTIAL_LAUNCHES = 0
     FLASH_ATTENTION_BWD_LAUNCHES = 0
-    FLASH_ATTENTION_BWD_MMA_LAUNCHES = 0
+    FLASH_ATTENTION_BWD_WGMMA_LAUNCHES = 0
+    _flash.MMA_BWD_LAUNCHES = 0
     FUSED_RMSNORM_BWD_LAUNCHES = 0
 
 
@@ -82,7 +87,13 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """Softmax attention of q over k and v. ``return_lse`` also returns the
+    rows' statistics ``lse`` (B, Hq, S) f32 that the backward reads, for a
+    caller that runs ``flash_attention_bwd`` itself: it raises where autograd
+    records the call, whose output would carry no gradient on the card. On
+    the card only the wgmma kernel writes them."""
     _device_type(q, k, v)
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"expected q (B,S,Hq,D) and k, v (B,T,Hkv,D); got {q.shape}, {k.shape}, {v.shape}")
@@ -99,6 +110,14 @@ def flash_attention(
         raise ValueError(f"window must be positive or None, got {window}")
     if _wgmma(q):
         _flash.check_tma_layout(q, k, v)
+    if return_lse:
+        if _records(q, k, v):
+            raise ValueError("return_lse is for a caller that runs flash_attention_bwd itself; autograd records "
+                             "this call: drop return_lse, or call under torch.no_grad()")
+        if q.device.type == "cuda" and not _wgmma(q):
+            raise ValueError(f"only the wgmma flash kernel writes the row statistics; {q.dtype} at D = {D} takes "
+                             "the FMA kernel")
+        return _flash_fwd(q, k, v, causal, window, with_lse=True)
     if _records(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window)
     return _flash_fwd(q, k, v, causal, window)
@@ -113,29 +132,38 @@ def _wgmma(q: torch.Tensor) -> bool:
     return _flash.variant(q.dtype, q.shape[-1]) == "wgmma"
 
 
-def _flash_fwd(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
+def _flash_fwd(q, k, v, causal: bool, window: int | None, with_lse: bool = False):
+    """-> o, or (o, lse) ``with_lse``."""
     if q.device.type == "cpu":
-        o = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window)
-        return o.transpose(1, 2)
+        t = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window,
+                              return_lse=with_lse)
+        return (t[0].transpose(1, 2), t[1]) if with_lse else t.transpose(1, 2)
     global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_WGMMA_LAUNCHES
-    o = _flash.launch(q, k, v, causal=causal, window=window)
+    B, S, Hq, _ = q.shape
+    lse = _flash.new_lse(B, Hq, S, q.device) if with_lse else None
+    o = _flash.launch(q, k, v, causal=causal, window=window, lse=lse)
     FLASH_ATTENTION_LAUNCHES += 1
     FLASH_ATTENTION_WGMMA_LAUNCHES += _wgmma(q)
-    return o
+    return (o, lse) if with_lse else o
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        o = _flash_fwd(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, o)
+        # the plain backward and the wgmma pair read the forward's row
+        # statistics; the FMA pair recomputes them
+        if q.device.type == "cpu" or _flash.bwd_variant(q.dtype, q.shape[-1]) == "wgmma":
+            o, lse = _flash_fwd(q, k, v, causal, window, with_lse=True)
+        else:
+            o, lse = _flash_fwd(q, k, v, causal, window), None
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal, window=ctx.window)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal, window=ctx.window, lse=lse)
         return dq, dk, dv, None, None
 
 
@@ -148,27 +176,37 @@ def flash_attention_bwd(
     *,
     causal: bool = True,
     window: int | None = None,
+    lse: torch.Tensor | None = None,  # (B, Hq, S): the forward's row statistics
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of :func:`flash_attention` -> (dq, dk, dv), in q's dtype
     and layout. Takes what the forward took (checked as there), plus its
-    output and the output's gradient, both of q's shape and dtype."""
+    output and the output's gradient, both of q's shape and dtype, and the
+    row statistics ``lse`` that ``flash_attention(..., return_lse=True)``
+    gives. The plain backward recomputes them when ``lse`` is None; the wgmma
+    pair (bf16 at D 16/64/128 on the card) needs them."""
     device = _device_type(q, k, v, o, do)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} must match q "
                          f"{tuple(q.shape)} {q.dtype}")
     if o.stride(-1) != 1:
         raise ValueError("the head-dim axis must be contiguous")
+    B, S, Hq, _ = q.shape
+    if lse is not None and (lse.shape != (B, Hq, S) or lse.dtype != torch.float32 or lse.device != q.device):
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} on {lse.device} must be f32 {(B, Hq, S)} on {q.device}")
     do = do.contiguous()  # autograd may hand an expanded or strided gradient
-    mma = _flash.bwd_variant(q.dtype, q.shape[-1]) == "mma"
-    if mma:
+    wgmma = _flash.bwd_variant(q.dtype, q.shape[-1]) == "wgmma"
+    if wgmma:
         _flash.check_tma_layout(q, k, v, o, do)
     if device == "cpu":
         t = [a.transpose(1, 2) for a in (q, k, v, o, do)]
-        return tuple(g.transpose(1, 2) for g in ref.attention_bwd_ref(*t, causal=causal, window=window))
-    global FLASH_ATTENTION_BWD_LAUNCHES, FLASH_ATTENTION_BWD_MMA_LAUNCHES
-    grads = _flash.launch_bwd(q, k, v, o, do, causal=causal, window=window)
+        return tuple(g.transpose(1, 2) for g in ref.attention_bwd_ref(*t, causal=causal, window=window, lse=lse))
+    if wgmma and lse is None:
+        raise ValueError("the wgmma backward reads the forward's row statistics: pass lse "
+                         "(flash_attention(..., return_lse=True) gives them)")
+    global FLASH_ATTENTION_BWD_LAUNCHES, FLASH_ATTENTION_BWD_WGMMA_LAUNCHES
+    grads = _flash.launch_bwd(q, k, v, o, do, lse, causal=causal, window=window)
     FLASH_ATTENTION_BWD_LAUNCHES += 1
-    FLASH_ATTENTION_BWD_MMA_LAUNCHES += mma
+    FLASH_ATTENTION_BWD_WGMMA_LAUNCHES += wgmma
     return grads
 
 

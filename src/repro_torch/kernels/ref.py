@@ -32,20 +32,19 @@ def attention_ref(
     causal: bool = True,
     window: int | None = None,
     p_bf16: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Softmax attention in f32. ``p_bf16`` > 0 feeds the PV product the
     unnormalised probabilities ``p = exp(s - rowmax)`` as bf16 and divides by
     the f32 sum of ``p``: 1 rounds ``p`` once (one bf16 pass of P through a
     matrix unit, as the TPU's f32 ``dot_general`` at default precision takes
     it), 2 feeds it as two bf16 terms ``hi = bf16(p)`` and ``lo = bf16(p - hi)``,
-    as the wgmma kernel does (``csrc/flash_attention.cu``)."""
+    as the wgmma kernel does (``csrc/flash_attention.cu``). ``return_lse``
+    also returns the rows' statistics as the wgmma kernel writes them for the
+    backward: ``lse`` (B, Hq, S) f32 (:func:`_row_lse`)."""
     B, Hq, S, D = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
-    G = Hq // Hkv
-    qg = q.reshape(B, Hkv, G, S, D).float()
-    kf, vf = k.float(), v.float()
-    s = torch.einsum("bkgsd,bktd->bkgst", qg, kf) / math.sqrt(D)
-    s = s.masked_fill(~_attention_mask(S, T, causal, window, q.device), -math.inf)
+    s = _scores(q, k, causal, window)
+    vf = v.float()
     if p_bf16:
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
         hi = p.bfloat16().float()
@@ -56,7 +55,24 @@ def attention_ref(
     else:
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgst,bktd->bkgsd", p, vf)
-    return o.reshape(B, Hq, S, D).to(q.dtype)
+    o = o.reshape(B, Hq, S, D).to(q.dtype)
+    return (o, _row_lse(s).reshape(B, Hq, S)) if return_lse else o
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int | None) -> torch.Tensor:
+    """The masked, scaled scores in f32, grouped: (B, Hkv, G, S, T); -inf where masked."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, S, D).float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(D)
+    return s.masked_fill(~_attention_mask(S, T, causal, window, q.device), -math.inf)
+
+
+def _row_lse(s: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the keys of masked scores, +inf for a row that sees no
+    key (its P is then 0 in the backward, where -inf would give NaN)."""
+    lse = torch.logsumexp(s, dim=-1)
+    return lse.masked_fill(lse == -math.inf, math.inf)
 
 
 def attention_bwd_ref(
@@ -68,22 +84,24 @@ def attention_bwd_ref(
     *,
     causal: bool = True,
     window: int | None = None,
+    lse: torch.Tensor | None = None,  # (B, Hq, S): the forward's row statistics
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of :func:`attention_ref` by its explicit formulas, in f32:
-    the row log-sum-exp from q and k, ``P = exp(s - lse)``,
+    the row log-sum-exp from q and k (or the forward's ``lse``, as
+    ``attention_ref(return_lse=True)`` gives it), ``P = exp(s - lse)``,
     ``Dr = rowsum(do * o)`` over the given output, ``dS = P * (dP - Dr)``
     with ``dP = do v^T``; dk and dv summed over the q heads of each kv group.
     -> (dq, dk, dv) in q's dtype."""
     B, Hq, S, D = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
+    Hkv = k.shape[1]
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, Hkv, G, S, D).float()
     dog = do.reshape(B, Hkv, G, S, D).float()
     kf, vf = k.float(), v.float()
-    s = torch.einsum("bkgsd,bktd->bkgst", qg, kf) * scale
-    s = s.masked_fill(~_attention_mask(S, T, causal, window, q.device), -math.inf)
-    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    s = _scores(q, k, causal, window)
+    lse = _row_lse(s) if lse is None else lse.float().reshape(B, Hkv, G, S)
+    p = torch.exp(s - lse[..., None])
     dr = (dog * o.reshape(B, Hkv, G, S, D).float()).sum(dim=-1, keepdim=True)
     ds = p * (torch.einsum("bkgsd,bktd->bkgst", dog, vf) - dr)
     dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf) * scale

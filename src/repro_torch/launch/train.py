@@ -8,9 +8,11 @@ Wires every subsystem together the way a production job would:
 * **host-plane sampler** running for the whole job (zero instrumentation of
   the step function);
 * **watchdog**: dominance detector over sampler windows; an anomaly triggers
-  warn -> emergency checkpoint, taken by the training thread at the end of the
-  step that is running (the step updates parameters and optimizer state in
-  place, so a copy taken during it would mix two steps);
+  warn -> emergency checkpoint, taken at once on the watchdog's thread when
+  the training thread is between steps (waiting for data, say), else by the
+  training thread at the end of the step that is running (the step updates
+  parameters and optimizer state in place, so a copy taken during it would
+  mix two steps);
 * periodic async checkpoints + exact resume (parameters, optimizer state,
   data position, step);
 * heartbeat file per step, the launcher's process-level hang detector.
@@ -30,6 +32,7 @@ import json
 import os
 import queue
 import tempfile
+import threading
 import time
 from dataclasses import dataclass
 
@@ -113,25 +116,48 @@ class Trainer:
         self.watchdog = WatchdogLoop(self.sampler, self.detector, interval_s=1.0) if self.sampler else None
         self.anomalies: list = []
         self._emergency: queue.SimpleQueue = queue.SimpleQueue()  # events whose checkpoint is still to take
+        # Held to read or flip _in_step and to take an emergency checkpoint:
+        # _in_step is True from the moment a step's batch is in hand until
+        # the step is counted and its periodic checkpoint taken.
+        self._step_lock = threading.Lock()
+        self._in_step = False
+        self._data_pos = 0  # batches consumed by the steps counted in self.step
+        self._emergency_step: int | None = None  # the last step given an emergency checkpoint
 
     # -- fault-tolerance hooks ---------------------------------------------------
 
     def _on_anomaly(self, event) -> None:
-        """Detector callback, on the watchdog thread: the checkpoint waits for
-        the end of the running step (``_take_emergency_checkpoints``)."""
+        """Detector callback, on the watchdog thread: between steps the
+        emergency checkpoint is taken now; during a step it waits for the
+        step's end (``_take_emergency_checkpoints``)."""
         self.anomalies.append(event)
-        print(f"[watchdog] {event.describe()} -> emergency checkpoint after this step")
-        self._emergency.put(event)
+        with self._step_lock:
+            if self._in_step:
+                print(f"[watchdog] {event.describe()} -> emergency checkpoint after this step")
+                self._emergency.put(event)
+                return
+            self._save_emergency(event)
 
     def _take_emergency_checkpoints(self) -> None:
-        """On the training thread, between steps: one emergency checkpoint of
-        the step just finished, tagged with the latest anomaly raised since the
-        last one."""
+        """On the training thread, between steps, holding ``_step_lock``: one
+        emergency checkpoint of the step just finished, tagged with the latest
+        anomaly deferred during it."""
         event = None
         while not self._emergency.empty():
             event = self._emergency.get()
         if event is not None:
-            self.ckpt.save_emergency(lambda: (self.step, self._state_tree()), event)
+            self._save_emergency(event)
+
+    def _save_emergency(self, event) -> None:
+        """Holding ``_step_lock``, between steps: an emergency checkpoint of the
+        last counted step, unless it already has one. A stall fires the
+        detector about once a window, and the state has not moved since."""
+        if self._emergency_step == self.step:
+            print(f"[watchdog] {event.describe()} -> step {self.step} already has an emergency checkpoint")
+            return
+        print(f"[watchdog] {event.describe()} -> emergency checkpoint of step {self.step}")
+        self.ckpt.save_emergency(lambda: (self.step, self._state_tree()), event)
+        self._emergency_step = self.step
 
     def _touch_heartbeat(self) -> None:
         with open(self._heartbeat_path, "w") as f:
@@ -141,7 +167,7 @@ class Trainer:
         return {
             "params": self.params,
             "opt": self.opt_state,
-            "data": {"next_step": np.asarray(self.data.next_step)},
+            "data": {"next_step": np.asarray(self._data_pos)},
         }
 
     # -- init / resume -------------------------------------------------------------
@@ -164,6 +190,7 @@ class Trainer:
             gen = torch.Generator(device=self.device).manual_seed(self.job.seed)
             self.params = self.model.init(gen, train=True)
             self.opt_state = adamw_init(self.params)
+        self._data_pos = self.data.next_step
 
     # -- loop --------------------------------------------------------------------------
 
@@ -176,13 +203,19 @@ class Trainer:
         t0 = time.time()
         try:
             while self.step < self.job.steps:
-                batch = {k: torch.from_numpy(v).to(self.device) for k, v in next(self.data).items()}
+                host_batch = next(self.data)  # a stall here is between steps
+                with self._step_lock:
+                    self._in_step = True
+                batch = {k: torch.from_numpy(v).to(self.device) for k, v in host_batch.items()}
                 self.params, self.opt_state, metrics = self._train_step(self.params, self.opt_state, batch)
                 self.step += 1
+                self._data_pos = self.data.next_step
                 self._touch_heartbeat()
                 if self.step % self.job.ckpt_every == 0 or self.step == self.job.steps:
                     self.ckpt.save(self.step, self._state_tree())
-                self._take_emergency_checkpoints()
+                with self._step_lock:
+                    self._in_step = False
+                    self._take_emergency_checkpoints()
                 m = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
                 m["step"] = self.step
                 self.metrics_log.append(m)

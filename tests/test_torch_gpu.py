@@ -179,36 +179,92 @@ def _flash_grad_close(got, want, dtype):
     assert rel <= FLASH_BWD_BLOCK_REL_L2[dtype], rel
 
 
+def _forward_for_bwd(q, k, v, **kw):
+    """The forward kernel's output, and its lse where the backward ops picks
+    reads it (the wgmma pair)."""
+    if flash.bwd_variant(q.dtype, q.shape[-1]) == "wgmma":
+        return ops.flash_attention(q, k, v, **kw, return_lse=True)
+    return ops.flash_attention(q, k, v, **kw), None
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("B,S,T,Hq,Hkv,D,window", FLASH_CASES)
 def test_flash_bwd_kernel_vs_plain(card, B, S, T, Hq, Hkv, D, window, dtype):
     """The backward kernels against ref.attention_bwd_ref over the forward's
-    sweep, from the forward kernel's own output, one launch counted each."""
+    sweep, from the forward kernel's own output (and lse), one launch counted
+    each: the wgmma pair through ops for bf16 at D 16/64/128, the FMA pair
+    otherwise; then the pairs ops does not pick on the wgmma pair's cases, the
+    mma pair and the FMA pair (built there but for D = 16)."""
     q, k, v = _qkv(card, 12, B, S, T, Hq, Hkv, D, dtype)
     g = torch.Generator(device=card).manual_seed(13)
-    mma = flash.bwd_variant(q.dtype, D) == "mma"
+    wgmma = flash.bwd_variant(q.dtype, D) == "wgmma"
     for causal in (True, False):
-        o = ops.flash_attention(q, k, v, causal=causal, window=window)
+        o, lse = _forward_for_bwd(q, k, v, causal=causal, window=window)
         do = torch.randn(o.shape, generator=g, device=card).to(o.dtype)
         before = ops.launch_counts()
-        got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+        got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
         torch.cuda.synchronize()
         after = ops.launch_counts()
         assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
-        assert after["flash_attention_bwd_mma"] == before["flash_attention_bwd_mma"] + mma
+        assert after["flash_attention_bwd_wgmma"] == before["flash_attention_bwd_wgmma"] + wgmma
+        assert after["flash_attention_bwd_mma"] == before["flash_attention_bwd_mma"]
         t = [a.transpose(1, 2) for a in (q, k, v, o, do)]
         want = ops.ref.attention_bwd_ref(*t, causal=causal, window=window)
         for x, w in zip(got, want):
             _flash_grad_close(x, w.transpose(1, 2), dtype)
-        if mma:  # the FMA pair, which ops does not pick here, holds the same tolerance
-            for x, w in zip(flash.launch_bwd_fma(q, k, v, o, do, causal=causal, window=window), want):
-                _flash_grad_close(x, w.transpose(1, 2), dtype)
+        if wgmma:  # the pairs ops does not pick here hold the same tolerance
+            others = [flash.launch_bwd_mma(q, k, v, o, do, causal=causal, window=window)]
+            if D in flash.FMA_BWD_BF16_HEAD_DIMS:
+                others.append(flash.launch_bwd_fma(q, k, v, o, do, causal=causal, window=window))
+            for grads in others:
+                for x, w in zip(grads, want):
+                    _flash_grad_close(x, w.transpose(1, 2), dtype)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_mma_pair_counts_its_own_launches(card):
+    q, k, v = _qkv(card, 15, 1, 128, 128, 2, 1, 64, "bf16")
+    o = ops.flash_attention(q, k, v)
+    before = ops.launch_counts()
+    flash.launch_bwd_mma(q, k, v, o, torch.randn_like(o), causal=True, window=None)
+    after = ops.launch_counts()
+    assert after["flash_attention_bwd_mma"] == before["flash_attention_bwd_mma"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"]
+
+
+@pytest.mark.gpu
+def test_flash_wgmma_bwd_needs_the_forwards_lse(card):
+    q, k, v = _qkv(card, 16, 1, 64, 64, 2, 1, 64, "bf16")
+    o = ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        ops.flash_attention_bwd(q, k, v, o, torch.randn_like(o))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,window", BF16_CASES)
+def test_flash_forward_lse_vs_plain(card, B, S, T, Hq, Hkv, D, window):
+    """The wgmma forward's lse against the plain lse (attention_ref with
+    return_lse): the same bf16 inputs summed in f32 in other orders, so within
+    a relative 1e-4 of |lse| + 1 (they part by ~1e-6); +inf on the same rows;
+    the output equal to the bit to the one without lse."""
+    q, k, v = _qkv(card, 17, B, S, T, Hq, Hkv, D, "bf16")
+    for causal in (True, False):
+        o, lse = ops.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+        assert torch.equal(o, ops.flash_attention(q, k, v, causal=causal, window=window))
+        _, want = ops.ref.attention_ref(*(a.transpose(1, 2) for a in (q, k, v)), causal=causal, window=window,
+                                        return_lse=True)
+        inf = want == float("inf")
+        assert torch.equal(lse == float("inf"), inf)
+        rel = ((lse - want).abs() / (want.abs() + 1))[~inf]
+        assert rel.numel() == 0 or float(rel.max()) <= 1e-4, float(rel.max())
+        pad = lse.as_strided((B, Hq, flash.lse_stride(S)), lse.stride())[..., S:]
+        assert bool((pad == float("inf")).all())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype,D", [("bf16", 64), ("bf16", 128), ("f32", 64)])
+@pytest.mark.parametrize("dtype,D", [("bf16", 16), ("bf16", 64), ("bf16", 128), ("f32", 64)])
 def test_flash_bwd_rows_that_see_no_key(card, dtype, D, causal):
     """S > T + window: the q tiles from row T + window - 1 on see no key, so
     the dQ kernel loops over no key tile. Their dq is 0, they add nothing to
@@ -217,9 +273,9 @@ def test_flash_bwd_rows_that_see_no_key(card, dtype, D, causal):
     B, S, T, Hq, Hkv, window = 1, 384, 128, 4, 2, 64
     n = T + window - 1
     q, k, v = _qkv(card, 21, B, S, T, Hq, Hkv, D, dtype)
-    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    o, lse = _forward_for_bwd(q, k, v, causal=causal, window=window)
     do = torch.randn(o.shape, generator=torch.Generator(device=card).manual_seed(22), device=card).to(o.dtype)
-    dq, dk, dv = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    dq, dk, dv = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
     assert all(bool(x.isfinite().all()) for x in (o, dq, dk, dv))
     assert not bool(dq[:, n:].any())
     qt, ot, dot = (a[:, :n].transpose(1, 2) for a in (q, o, do))
@@ -229,11 +285,12 @@ def test_flash_bwd_rows_that_see_no_key(card, dtype, D, causal):
 
 
 @pytest.mark.gpu
-def test_flash_bwd_kernel_is_deterministic(card):
-    q, k, v = _qkv(card, 14, 1, 384, 384, 8, 2, 128, "bf16")
-    o = ops.flash_attention(q, k, v)
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_flash_bwd_kernel_is_deterministic(card, D):
+    q, k, v = _qkv(card, 14, 1, 384, 384, 8, 2, D, "bf16")
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
     do = torch.randn_like(o)
-    a, b = ops.flash_attention_bwd(q, k, v, o, do), ops.flash_attention_bwd(q, k, v, o, do)
+    a, b = ops.flash_attention_bwd(q, k, v, o, do, lse=lse), ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -380,15 +437,18 @@ def test_rglru_scan_kernel_reads_misaligned_inputs(card, dtype):
 SMOKE_FORWARD_LAUNCHES = {
     # 3 attn layers, qk-norms
     "qwen3-4b": {"flash_attention": 3, "flash_attention_wgmma": 3, "fused_rmsnorm": 13, "rglru_scan": 0,
-                 "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_mma": 0,
+                 "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
+                 "flash_attention_bwd_mma": 0,
                  "fused_rmsnorm_bwd": 0},
     # 2 attn layers
     "gemma-2b": {"flash_attention": 2, "flash_attention_wgmma": 2, "fused_rmsnorm": 5, "rglru_scan": 0,
-                 "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_mma": 0,
+                 "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
+                 "flash_attention_bwd_mma": 0,
                  "fused_rmsnorm_bwd": 0},
     # one (rec, rec, attn) unit + two remainder rec layers
     "recurrentgemma-9b": {"flash_attention": 1, "flash_attention_wgmma": 1, "fused_rmsnorm": 11, "rglru_scan": 4,
-                          "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_mma": 0,
+                          "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
+                 "flash_attention_bwd_mma": 0,
                  "fused_rmsnorm_bwd": 0},
 }
 
@@ -426,6 +486,7 @@ def test_smoke_server_on_card_launches_the_norm_kernel(card):
         "rglru_scan": 0,
         "rglru_scan_sequential": 0,
         "flash_attention_bwd": 0,
+        "flash_attention_bwd_wgmma": 0,
         "flash_attention_bwd_mma": 0,
         "fused_rmsnorm_bwd": 0,
     }
@@ -447,6 +508,7 @@ def test_hybrid_smoke_server_on_card(card):
         "rglru_scan": 0,
         "rglru_scan_sequential": 0,
         "flash_attention_bwd": 0,
+        "flash_attention_bwd_wgmma": 0,
         "flash_attention_bwd_mma": 0,
         "fused_rmsnorm_bwd": 0,
     }
@@ -504,8 +566,8 @@ def test_smoke_train_step_on_card_vs_cpu(card):
         rel = float((x.cpu() - y).norm() / (y - p).norm().clamp_min(1e-30))
         assert rel < 0.2, (name, rel)
     assert counts == {"flash_attention": 3, "flash_attention_wgmma": 3, "fused_rmsnorm": 13, "rglru_scan": 0,
-                      "rglru_scan_sequential": 0, "flash_attention_bwd": 3, "flash_attention_bwd_mma": 3,
-                      "fused_rmsnorm_bwd": 13}
+                      "rglru_scan_sequential": 0, "flash_attention_bwd": 3, "flash_attention_bwd_wgmma": 3,
+                      "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 13}
 
 
 @pytest.mark.gpu
@@ -516,6 +578,8 @@ def test_remat_on_card_recomputes_through_the_kernels(card, remat):
     (pg, sg, _, counts), _, _ = _smoke_train_step(card, remat)
     (pw, sw, _, _), _, _ = _smoke_train_step(card, "none")
     assert counts["flash_attention"] == 6 and counts["fused_rmsnorm"] == 13 + 12
-    assert counts["flash_attention_bwd"] == counts["flash_attention_bwd_mma"] == 3 and counts["fused_rmsnorm_bwd"] == 13
+    assert counts["flash_attention_bwd"] == counts["flash_attention_bwd_wgmma"] == 3
+    assert counts["fused_rmsnorm_bwd"] == 13
+    assert counts["flash_attention_bwd_mma"] == 0
     for (name, x), (_, y) in zip(_leaves({"p": pg, "m": sg["m"]}), _leaves({"p": pw, "m": sw["m"]})):
         assert torch.equal(x, y), name

@@ -209,6 +209,139 @@ def test_flash_function_cpu_path_takes_the_plain_backward(case, dtype):
     assert set(ops.launch_counts().values()) == {0}
 
 
+def _masked_scores(q, k, causal, window):
+    """(B, Hq, S, T) f32 scores of (B, S, H, D) inputs, -inf where masked."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    kr = k.float().repeat_interleave(Hq // Hkv, dim=2)
+    s = torch.einsum("bshd,bthd->bhst", q.float(), kr) / np.sqrt(D)
+    i, j = torch.arange(S)[:, None], torch.arange(T)[None, :]
+    mask = torch.ones(S, T, dtype=torch.bool)
+    if causal:
+        mask &= j <= i
+    if window is not None:
+        mask &= i - j < window
+    return s.masked_fill(~mask, -np.inf)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", BWD_CASES + [(1, 96, 32, 2, 1, 16, 8)])  # the last: rows 39 on see no key
+def test_plain_lse_is_the_logsumexp_of_the_masked_scores(case, causal):
+    """attention_ref(return_lse=True) and ops.flash_attention(return_lse=True)
+    on the CPU: the output as without it, and lse = logsumexp over the
+    visible keys of the scaled scores, +inf on a row that sees none."""
+    q, k, v, _, kw = _bwd_inputs(case, "f32", causal, seed=30)
+    t = [a.transpose(1, 2) for a in (q, k, v)]
+    o, lse = ref.attention_ref(*t, **kw, return_lse=True)
+    exact = dict(rtol=0, atol=0, equal_nan=True)  # a row that sees no key has no plain output (NaN)
+    torch.testing.assert_close(o, ref.attention_ref(*t, **kw), **exact)
+    want = torch.logsumexp(_masked_scores(q, k, **kw), dim=-1)
+    empty = want == -np.inf
+    assert lse.shape == (case[0], case[3], case[1]) and lse.dtype == torch.float32
+    assert bool((lse[empty] == np.inf).all()) and (case[-1] != 8 or causal or bool(empty.any()))
+    torch.testing.assert_close(lse[~empty], want[~empty], rtol=1e-6, atol=1e-6)
+    o2, lse2 = ops.flash_attention(q, k, v, **kw, return_lse=True)
+    torch.testing.assert_close(o2, o.transpose(1, 2), **exact)
+    assert torch.equal(lse2, lse)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_attention_bwd_ref_with_the_forwards_lse_equals_without(case, dtype):
+    """The plain backward from the forward's saved lse is the plain backward
+    that recomputes it, to the bit (the same scores, the same logsumexp)."""
+    q, k, v, do, kw = _bwd_inputs(case, dtype, True, seed=31)
+    t = [a.transpose(1, 2) for a in (q, k, v)]
+    o, lse = ref.attention_ref(*t, **kw, return_lse=True)
+    got = ref.attention_bwd_ref(*t, o, do.transpose(1, 2), **kw, lse=lse)
+    want = ref.attention_bwd_ref(*t, o, do.transpose(1, 2), **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("case", [BWD_CASES[i] for i in (0, 2, 5, 8, 9)])
+def test_attention_bwd_ref_from_lse_matches_jax_vjp(case):
+    """As test_attention_bwd_ref_matches_jax_vjp, the row statistics taken
+    from the plain forward's lse: f32 2e-5 against jax.vjp of the JAX
+    package's plain attention."""
+    import jax
+
+    from repro.kernels import ref as jref
+
+    B, S, T, Hq, Hkv, D, window = case
+    arrays = _qkv(21, B, S, T, Hq, Hkv, D)
+    do = np.random.default_rng(22).standard_normal((B, Hq, S, D), np.float32)
+    sw = lambda a: np.swapaxes(a, 1, 2)  # noqa: E731
+    o, vjp = jax.vjp(lambda q, k, v: jref.attention_ref(q, k, v, causal=True, window=window),
+                     *(jnp.asarray(sw(a)) for a in arrays))
+    want = vjp(jnp.asarray(do))
+    t = [torch.from_numpy(sw(a).copy()) for a in arrays]
+    _, lse = ref.attention_ref(*t, causal=True, window=window, return_lse=True)
+    got = ref.attention_bwd_ref(*t, torch.from_numpy(np.array(o)), torch.from_numpy(do), causal=True,
+                                window=window, lse=lse)
+    for g, w in zip(got, want):
+        _close(g, np.array(w), "f32")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_function_cpu_path_saves_the_forwards_lse(dtype):
+    """Where autograd records on CPU tensors, the forward keeps o and lse for
+    the backward: the saved lse is the plain forward's."""
+    q, k, v, _, kw = _bwd_inputs(BWD_CASES[5], dtype, True, seed=32)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = ops.flash_attention(*leaves, **kw)
+    saved = o.grad_fn.saved_tensors
+    _, lse = ref.attention_ref(*(t.transpose(1, 2) for t in (q, k, v)), **kw, return_lse=True)
+    assert len(saved) == 5 and torch.equal(saved[3], o.detach()) and torch.equal(saved[4], lse)
+
+
+def test_plain_backward_of_rows_that_see_no_key_is_zero():
+    """S > T + window: rows from T + window - 1 on see no key. Their lse is
+    +inf, so their P is 0: dq is 0 there and they add nothing to dk and dv
+    (the rows that see keys give the same gradients alone)."""
+    B, S, T, Hq, Hkv, D, window = 1, 96, 32, 2, 1, 16, 8
+    n = T + window - 1
+    q, k, v, do, kw = _bwd_inputs((B, S, T, Hq, Hkv, D, window), "f32", True, seed=33)
+    t = [a.transpose(1, 2) for a in (q, k, v, do)]
+    o, lse = ref.attention_ref(*t[:3], **kw, return_lse=True)
+    assert bool((lse[:, :, n:] == np.inf).all()) and bool(lse[:, :, :n].isfinite().all())
+    o = o.nan_to_num()  # the plain forward has no output for such a row; the kernel's is finite
+    dq, dk, dv = ref.attention_bwd_ref(t[0], t[1], t[2], o, t[3], **kw, lse=lse)
+    assert all(bool(g.isfinite().all()) for g in (dq, dk, dv)) and not bool(dq[:, :, n:].any())
+    want = ref.attention_bwd_ref(t[0][:, :, :n], t[1], t[2], o[:, :, :n], t[3][:, :, :n], **kw)
+    for g, w in zip((dq[:, :, :n], dk, dv), want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("S", [1, 64, 100, 130])
+def test_padded_lse_layout(S):
+    """The wgmma backward reads lse in rows of lse_stride(S) floats: a
+    new_lse view passes ``check_lse_layout``; any other lse raises."""
+    B, Hq = 2, 3
+    n = flash.lse_stride(S)
+    assert n % flash.LSE_ROWS == 0 and S <= n < S + flash.LSE_ROWS
+    buf = flash.new_lse(B, Hq, S, "cpu")
+    assert buf.shape == (B, Hq, S) and buf.stride() == (Hq * n, n, 1)
+    flash.check_lse_layout(buf)
+    for other in (torch.randn(B, Hq, S), torch.randn(B, Hq, n + flash.LSE_ROWS)[..., :S], buf.double()):
+        if other.stride() == buf.stride() and other.dtype == buf.dtype:
+            continue  # S a multiple of LSE_ROWS: a plain tensor already is the layout
+        with pytest.raises(ValueError, match="new_lse"):
+            flash.check_lse_layout(other)
+
+
+def test_return_lse_refuses_a_recorded_call():
+    """return_lse hands back the kernel's output without a grad_fn on the
+    card, so it raises where autograd records the call, on the CPU as there."""
+    g = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(g.standard_normal((1, 8, 2, 16)).astype(np.float32)) for _ in range(3))
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    assert o.shape == q.shape and lse.shape == (1, 2, 8)
+    with pytest.raises(ValueError, match="return_lse"):
+        ops.flash_attention(q.requires_grad_(), k, v, return_lse=True)
+    with torch.no_grad():
+        assert torch.equal(ops.flash_attention(q, k, v, return_lse=True)[1], lse)
+
+
 RMSNORM_BWD_SHAPES = [(4, 128), (2, 7, 256), (1, 1000, 512), (3, 16), (5, 3000)]
 
 
@@ -273,8 +406,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ops.flash_attention(q, k, v)
     ops.fused_rmsnorm(q, torch.zeros(16))
     ops.rglru_scan(q[:, :, 0].contiguous(), k[:, :, 0].contiguous())
-    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 0, "rglru_scan": 0,
-                                   "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_mma": 0,
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 0,
+                                   "rglru_scan": 0, "rglru_scan_sequential": 0, "flash_attention_bwd": 0,
+                                   "flash_attention_bwd_wgmma": 0, "flash_attention_bwd_mma": 0,
                                    "fused_rmsnorm_bwd": 0}
 
 
@@ -290,10 +424,12 @@ def test_flash_variant_goes_by_dtype_and_head_dim(dtype, D):
 @pytest.mark.parametrize("D", flash.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_flash_bwd_variant_goes_by_dtype_and_head_dim(dtype, D):
-    """bf16 at D 16/64/128 takes the mma backward; f32, and bf16 at D = 8 and
-    256, the FMA backward: every forward shape has a backward."""
-    want = "mma" if dtype == "bf16" and D in (16, 64, 128) else "fma"
+    """bf16 at D 16/64/128 takes the wgmma backward (the mma pair is never
+    picked); f32, and bf16 at D = 8 and 256, the FMA backward: every forward
+    shape has a backward, and the FMA pair is built for every other one."""
+    want = "wgmma" if dtype == "bf16" and D in (16, 64, 128) else "fma"
     assert flash.bwd_variant(TDT[dtype], D) == want
+    assert want == "wgmma" or dtype == "f32" or D in flash.FMA_BWD_BF16_HEAD_DIMS
 
 
 @pytest.mark.parametrize(

@@ -134,6 +134,61 @@ class TestTrainer:
         for (pa, x), (pb, y) in zip(_flat(tree), _flat(whole._state_tree())):
             assert pa == pb and np.array_equal(np.asarray(x), np.asarray(y)), pa
 
+    def test_emergency_checkpoint_is_taken_during_a_data_stall(self, tmp_path):
+        """The training thread stalls in the data pipeline before step 3 while
+        the detector fires (the INPUT_STARVATION case): the checkpoint of step
+        2 is on disk during the stall, not after it, and resumes exactly."""
+        a, b = tmp_path / "a", tmp_path / "b"
+        trainer = Trainer(job(a, steps=3, ckpt_every=100, profile=False))
+        real_next, seen = type(trainer.data).__next__, []
+
+        class StallingPipeline(type(trainer.data)):
+            def __next__(self):
+                if self.next_step == 2:  # the third batch: steps 1 and 2 are done
+                    event = AnomalyEvent("INPUT_STARVATION", ("thread::_prefetch_worker",), 0.9, Rule(), 0)
+                    watchdog = threading.Thread(target=trainer._on_anomaly, args=(event,))
+                    watchdog.start()
+                    watchdog.join(timeout=60)
+                    assert not watchdog.is_alive()
+                    ckpt = CheckpointManager(str(a / "ckpt"))
+                    seen.append([(s, ckpt.restore(s)[1]["tag"]) for s in ckpt.list_steps()])
+                return real_next(self)
+
+        trainer.data.__class__ = StallingPipeline
+        trainer.run()
+        assert seen == [[(2, "emergency")]]
+        tree, _ = CheckpointManager(str(a / "ckpt")).restore(2)
+        whole = Trainer(job(b, steps=2, ckpt_every=100, profile=False))
+        whole.run()
+        assert int(tree["data"]["next_step"]) == 2
+        for (pa, x), (pb, y) in zip(_flat(tree), _flat(whole._state_tree())):
+            assert pa == pb and np.array_equal(np.asarray(x), np.asarray(y)), pa
+
+    def test_a_stall_saves_its_step_once(self, tmp_path):
+        """The detector fires about once a window while the data stalls: the
+        first firing saves the step, the later ones find it saved and write
+        nothing (the state has not moved); the next step is saved again."""
+        trainer = Trainer(job(tmp_path, steps=3, ckpt_every=100, profile=False))
+        real_next, saved = type(trainer.data).__next__, []
+        real_save = trainer.ckpt.save_emergency
+        trainer.ckpt.save_emergency = lambda step_fn, event: saved.append(step_fn()[0]) or real_save(step_fn, event)
+
+        class StallingPipeline(type(trainer.data)):
+            def __next__(self):
+                if self.next_step in (1, 2):
+                    for _ in range(3):
+                        event = AnomalyEvent("INPUT_STARVATION", ("thread::_prefetch_worker",), 0.9, Rule(), 0)
+                        watchdog = threading.Thread(target=trainer._on_anomaly, args=(event,))
+                        watchdog.start()
+                        watchdog.join(timeout=60)
+                        assert not watchdog.is_alive()
+                return real_next(self)
+
+        trainer.data.__class__ = StallingPipeline
+        trainer.run()
+        assert saved == [1, 2] and len(trainer.anomalies) == 6
+        assert CheckpointManager(str(tmp_path / "ckpt")).list_steps() == [1, 2, 3]
+
     def test_cli_on_the_cpu(self, tmp_path):
         """``python -m repro_torch.launch.train --arch qwen3-4b --device cpu --steps 5``"""
         main(["--arch", "qwen3-4b", "--device", "cpu", "--steps", "5", "--out", str(tmp_path), "--no-resume"])
@@ -247,6 +302,23 @@ class TestCheckpoint:
         for s in (1, 2, 3, 4):
             mgr.save(s, self.tree(s), blocking=True)
         assert mgr.list_steps() == [3, 4]
+
+    @pytest.mark.parametrize("saves,want", [
+        ([(2, "emergency")] * 4, [2]),
+        ([(4, "periodic"), (4, "emergency"), (6, "periodic"), (8, "periodic")], [4, 6, 8]),
+    ])
+    def test_keep_counts_steps_not_saves(self, tmp_path, saves, want):
+        """A step saved more than once counts once: its directory is never
+        deleted while the manager still keeps it."""
+        mgr = CheckpointManager(str(tmp_path), keep=3)
+        ev = AnomalyEvent("LIVELOCK_SUSPECT", ("a",), 0.97, Rule(), 0)
+        for step, tag in saves:
+            if tag == "emergency":
+                mgr.save_emergency(lambda step=step: (step, self.tree(step)), ev)
+            else:
+                mgr.save(step, self.tree(step), blocking=True)
+        assert mgr.list_steps() == want and mgr.saved_steps == want
+        assert mgr.restore_latest()[0] == want[-1]
 
     def test_crash_safe_tmp_never_restored(self, tmp_path):
         mgr = CheckpointManager(str(tmp_path))
