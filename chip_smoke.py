@@ -20,12 +20,16 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               scan (chunked, parallel in time) beside the sequential kernel it
               replaced, at B = 2 and 1;
 
-   and the two backward kernels (flash attention's in CUDA, RMSNorm's in
-              Triton) against their plain backward versions over the forward
-              sweep, then timed at the training shape beside the plain backward,
-              the library call's backward through autograd and the bound; the
-              flash backward as the wgmma pair (from the forward's lse, held to
-              the plain lse), beside the mma and FMA pairs it replaced;
+   and the three backward kernels (flash attention's and the RG-LRU scan's
+              in CUDA, RMSNorm's in Triton) against their plain backward versions
+              over the forward sweep, then timed at the training shapes beside
+              the plain backward, the library call's backward through autograd
+              (where one exists) and the bound; the flash backward as the wgmma
+              pair (from the forward's lse, held to the plain lse) beside the mma
+              and FMA pairs it replaced at qwen3-4b's shape, and as the FMA pair
+              at the hybrid's (windowed MQA at head dim 256); the scan backward
+              at 1 and 2 x 4096 x 4096 f32, also held to its own order of
+              arithmetic, its two launches equal to the bit;
 
 then two paths, each through the entry points a user calls, with random weights
 drawn from seed 0, the first freed before the second:
@@ -51,24 +55,36 @@ flash-attention (all wgmma), 77 RMSNorm and 26 RG-LRU scan launches, serve
 asserting 77 RMSNorm launches per decode step, and the check over 12 tokens,
 past the smoke window of 8.
 
-then the training path, qwen3-4b again:
+then the training paths:
 
-8. train   -- ``make_train_step`` (``Model.loss``, autograd through both backward
-              kernels, in-place AdamW with f32 moments) on full qwen3-4b (36
-              layers, the config's remat "full") at
-              B = 1, S = 2048 from ``SyntheticLM``: one warm-up step, three timed
-              steps (step ms, tokens/s, peak GB, loss / grad_norm / lr, launches
-              of every kernel per step, each asserted), and torch.profiler over a
-              fourth step;
+8. train   -- ``make_train_step`` (``Model.loss``, autograd through the backward
+              kernels, in-place AdamW with f32 moments), each after its memory
+              reckoning line: on full qwen3-4b (36 layers, the config's remat
+              "full") at B = 1, S = 2048, then on recurrentgemma-9b at full width
+              cut to 8 layers (2 stacked units + the 2 remainder rec layers; 11
+              do not fit, see TRAIN_HYBRID) at B = 1, S = 4096, from
+              ``SyntheticLM``: one warm-up step, three timed steps (step ms,
+              tokens/s, peak GB, loss / grad_norm / lr, launches of every kernel
+              per step, each asserted against ``train_launches``), and
+              torch.profiler over a fourth step;
 9. trainer -- ``Trainer`` at qwen3-4b smoke on the card with the sampler and the
               watchdog on: 3 steps and a checkpoint, a second Trainer that resumes
               to 6, a third that runs 6 in one go; parameters and optimizer state
               equal to the bit; heartbeat, metrics.json and host_profile.html;
-10. train_check -- one train step at qwen3-4b smoke on the card and on the CPU
-              (plain versions) from the same weights and batch: loss, moments and
-              each leaf's update within ``TRAIN_CARD_VS_CPU``.
+10. train_check -- one train step at qwen3-4b smoke and one at recurrentgemma-9b
+              smoke through the kernels on the card, and the same step through
+              the plain versions on the card and on the CPU, from the same
+              weights and batch: loss, moments and each leaf's update within
+              ``TRAIN_CARD_VS_CPU`` of the references ``TRAIN_CHECKS`` names (the
+              card's plain path for both, the CPU's for qwen3-4b too);
+11. grads_check -- at each of those smoke configs, ``Model.loss`` and its
+              gradient (the initial weights, each stacked matrix at the std of
+              its unstacked spec: see GRADS_CARD_VS_CPU) on the card (flash attention
+              through its plain f32 version, the other kernels launched) and on
+              the CPU: the loss and each leaf's gradient within
+              ``GRADS_CARD_VS_CPU``.
 
-Then the card's ``nvidia-smi`` line, the kernels summary (five kernels, each
+Then the card's ``nvidia-smi`` line, the kernels summary (six kernels, each
 launched on the main paths) and, last, ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package ``repro``.
 
@@ -95,7 +111,7 @@ ROOT = Path(__file__).resolve().parent
 # decode step must make (every counter of ops.launch_counts(), 0 unless named).
 NO_LAUNCHES = dict.fromkeys(("flash_attention", "flash_attention_wgmma", "fused_rmsnorm", "rglru_scan",
                              "rglru_scan_sequential", "flash_attention_bwd", "flash_attention_bwd_wgmma",
-                             "flash_attention_bwd_mma", "fused_rmsnorm_bwd"), 0)
+                             "flash_attention_bwd_mma", "fused_rmsnorm_bwd", "rglru_scan_bwd"), 0)
 PATHS = {
     "qwen3-4b": dict(B=2, S=2048, check_tokens=8,
                      prefill={**NO_LAUNCHES, "flash_attention": 36, "flash_attention_wgmma": 36, "fused_rmsnorm": 145},
@@ -105,10 +121,23 @@ PATHS = {
                                        "fused_rmsnorm": 77, "rglru_scan": 26},
                               per_step={**NO_LAUNCHES, "fused_rmsnorm": 77}),
 }
-# The training path: full qwen3-4b, uncut (36 layers), at B x S tokens a step.
-# Parameters, gradients and the two f32 AdamW moments take 16 bytes a
-# parameter, 70.6 GB of the card's 85 GB; the step's peak is 78.1 GB.
-TRAIN = dict(arch="qwen3-4b", B=1, S=2048, timed_steps=3)
+# The training paths, at B x S tokens a step. Parameters, gradients and the
+# two f32 AdamW moments take 16 bytes a parameter.
+# - full qwen3-4b, uncut (36 layers): 70.6 GB of the card's 85 GB; the step's
+#   peak is 78.1 GB;
+# - recurrentgemma-9b at full width, cut in depth: 38 layers need 150 GB of
+#   state. At 11 layers (3 stacked units + the 2 remainder rec layers, 55.8 GB)
+#   the step ran out of memory on an H100 (76.5 GB in use when the loss's
+#   backward asked for 3.9 GB more: the f32 logits of 4096 x 256,000 are
+#   4.2 GB and the loss keeps several); at 8 layers (2 units + 2 remainder,
+#   45.3 GB) its peak is 75.0 GB. S = 4096, so that the window of 2048 binds
+#   in the backward too.
+# ``flash`` names the flash kernels each step must take (forward, backward):
+# the wgmma kernel and pair for qwen3-4b (bf16, D = 128); for the hybrid
+# (D = 256) the wgmma forward and the FMA backward pair.
+TRAIN = dict(arch="qwen3-4b", B=1, S=2048, timed_steps=3, flash=("wgmma", "wgmma"))
+TRAIN_HYBRID = dict(arch="recurrentgemma-9b", B=1, S=4096, timed_steps=3, n_layers=8, flash=("wgmma", "fma"),
+                    depth_why="38 layers need 150 GB of state; 11 ran out of memory on an H100; 8 fit")
 # One train step at qwen3-4b smoke, card against CPU, from the same weights and
 # batch: the loss within 0.01; each moment leaf within 5 % relative L2 (the
 # matrix products sum in another order on the card, and bf16 activations round
@@ -119,6 +148,35 @@ TRAIN = dict(arch="qwen3-4b", B=1, S=2048, timed_steps=3)
 # update's error is about twice the root of the share of such flips. An update
 # of the wrong sign, one not applied or one at twice the lr gives 1 or more.
 TRAIN_CARD_VS_CPU = dict(loss=1e-2, moment_rel_l2=5e-2, update_rel_l2=0.2)
+# What train_check holds the kernels' step to, by arch: the same step through
+# the plain versions on the card ("card_plain": the same matrix products, so
+# only the kernels differ) and on the CPU ("cpu"). The hybrid smoke model is
+# held to the card's plain path only: its stacked unit's matrices have std 1
+# (fan_in = n_units = 1, a reference behaviour), which saturates its attention
+# (84 % of the rows have a largest P above 0.999, scores up to 272), where the
+# gradients of wq and wk are the rounding residue of dP - Dr. So the card's
+# plain path itself parts from the CPU's by 0.48 on the moments and 0.61 on
+# the updates, as far as the kernels do (0.48, 0.63), while the kernels
+# against the card's plain path read 0.017 and 0.16 (on an H100). Its
+# gradients are held to the CPU's where that is well-posed: GRADS_CARD_VS_CPU.
+TRAIN_CHECKS = {"qwen3-4b": ("card_plain", "cpu"), "recurrentgemma-9b": ("card_plain",)}
+# The loss and each leaf's gradient of a smoke config, the card against the
+# CPU, with the plain (f32) attention on both sides and the other kernels on
+# the card: the hybrid's own code on the card (f32 gate products, conv, scan
+# and its backward kernel, the rec block's glue) held to the CPU where the
+# comparison is well-posed. At the initial weights it is not, on one device
+# already: a 1e-6 nudge of the norm scales moves the hybrid's gradients by up
+# to 0.43 per leaf on the CPU (the RG-LRU gates' wa, ba; qwen3-4b's 0.02), and
+# the card read 0.32 against the CPU (on an H100). The stacked unit's matrices
+# have std 1 there (fan_in = n_units = 1). So the check draws each stacked
+# matrix at the std of its unstacked spec (``modules.at_unstacked_std``),
+# where the nudge moves the hybrid's gradients by 0.017 and qwen3-4b's by
+# 0.008 (tests/test_torch_train.py test_port_smoke_gradients_under_a_nudge).
+# The bounds are those the CPU tests hold the port to against JAX with f32
+# attention (tests/test_torch_train.py LOSS_TOL_KERNEL_PATH and
+# GRAD_REL_F32_ATTENTION), where the two sides also differ only in the order
+# of summation.
+GRADS_CARD_VS_CPU = dict(loss=1e-4, grad_rel_l2=0.05)
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}  # tests/test_kernels.py
 # At the prefill's flash shape a late row's output is ~0.04 (softmax over ~2048
 # random keys), below the bf16 atol: the error must also be small beside the
@@ -152,6 +210,7 @@ SOURCES = {  # name -> (route, source, the TPU kernel it replaces, or whose grad
                             "src/repro/kernels/flash_attention.py:35"),
     "fused_rmsnorm_bwd": ("triton", "src/repro_torch/kernels/fused_rmsnorm.py",
                           "src/repro/kernels/fused_rmsnorm.py:21"),
+    "rglru_scan_bwd": ("cuda", "src/repro_torch/csrc/rglru_scan.cu", "src/repro/kernels/rglru_scan.py:33"),
 }
 
 
@@ -278,8 +337,9 @@ def bound_ms(bytes_moved: float, ops: float, dtype: str) -> tuple[float, str]:
 
 
 # (B, S, T, Hq, Hkv, D, window): tests/test_kernels.py's flash sweep plus gemma's
-# D=256 MQA, recurrentgemma's windowed D=256 MQA, the smoke head dims, and the
-# wgmma kernel's tile edges (tests/test_torch_gpu.py's FLASH_CASES)
+# D=256 MQA, recurrentgemma's windowed D=256 MQA, the smoke head dims (and the
+# hybrid smoke's window), and the wgmma kernel's tile edges
+# (tests/test_torch_gpu.py's FLASH_CASES)
 FLASH_CASES = [
     (1, 128, 128, 2, 2, 64, None), (2, 256, 256, 4, 1, 64, None), (1, 384, 384, 4, 2, 128, None),
     (1, 100, 100, 2, 2, 64, None), (1, 128, 256, 2, 2, 64, None), (1, 256, 256, 2, 2, 64, 16),
@@ -289,6 +349,7 @@ FLASH_CASES = [
     (1, 100, 300, 4, 2, 128, None), (1, 260, 130, 2, 1, 256, None),  # S < T, S > T
     (1, 512, 512, 4, 4, 128, 200), (1, 512, 512, 2, 1, 256, 100),  # windows off the tile grid
     (2, 256, 256, 4, 4, 128, None), (2, 256, 256, 16, 4, 128, None), (2, 320, 320, 16, 1, 256, 96),  # G 1/4/16
+    (4, 64, 64, 4, 1, 16, 8),  # recurrentgemma smoke: windowed MQA at head dim 16
 ]
 
 
@@ -411,6 +472,47 @@ def rglru_sweep(torch, ops, ref, dev) -> tuple[dict, int]:
     return worst, n + 5
 
 
+def rglru_bwd_sweep(torch, ops, ref, dev) -> tuple[dict, int]:
+    """SCAN_CASES in f32 and bf16 through ``ops.rglru_scan_bwd`` (the chunked
+    kernel backward in time) from the forward kernel's h: da and db against
+    the plain backward (f32 2e-5, bf16 2e-2) and within a few f32 roundings
+    of their own order of arithmetic (``ref.rglru_bwd_chunked_ref``; one bf16
+    rounding for bf16 outputs); two launches on the same inputs give equal
+    bits. Then the exact case a = 1, dh = 1: db_t = S - t, da_0 = 0.
+    -> (worst error against the plain backward, cases)."""
+    from repro_torch.kernels import rglru_scan as rgk
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    worst, n = {"chunked": 0.0, "chunked_model_max_abs_err": 0.0}, 0
+    for B, S, W in SCAN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.sigmoid(torch.randn((B, S, W), generator=g, device=dev)).to(dtype)
+            h = ops.rglru_scan(a, torch.randn((B, S, W), generator=g, device=dev).to(dtype))
+            dh = torch.randn((B, S, W), generator=g, device=dev).to(dtype)
+            case = dict(shape=(B, S, W), dtype=str(dtype))
+            got = ops.rglru_scan_bwd(a, h, dh)
+            model = ref.rglru_bwd_chunked_ref(a, h, dh, rgk.SUB_CHUNK, warps=rgk.WARPS, cluster=rgk.cluster_size(S))
+            rtol = 1e-6 if dtype == torch.float32 else 2.0**-8
+            for name, x, want, m in zip(("da", "db"), got, ref.rglru_bwd_ref(a, h, dh), model):
+                worst["chunked"] = max(worst["chunked"], check_close(f"rglru_scan_bwd {name}", x, want, **case))
+                err = (x.float() - m.float()).abs()
+                if not bool((err <= 1e-6 + rtol * m.float().abs()).all()):
+                    raise AssertionError(f"rglru_scan_bwd {name} {case}: {float(err.max())} from its chunked model")
+                worst["chunked_model_max_abs_err"] = max(worst["chunked_model_max_abs_err"], float(err.max()))
+            again = ops.rglru_scan_bwd(a, h, dh)
+            if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+                raise AssertionError(f"rglru_scan_bwd {case}: two launches on the same inputs differ")
+            n += 1
+    for W in (256, 70):
+        one = torch.ones((1, 3000, W), device=dev)
+        h = torch.arange(1, 3001, dtype=torch.float32, device=dev)[None, :, None].expand(1, 3000, W).contiguous()
+        da, db = ops.rglru_scan_bwd(one, h, one)
+        want = torch.arange(3000, 0, -1, dtype=torch.float32, device=dev)[None, :, None].expand(1, 3000, W)
+        if not (torch.equal(db, want) and not bool(da[:, 0].any()) and torch.equal(da[:, 1:], db[:, 1:] * h[:, :-1])):
+            raise AssertionError(f"rglru_scan_bwd: the suffix sums of a = dh = 1 at W = {W} are not exact")
+    return worst, n + 2
+
+
 def time_flash(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
     """The prefill's attention call: B x S tokens, causal, the config's window,
     bf16, through ``ops`` (the wgmma kernel), held to the plain version three
@@ -513,6 +615,43 @@ def time_rglru(torch, ops, ref, dev, shapes: list[tuple[int, int, int]]) -> list
         inputs.append((a, b))
     for row, (a, b) in zip(rows, inputs):  # after every profiled session, as a precaution
         row.update(plain_ms=events_ms(partial(ref.rglru_ref, a, b), 2), plain_timed_by="cuda events")
+    return rows
+
+
+def time_rglru_bwd(torch, ops, ref, dev, shapes: list[tuple[int, int, int]]) -> list[dict]:
+    """The training step's scan backward at each (B, S, W) of ``shapes``, f32:
+    a from the gates' range, h from the forward kernel, through ``ops`` (the
+    chunked kernel backward in time), held to the plain backward and timed
+    beside it; the plain version (a Python loop over S) on CUDA events alone,
+    after every profiled session, as in ``time_rglru``. Bound: bytes, a, h,
+    dh read and da, db written."""
+    from functools import partial
+
+    from repro_torch.kernels import rglru_scan as rgk
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    rows, inputs = [], []
+    for B, S, W in shapes:
+        a = torch.sigmoid(torch.randn((B, S, W), generator=g, device=dev))
+        h = ops.rglru_scan(a, torch.randn((B, S, W), generator=g, device=dev))
+        dh = torch.randn((B, S, W), generator=g, device=dev)
+        got = ops.rglru_scan_bwd(a, h, dh)
+        err = max(check_close(f"rglru_scan_bwd {n}", x, w, B=B, S=S, W=W)
+                  for n, x, w in zip(("da", "db"), got, ref.rglru_bwd_ref(a, h, dh)))
+        del got
+        nbytes = 5 * B * S * W * a.element_size()  # a, h, dh read, da, db written
+        bms, by = bound_ms(nbytes, 3 * B * S * W, "float32")  # one FMA and one multiply per element
+        cluster = rgk.cluster_size(S)
+        rows.append({
+            "shape": f"{B}x{S}x{W} f32", "max_abs_err": err, "cluster": cluster,
+            "resident_clusters": rgk.max_active_clusters(a.dtype, W, cluster, backward=True),
+            **timed("", partial(ops.rglru_scan_bwd, a, h, dh), 20),
+            "library_ms": None, "library_call": "none: no single PyTorch call computes a first-order linear recurrence",
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+        })
+        inputs.append((a, h, dh))
+    for row, (a, h, dh) in zip(rows, inputs):
+        row.update(plain_ms=events_ms(partial(ref.rglru_bwd_ref, a, h, dh), 2), plain_timed_by="cuda events")
     return rows
 
 
@@ -740,6 +879,59 @@ def time_flash_bwd(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
     }
 
 
+def time_flash_bwd_windowed(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
+    """The hybrid training step's attention backward: B x S tokens, causal,
+    the config's window, MQA at head dim 256, bf16, through ``ops`` (the FMA
+    pair: the wgmma pair is built for D 16/64/128), from the forward kernel's
+    output, held to the plain backward (``flash_grad_close``) and timed beside
+    the plain backward and SDPA's backward through ``torch.autograd.grad``
+    with the window as ``attn_mask`` and k/v repeated to every q head, as the
+    forward's hybrid row. Bound: 2.5 x the forward's operations over the
+    windowed pairs at the bf16 tensor-core peak."""
+    from repro_torch.kernels import flash_attention as flash
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    Hq, Hkv, D, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+    q = torch.randn((B, S, Hq, D), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16() for _ in range(2))
+    o = ops.flash_attention(q, k, v, window=window)
+    do = torch.randn(o.shape, generator=g, device=dev).bfloat16()
+    t = [a.transpose(1, 2) for a in (q, k, v, o, do)]
+    variant = flash.bwd_variant(q.dtype, D)
+    before = ops.launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, o, do, window=window)
+    after = ops.launch_counts()
+    if (after["flash_attention_bwd"] != before["flash_attention_bwd"] + 1
+            or after["flash_attention_bwd_wgmma"] != before["flash_attention_bwd_wgmma"] + (variant == "wgmma")):
+        raise AssertionError(f"flash_attention_bwd at the hybrid training shape: expected one launch of the {variant} "
+                             "pair")
+    want = ref.attention_bwd_ref(*t, window=window)
+    checks = {n: flash_grad_close(f"flash_attention_bwd ({variant}) {n}", x, w.transpose(1, 2), B=B, S=S, D=D)
+              for n, x, w in zip(("dq", "dk", "dv"), got, want)}
+    del got, want
+    pairs = sum(min(i + 1, window) for i in range(S))
+    flops = 2.5 * 4 * B * Hq * D * pairs
+    nbytes = 2 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D)  # q, o, do read, dq written; k, v read, dk, dv written
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    i = torch.arange(S, device=dev)
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    leaves = [t[0].detach().requires_grad_()] + [x.repeat_interleave(Hq // Hkv, dim=1).detach().requires_grad_()
+                                                 for x in t[1:3]]
+    lo = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    library = lambda: torch.autograd.grad(lo, leaves, t[4], retain_graph=True)  # noqa: E731
+    return {
+        "shape": f"q {B}x{S}x{Hq}x{D}, k/v {B}x{S}x{Hkv}x{D}, bf16, causal, window {window}",
+        "variant": variant, "max_abs_err": max(e for e, _ in checks.values()),
+        "block_rel_l2": {n: r for n, (_, r) in checks.items()},
+        **timed("", lambda: ops.flash_attention_bwd(q, k, v, o, do, window=window), 3, by_kernel=True),
+        **timed("plain_", lambda: ref.attention_bwd_ref(*t, window=window), 2),
+        **timed("library_", library, 5),
+        "library_call": f"torch.autograd.grad of F.scaled_dot_product_attention(attn_mask=causal window {window}), "
+                        f"k/v repeated to {Hq} heads",
+        "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes,
+    }
+
+
 def time_rmsnorm_bwd(torch, F, ops, ref, dev, rows: int, D: int, dtype) -> dict:
     g = torch.Generator(device=dev).manual_seed(19)
     x = torch.randn((rows, D), generator=g, device=dev).to(dtype)
@@ -767,25 +959,70 @@ def time_rmsnorm_bwd(torch, F, ops, ref, dev, rows: int, D: int, dtype) -> dict:
     }
 
 
-def train_phase(torch, get_config, ops, dev) -> dict:
-    """``make_train_step`` on full qwen3-4b at TRAIN's B x S, after printing
-    the memory reckoning: a warm-up step, TRAIN["timed_steps"] timed steps on the
-    synchronised host clock with the launches of every kernel counted from 0
-    just before them, then torch.profiler over one more step. -> the phase's
-    line, with "launches" the timed steps' counts."""
+def train_launches(cfg, flash: tuple[str, str]) -> dict:
+    """The kernel launches of one train step of ``cfg`` (bf16 activations), as
+    the model code makes them: each layer's norms (norm1 and, with an MLP,
+    norm2; q- and k-norm where the config has them) and the final norm, one
+    flash per attn layer, one scan per rec layer; under remat "full" or "dots"
+    the stacked units' forward runs again in the backward pass (the prefix
+    and remainder layers are not checkpointed); one backward per forward op.
+    qwen3-4b (36 layers, all in units): flash 72, flash backward 36, RMSNorm
+    289 and 145. recurrentgemma-9b at 8 layers (2 units + 2 remainder rec
+    layers): scan 10 and 6, flash 4 and 2, RMSNorm 29 and 17; at 11 layers
+    scan 14 and 8, flash 6 and 3, RMSNorm 41 and 23. ``flash`` names the
+    forward kernel and the backward pair every flash launch takes: "wgmma"
+    counts it under ``flash_attention_wgmma`` or ``flash_attention_bwd_wgmma``
+    too."""
+    from repro_torch.models.transformer import StackLayout, layer_kind
+
+    lay = StackLayout(cfg)
+    in_units = set(range(cfg.first_dense, cfg.first_dense + lay.n_units * len(cfg.pattern)))
+    out = dict(NO_LAUNCHES)
+    for i in range(cfg.n_layers):
+        runs = 2 if (i in in_units and cfg.remat != "none") else 1
+        kind = layer_kind(cfg, i)
+        norms = 1 + (cfg.d_ff > 0) + 2 * (kind == "attn" and cfg.qk_norm)
+        out["fused_rmsnorm"] += runs * norms
+        out["fused_rmsnorm_bwd"] += norms
+        if kind == "attn":
+            out["flash_attention"] += runs
+            out["flash_attention_bwd"] += 1
+        else:
+            out["rglru_scan"] += runs
+            out["rglru_scan_bwd"] += 1
+    out["fused_rmsnorm"] += 1
+    out["fused_rmsnorm_bwd"] += 1
+    if flash[0] == "wgmma":
+        out["flash_attention_wgmma"] = out["flash_attention"]
+    if flash[1] == "wgmma":
+        out["flash_attention_bwd_wgmma"] = out["flash_attention_bwd"]
+    return out
+
+
+def train_phase(torch, get_config, ops, dev, spec: dict) -> dict:
+    """``make_train_step`` on ``spec``'s arch at full width (cut to
+    ``spec["n_layers"]`` layers where given) at its B x S, after printing the
+    memory reckoning: a warm-up step, ``spec["timed_steps"]`` timed steps on
+    the synchronised host clock with the launches of every kernel counted
+    from 0 just before them (each asserted against ``train_launches``), then
+    torch.profiler over one more step. -> the timed steps' launches."""
+    import dataclasses
+
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import Model
     from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
 
-    B, S, n = TRAIN["B"], TRAIN["S"], TRAIN["timed_steps"]
-    cfg = get_config(TRAIN["arch"])
+    B, S, n = spec["B"], spec["S"], spec["timed_steps"]
+    full = get_config(spec["arch"])
+    cfg = dataclasses.replace(full, n_layers=spec.get("n_layers", full.n_layers))
     n_params = cfg.n_params()
     card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
     reckoning = {
-        "layers": cfg.n_layers, "n_params": n_params,
-        "params_grads_moments_gb": 16 * n_params / 1e9, "card_gb": card_gb,
-        "logits_f32_gb": 4 * B * S * cfg.vocab / 1e9, "remat": cfg.remat,
+        "arch": cfg.name, "layers": cfg.n_layers, "full_layers": full.n_layers, "n_params": n_params,
+        "params_grads_moments_gb": 16 * n_params / 1e9, "full_depth_gb": 16 * full.n_params() / 1e9,
+        "card_gb": card_gb, "logits_f32_gb": 4 * B * S * cfg.vocab / 1e9, "remat": cfg.remat,
+        "depth_why": spec.get("depth_why", "uncut"),
     }
     emit("train_reckoning", **reckoning)
     t0 = time.perf_counter()
@@ -814,14 +1051,10 @@ def train_phase(torch, get_config, ops, dev) -> dict:
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_step = {k: v / n for k, v in counts.items()}
-    L = cfg.n_layers
-    recompute = L if cfg.remat != "none" else 0  # "full" and "dots" rerun every unit's attention and norms
-    want = {**NO_LAUNCHES, "flash_attention": L + recompute, "flash_attention_wgmma": L + recompute,
-            "flash_attention_bwd": L, "flash_attention_bwd_wgmma": L, "fused_rmsnorm": 4 * L + 1 + 4 * recompute,
-            "fused_rmsnorm_bwd": 4 * L + 1}
+    want = train_launches(cfg, spec["flash"])
     mean_ms = sum(st["ms"] for st in steps) / n
     out = {
-        "arch": cfg.name, "layers": L, "batch": B, "seq": S, "remat": cfg.remat, "moments": "float32",
+        "arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": S, "remat": cfg.remat, "moments": "float32",
         "init_s": init_s, "warmup_step_ms": warmup_ms, "warmup_metrics": warm, "steps": steps,
         "mean_step_ms": mean_ms, "tokens_per_s": B * S / (mean_ms / 1e3), "peak_memory_gb": peak_gb,
         "launches_per_step": per_step,
@@ -829,7 +1062,7 @@ def train_phase(torch, get_config, ops, dev) -> dict:
     finite = all(math.isfinite(st[k]) for st in steps for k in ("loss", "grad_norm", "lr"))
     if not finite or per_step != want:
         emit("train", **out)
-        raise AssertionError(f"train: finite {finite}, launches per step {per_step}, expected {want}")
+        raise AssertionError(f"train {cfg.name}: finite {finite}, launches per step {per_step}, expected {want}")
     out["profile"] = profile_step(torch, lambda: step(params, opt, batches[n + 1]))
     del params, opt, step, batches
     torch.cuda.empty_cache()
@@ -906,44 +1139,94 @@ def trainer_phase(torch, ops, dev) -> dict:
     return counts
 
 
-def train_check(torch, get_config, dev) -> dict:
-    """One train step at qwen3-4b smoke through the kernels on the card and
-    through the plain versions on the CPU, from the same weights and batch,
-    held to TRAIN_CARD_VS_CPU."""
+def train_check(torch, get_config, ops, dev, arch: str) -> dict:
+    """One train step at ``arch``'s smoke config through the kernels on the
+    card, the same step through the plain versions on the card and on the
+    CPU, from the same weights and batch; the kernels' step held to
+    TRAIN_CARD_VS_CPU against each reference TRAIN_CHECKS names for ``arch``,
+    every comparison printed."""
+    from contextlib import nullcontext
+
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import Model
     from repro_torch.models.modules import tree_leaves, tree_map_with_path
     from repro_torch.optim import adamw_init, cosine_schedule
 
-    cfg = get_config(TRAIN["arch"], smoke=True)
-    gpu, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
-    params_cpu = cpu.init(torch.Generator().manual_seed(0), train=True)
-    params = tree_map_with_path(lambda _, x: x.to(dev, copy=True), params_cpu)  # each step updates its own copy
+    cfg = get_config(arch, smoke=True)
+    params_cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0), train=True)
     before = tree_map_with_path(lambda _, x: x.clone(), params_cpu)
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0)).batch(0)
     lr_fn = cosine_schedule(1e-2, warmup_steps=0, total_steps=10)
-    out = {}
-    for name, model, p in (("card", gpu, params), ("cpu", cpu, params_cpu)):
-        st = adamw_init(p)
-        b = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
-        p, st, met = make_train_step(model, lr_fn)(p, st, b)
-        out[name] = (p, st, {k: float(v) for k, v in met.items()})
-    (pg, sg, mg), (pc, sc, mc) = out["card"], out["cpu"]
+    runs = {}
+    for name, device, plain in (("card", dev, False), ("card_plain", dev, True), ("cpu", torch.device("cpu"), False)):
+        p = tree_map_with_path(lambda _, x: x.to(device, copy=True), params_cpu)  # each step updates its own copy
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        with ops.plain_versions() if plain else nullcontext():
+            p, st, met = make_train_step(Model(cfg, device=device), lr_fn)(p, adamw_init(p), b)
+        runs[name] = (p, st, {k: float(v) for k, v in met.items()})
 
-    moment_rel = max(float((x.cpu().float() - y.float()).norm() / y.float().norm().clamp_min(1e-30))
-                     for part in ("m", "v") for (_, x), (_, y) in zip(tree_leaves(sg[part]), tree_leaves(sc[part])))
-    update_rel = max(float((x.cpu() - y).norm() / (y - p0).norm().clamp_min(1e-30))
-                     for (_, x), (_, y), (_, p0) in zip(tree_leaves(pg), tree_leaves(pc), tree_leaves(before)))
+    def compare(got, want) -> dict:
+        (pg, sg, mg), (pw, sw, mw) = runs[got], runs[want]
+        moment = max(float((x.cpu().float() - y.cpu().float()).norm() / y.cpu().float().norm().clamp_min(1e-30))
+                     for part in ("m", "v") for (_, x), (_, y) in zip(tree_leaves(sg[part]), tree_leaves(sw[part])))
+        update = max(float((x.cpu() - y.cpu()).norm() / (y.cpu() - p0).norm().clamp_min(1e-30))
+                     for (_, x), (_, y), (_, p0) in zip(tree_leaves(pg), tree_leaves(pw), tree_leaves(before)))
+        return {"loss_diff": abs(mg["loss"] - mw["loss"]), "moment_max_rel_l2": moment, "update_max_rel_l2": update}
+
     res = {
-        "arch": cfg.name, "loss_card": mg["loss"], "loss_cpu": mc["loss"], "loss_diff": abs(mg["loss"] - mc["loss"]),
-        "grad_norm_card": mg["grad_norm"], "grad_norm_cpu": mc["grad_norm"], "lr": mc["lr"],
-        "moment_max_rel_l2": moment_rel, "update_max_rel_l2": update_rel, "bounds": TRAIN_CARD_VS_CPU,
+        "arch": cfg.name, **{f"loss_{n}": r[2]["loss"] for n, r in runs.items()},
+        **{f"grad_norm_{n}": r[2]["grad_norm"] for n, r in runs.items()}, "lr": runs["cpu"][2]["lr"],
+        "card_vs_card_plain": compare("card", "card_plain"), "card_vs_cpu": compare("card", "cpu"),
+        "card_plain_vs_cpu": compare("card_plain", "cpu"), "held_against": TRAIN_CHECKS[arch],
+        "bounds": TRAIN_CARD_VS_CPU,
     }
     emit("train_check", **res)
-    if not (res["loss_diff"] < TRAIN_CARD_VS_CPU["loss"] and moment_rel < TRAIN_CARD_VS_CPU["moment_rel_l2"]
-            and update_rel < TRAIN_CARD_VS_CPU["update_rel_l2"]):
-        raise AssertionError(f"train step, card against CPU, out of bound: {res}")
+    for ref_name in TRAIN_CHECKS[arch]:
+        c = res[f"card_vs_{ref_name}"]
+        if not (c["loss_diff"] < TRAIN_CARD_VS_CPU["loss"] and c["moment_max_rel_l2"] < TRAIN_CARD_VS_CPU["moment_rel_l2"]
+                and c["update_max_rel_l2"] < TRAIN_CARD_VS_CPU["update_rel_l2"]):
+            raise AssertionError(f"train step of {cfg.name}, the kernels against {ref_name}, out of bound: {c}")
+    return res
+
+
+def grads_check(torch, get_config, ops, dev, arch: str) -> dict:
+    """``Model.loss`` and its gradient at ``arch``'s smoke config, the initial
+    weights through ``modules.at_unstacked_std``, on the card (flash attention
+    through its plain version, the other kernels launched) and on the CPU,
+    from the same weights and batch: the loss and each leaf's gradient held
+    to GRADS_CARD_VS_CPU."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.models.modules import at_unstacked_std, tree_leaves, tree_map_with_path
+
+    cfg = get_config(arch, smoke=True)
+    params_cpu = at_unstacked_std(Model(cfg, device="cpu").init(torch.Generator().manual_seed(0), train=True))
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0)).batch(0)
+    runs = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = Model(cfg, device=device)
+        p = tree_map_with_path(lambda _, x: x.to(device, copy=True), params_cpu)
+        grads = tree_map_with_path(lambda _, x: torch.zeros_like(x, dtype=torch.float32), p)
+        ops.reset_launch_counts()
+        with ops.plain_versions("flash_attention"):
+            loss, _ = model.loss(model.grad_leaves(p, grads), {k: torch.from_numpy(v).to(device)
+                                                               for k, v in batch.items()})
+            loss.backward()
+        runs[name] = (float(loss.detach()), grads, ops.launch_counts())
+    (lc, gc, counts), (lw, gw, _) = runs["card"], runs["cpu"]
+    rel = {".".join(path): float((x.cpu() - y).norm() / y.norm().clamp_min(1e-30))
+           for (path, x), (_, y) in zip(tree_leaves(gc), tree_leaves(gw))}
+    worst = max(rel, key=rel.get)
+    res = {"arch": cfg.name, "weights": "init, stacked matrices at their unstacked std",
+           "attention": "plain f32 on both", "loss_card": lc, "loss_cpu": lw,
+           "loss_diff": abs(lc - lw), "grad_max_rel_l2": rel[worst], "worst_leaf": worst, "launches_card": counts,
+           "bounds": GRADS_CARD_VS_CPU}
+    emit("grads_check", **res)
+    want = {**train_launches(cfg, ("fma", "fma")), "flash_attention": 0, "flash_attention_bwd": 0}
+    if not (counts == want and res["loss_diff"] < GRADS_CARD_VS_CPU["loss"]
+            and res["grad_max_rel_l2"] < GRADS_CARD_VS_CPU["grad_rel_l2"]):
+        raise AssertionError(f"gradients of {cfg.name}, card against the CPU: {res}; launches expected {want}")
     return res
 
 
@@ -1023,7 +1306,7 @@ def main() -> int:
         return 0
 
     # -- build: nvcc (one process per source, all at once), then the first Triton compile ----
-    cuda_kernels = [k for k, (route, _, _) in SOURCES.items() if route == "cuda"]
+    cuda_kernels = sorted({Path(src).stem for route, src, _ in SOURCES.values() if route == "cuda"})  # libraries
     t0 = time.perf_counter()
     build.build(cuda_kernels)
     nvcc_s = time.perf_counter() - t0
@@ -1045,13 +1328,15 @@ def main() -> int:
     qwen, hyb = get_config("qwen3-4b"), get_config("recurrentgemma-9b")
     sweep_err, sweep_cases = {}, {}
     sweeps = {"flash_attention": flash_sweep, "fused_rmsnorm": rmsnorm_sweep, "rglru_scan": rglru_sweep,
-              "flash_attention_bwd": flash_bwd_sweep, "fused_rmsnorm_bwd": rmsnorm_bwd_sweep}
+              "flash_attention_bwd": flash_bwd_sweep, "fused_rmsnorm_bwd": rmsnorm_bwd_sweep,
+              "rglru_scan_bwd": rglru_bwd_sweep}
     for name, sweep in sweeps.items():
         sweep_err[name], sweep_cases[name] = sweep(torch, ops, ref, dev)
     emit("kernels_sweep", cases=sweep_cases, max_abs_err=sweep_err)
     qB, qS = PATHS["qwen3-4b"]["B"], PATHS["qwen3-4b"]["S"]
     hB, hS = PATHS["recurrentgemma-9b"]["B"], PATHS["recurrentgemma-9b"]["S"]
     tB, tS = TRAIN["B"], TRAIN["S"]
+    yB, yS = TRAIN_HYBRID["B"], TRAIN_HYBRID["S"]
     timing = {  # the first row of each kernel is its summary row
         "flash_attention": [time_flash(torch, F, ops, ref, dev, qwen, qB, qS),
                             time_flash(torch, F, ops, ref, dev, hyb, hB, hS)],
@@ -1065,14 +1350,17 @@ def main() -> int:
         ],
         # the hybrid prefill's, and one prompt through Model.forward
         "rglru_scan": time_rglru(torch, ops, ref, dev, [(hB, hS, hyb.lru_width), (1, hS, hyb.lru_width)]),
-        # the training step's (TRAIN: B x S tokens of qwen3-4b)
-        "flash_attention_bwd": [time_flash_bwd(torch, F, ops, ref, dev, qwen, tB, tS)],
+        # the training steps' (TRAIN: B x S tokens of qwen3-4b; TRAIN_HYBRID's)
+        "flash_attention_bwd": [time_flash_bwd(torch, F, ops, ref, dev, qwen, tB, tS),
+                                time_flash_bwd_windowed(torch, F, ops, ref, dev, hyb, yB, yS)],
         "fused_rmsnorm_bwd": [
             time_rmsnorm_bwd(torch, F, ops, ref, dev, tB * tS, qwen.d_model, torch.bfloat16),  # norm1, final_norm
             time_rmsnorm_bwd(torch, F, ops, ref, dev, tB * tS, qwen.d_model, torch.float32),  # norm2 on the f32 sum
             time_rmsnorm_bwd(torch, F, ops, ref, dev, tB * tS * qwen.n_heads, qwen.head_dim, torch.bfloat16),
             time_rmsnorm_bwd(torch, F, ops, ref, dev, tB * tS * qwen.n_kv_heads, qwen.head_dim, torch.bfloat16),
         ],
+        # the hybrid training step's (B = 1), and at the prefill's B = 2
+        "rglru_scan_bwd": time_rglru_bwd(torch, ops, ref, dev, [(yB, yS, hyb.lru_width), (2, yS, hyb.lru_width)]),
     }
     for name, rows in timing.items():
         for row in rows:
@@ -1087,18 +1375,23 @@ def main() -> int:
                 launches[name] += n
         torch.cuda.empty_cache()
 
-    # -- the training path: train at full width, the Trainer at smoke size, card vs CPU -----------
-    for counts in (train_phase(torch, get_config, ops, dev), trainer_phase(torch, ops, dev)):
-        for name, n in counts.items():
+    # -- the training paths: train at full width, the Trainer at smoke size, card vs CPU -----------
+    for run in (lambda: train_phase(torch, get_config, ops, dev, TRAIN),
+                lambda: train_phase(torch, get_config, ops, dev, TRAIN_HYBRID),
+                lambda: trainer_phase(torch, ops, dev)):
+        for name, n in run().items():
             launches[name] += n
-    torch.cuda.empty_cache()
-    train_check(torch, get_config, dev)
+        torch.cuda.empty_cache()
+    for arch in TRAIN_CHECKS:
+        train_check(torch, get_config, ops, dev, arch)
+        grads_check(torch, get_config, ops, dev, arch)
 
     summary = []
     for name, rows in timing.items():
         main_row = rows[0]
         route, src, replaces = SOURCES[name]
-        main_kernel = {"flash_attention": "wgmma", "rglru_scan": "chunked", "flash_attention_bwd": "wgmma"}.get(name)
+        main_kernel = {"flash_attention": "wgmma", "rglru_scan": "chunked", "flash_attention_bwd": "wgmma",
+                       "rglru_scan_bwd": "chunked"}.get(name)
         worst = sweep_err[name][main_kernel] if main_kernel else sweep_err[name]
         row = {
             "name": name, "route": route, "source": src, "replaces": replaces, "launches": launches[name],
@@ -1116,23 +1409,27 @@ def main() -> int:
             }
             if n_wgmma != launches[name]:
                 raise AssertionError(f"flash launches on the main paths: {n_wgmma} of {launches[name]} on wgmma")
-        if name == "flash_attention_bwd":  # the main path's pair, and the two it replaced
+        if name == "flash_attention_bwd":  # the main paths' pairs (wgmma; FMA at D = 256), and the mma pair
             n_wgmma, n_mma = launches["flash_attention_bwd_wgmma"], launches["flash_attention_bwd_mma"]
+            fma_rows = [r for r in rows if r["variant"] == "fma"]
             row["variants"] = {
-                "wgmma": {"launches": n_wgmma, "ms": [r["ms"] for r in rows],
-                          "events_ms": [r["events_ms"] for r in rows], "max_abs_err": row["max_abs_err"],
+                "wgmma": {"launches": n_wgmma, "ms": [main_row["ms"]], "events_ms": [main_row["events_ms"]],
+                          "max_abs_err": max(sweep_err[name]["wgmma"], main_row["max_abs_err"]),
                           "block_rel_l2": max(sweep_err[name]["wgmma_block_rel_l2_bfloat16"],
-                                              *(max(r["wgmma_block_rel_l2"].values()) for r in rows))},
-                "mma": {"launches": n_mma, "ms": [r["mma_ms"] for r in rows],
-                        "events_ms": [r["mma_events_ms"] for r in rows],
-                        "max_abs_err": max(sweep_err[name]["mma"], *(r["mma_max_abs_err"] for r in rows))},
-                "fma": {"launches": launches[name] - n_wgmma, "ms": [r["fma_ms"] for r in rows],
-                        "events_ms": [r["fma_events_ms"] for r in rows],
-                        "max_abs_err": max(sweep_err[name]["fma"], *(r["fma_max_abs_err"] for r in rows))},
+                                              *main_row["wgmma_block_rel_l2"].values())},
+                "mma": {"launches": n_mma, "ms": [main_row["mma_ms"]], "events_ms": [main_row["mma_events_ms"]],
+                        "max_abs_err": max(sweep_err[name]["mma"], main_row["mma_max_abs_err"])},
+                "fma": {"launches": launches[name] - n_wgmma, "shapes": [main_row["shape"]] + [r["shape"] for r in fma_rows],
+                        "ms": [main_row["fma_ms"]] + [r["ms"] for r in fma_rows],
+                        "events_ms": [main_row["fma_events_ms"]] + [r["events_ms"] for r in fma_rows],
+                        "bound_ms": [r["bound_ms"] for r in fma_rows], "library_ms": [r["library_ms"] for r in fma_rows],
+                        "max_abs_err": max(sweep_err[name]["fma"], main_row["fma_max_abs_err"],
+                                           *(r["max_abs_err"] for r in fma_rows))},
             }
-            if n_wgmma != launches[name] or n_mma:
-                raise AssertionError(f"flash backward launches on the main paths: {n_wgmma} of {launches[name]} on "
-                                     f"wgmma, {n_mma} on the mma pair")
+            if n_mma:
+                raise AssertionError(f"flash backward launches on the main paths: {n_mma} on the mma pair")
+        if name == "rglru_scan_bwd":
+            row["shapes_ms"] = {r["shape"]: r["ms"] for r in rows}
         if name == "rglru_scan":  # ops launches only the chunked kernel; the sequential one is timed beside it
             row["variants"] = {
                 "chunked": {"launches": launches[name], "shapes": [r["shape"] for r in rows],

@@ -12,8 +12,26 @@
 // (B = 2, S = 4096, W = 4096, f32) that is 403 MB, 0.120 ms at 3.35 TB/s,
 // against ~67 M FMAs.
 //
-// Two kernels. rglru_chunked_kernel is the one the port runs; the sequential
-// kernel it replaced stays as a yardstick (rglru_scan_sequential_fwd).
+// Two kernels. rglru_chunked_kernel is the one the port runs, forward and
+// backward; the sequential kernel it replaced stays as a yardstick
+// (rglru_scan_sequential_fwd).
+//
+// The backward (rglru_scan_bwd; the TPU kernel has none, JAX differentiates
+// its XLA scan) reads a, the forward's output h and the output's gradient dh,
+// and writes da and db: g_t = dh_t + a_{t+1} g_{t+1} with g_S = 0, then
+// db_t = g_t and da_t = g_t h_{t-1} with h_{-1} = 0. Over reversed time,
+// u = S-1-t, that is the forward's recurrence g'_u = c_u g'_{u-1} + dh_{S-1-u}
+// with the coefficient shifted by one step, c_u = a_{S-u} (0 at u = 0: there
+// is no a_S). So the backward is the chunked kernel below with other loads
+// and another epilogue (BWD): a thread loads, for each step t of its
+// sub-chunk, a_{t+1}, dh_t and h_{t-1} (the shifted rows are the next or the
+// previous row of the same array: a thread's last step reads the first row of
+// the next sub-chunk's a, its first step the last row of the previous
+// sub-chunk's h, each row still read once in all), and writes db_t = g_t and
+// da_t = bf16-or-f32(g_t * h_{t-1}) with g in f32. The ragged edges take the
+// identity (c = 1, dh = 0) past the start of time, which is the end of the
+// reversed scan, and store nothing there; the edge t = S-1 loads c = 0. Bound:
+// bytes, 5 * B * S * W * sizeof(element), 0.100 ms at (1, 4096, 4096) f32.
 //
 // The chunked kernel: a single pass, parallel in time.
 // - A block owns (batch, tile of FT features, one chunk of BLOCK_STEPS steps
@@ -56,7 +74,8 @@
 // - The carried state stays f32 for bf16 inputs too; only the output is
 //   rounded. Every combine runs in a fixed order and no value goes through an
 //   atomic, so two launches give the same bits. No workspace, no memset.
-// ref.rglru_chunked_ref repeats this order of arithmetic in PyTorch.
+// ref.rglru_chunked_ref repeats this order of arithmetic in PyTorch (for the
+// backward, on the reversed, shifted inputs).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -99,9 +118,27 @@ struct alignas(sizeof(T) * V) Pack {
   T x[V];
 };
 
+// The streams of one launch. Forward: a, x = b; writes y = h. Backward: a,
+// x = dh, h; writes y = db and da.
+template <typename T>
+struct Streams {
+  const T* a;
+  const T* x;
+  const T* h;
+  T* y;
+  T* da;
+};
+
 template <typename T, int V>
-__global__ void __launch_bounds__(THREADS) rglru_chunked_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                                                               T* __restrict__ h_out, int S, int W, int rounds) {
+__device__ __forceinline__ Pack<T, V> fill(T value) {
+  Pack<T, V> p;
+#pragma unroll
+  for (int v = 0; v < V; ++v) p.x[v] = value;
+  return p;
+}
+
+template <typename T, int V, bool BWD>
+__global__ void __launch_bounds__(THREADS) rglru_chunked_kernel(Streams<T> s, int S, int W, int rounds) {
   constexpr int FT = 32 * V;  // features a block owns; slot p = v * 32 + lane holds feature lane * V + v
   __shared__ float2 part[WARPS][FT];   // each sub-chunk's aggregate (A, H)
   __shared__ float carry[WARPS][FT];   // the state entering each sub-chunk
@@ -116,23 +153,33 @@ __global__ void __launch_bounds__(THREADS) rglru_chunked_kernel(const T* __restr
   const int64_t Wl = W;
   const int64_t base = (int64_t)blockIdx.y * S * Wl + f0;
   const T one = from_float<T>(1.f), zero = from_float<T>(0.f);
+  // row t of a stream, for this thread's features
+  auto row = [&](const T* p, int t) { return *reinterpret_cast<const Pack<T, V>*>(p + base + (int64_t)t * Wl); };
   constexpr int SLOTS = (FT + THREADS - 1) / THREADS;  // slots a thread folds: p = threadIdx.x + k * THREADS
-  float state[SLOTS] = {};  // h before this round, for each slot p < FT the thread folds
+  float state[SLOTS] = {};  // the scan's state before this round, for each slot p < FT the thread folds
 
   for (int r = 0; r < rounds; ++r) {
+    // the sub-chunk's first step of the scan: t in the forward, u = S-1-t in the backward
     const int t0 = ((r * csize + rank) * WARPS + warp) * SUB;
-    Pack<T, V> pa[SUB], pb[SUB];
+    Pack<T, V> pa[SUB], pb[SUB];  // the coefficient and the input of each step
+    [[maybe_unused]] Pack<T, V> ph[BWD ? SUB : 1];  // the backward's h_{t-1}
 #pragma unroll
     for (int i = 0; i < SUB; ++i) {
-      if (in_w && t0 + i < S) {
-        pa[i] = *reinterpret_cast<const Pack<T, V>*>(a + base + (int64_t)(t0 + i) * Wl);
-        pb[i] = *reinterpret_cast<const Pack<T, V>*>(b + base + (int64_t)(t0 + i) * Wl);
-      } else {
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          pa[i].x[v] = one;
-          pb[i].x[v] = zero;
+      const int u = t0 + i;
+      if (in_w && u < S) {
+        if constexpr (BWD) {
+          const int t = S - 1 - u;
+          pa[i] = t + 1 < S ? row(s.a, t + 1) : fill<T, V>(zero);
+          pb[i] = row(s.x, t);
+          ph[i] = t > 0 ? row(s.h, t - 1) : fill<T, V>(zero);
+        } else {
+          pa[i] = row(s.a, u);
+          pb[i] = row(s.x, u);
         }
+      } else {
+        pa[i] = fill<T, V>(one);
+        pb[i] = fill<T, V>(zero);
+        if constexpr (BWD) ph[i] = fill<T, V>(zero);
       }
     }
     // the sub-chunk's aggregate: x -> A * x + H
@@ -196,18 +243,25 @@ __global__ void __launch_bounds__(THREADS) rglru_chunked_kernel(const T* __restr
 #pragma unroll
     for (int i = 0; i < SUB; ++i) {
       Pack<T, V> o;
+      [[maybe_unused]] Pack<T, V> od;
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         x[v] = fmaf(to_float(pa[i].x[v]), x[v], to_float(pb[i].x[v]));
         o.x[v] = from_float<T>(x[v]);
+        if constexpr (BWD) od.x[v] = from_float<T>(x[v] * to_float(ph[i].x[v]));
       }
-      if (in_w && t0 + i < S) *reinterpret_cast<Pack<T, V>*>(h_out + base + (int64_t)(t0 + i) * Wl) = o;
+      const int u = t0 + i;
+      if (in_w && u < S) {
+        const int64_t at = base + (int64_t)(BWD ? S - 1 - u : u) * Wl;
+        *reinterpret_cast<Pack<T, V>*>(s.y + at) = o;
+        if constexpr (BWD) *reinterpret_cast<Pack<T, V>*>(s.da + at) = od;
+      }
     }
   }
   cluster.sync();  // no block leaves while another may still read its pub
 }
 
-template <typename T, int V>
+template <typename T, int V, bool BWD>
 cudaLaunchConfig_t chunked_config(int B, int W, int cluster, cudaStream_t stream, cudaLaunchAttribute* attr) {
   constexpr int FT = 32 * V;
   const int tiles = (W + FT - 1) / FT;
@@ -227,15 +281,15 @@ cudaLaunchConfig_t chunked_config(int B, int W, int cluster, cudaStream_t stream
 
 // Clusters of `cluster` blocks that the card holds at once, queried once per
 // instantiation and size (cluster 1, 2, 4, 8 -> index 0..3).
-template <typename T, int V>
+template <typename T, int V, bool BWD>
 int max_active_clusters(int cluster) {
   static int cached[4] = {-1, -1, -1, -1};
   const int k = cluster == 1 ? 0 : cluster == 2 ? 1 : cluster == 4 ? 2 : 3;
   if (cached[k] < 0) {
     cudaLaunchAttribute attr;
-    cudaLaunchConfig_t cfg = chunked_config<T, V>(1, 32 * V, cluster, nullptr, &attr);
+    cudaLaunchConfig_t cfg = chunked_config<T, V, BWD>(1, 32 * V, cluster, nullptr, &attr);
     int n = 0;
-    if (cudaOccupancyMaxActiveClusters(&n, rglru_chunked_kernel<T, V>, &cfg) != cudaSuccess) {
+    if (cudaOccupancyMaxActiveClusters(&n, rglru_chunked_kernel<T, V, BWD>, &cfg) != cudaSuccess) {
       cudaGetLastError();
       n = 0;
     }
@@ -244,22 +298,29 @@ int max_active_clusters(int cluster) {
   return cached[k];
 }
 
-template <typename T, int V>
-int launch_chunked(const void* a, const void* b, void* h, int B, int S, int W, int cluster, cudaStream_t stream) {
-  if (max_active_clusters<T, V>(cluster) < 1) return -1;
+template <typename T, int V, bool BWD>
+int launch_chunked(const Streams<T>& s, int B, int S, int W, int cluster, cudaStream_t stream) {
+  if (max_active_clusters<T, V, BWD>(cluster) < 1) return -1;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = chunked_config<T, V>(B, W, cluster, stream, &attr);
+  cudaLaunchConfig_t cfg = chunked_config<T, V, BWD>(B, W, cluster, stream, &attr);
   const int rounds = (S + cluster * BLOCK_STEPS - 1) / (cluster * BLOCK_STEPS);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, rglru_chunked_kernel<T, V>, static_cast<const T*>(a),
-                                             static_cast<const T*>(b), static_cast<T*>(h), S, W, rounds);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, rglru_chunked_kernel<T, V, BWD>, s, S, W, rounds);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % VEC_BYTES == 0; }
 
-template <typename T>
-bool vector_path(const void* a, const void* b, const void* h, int W) {
-  return W % (VEC_BYTES / (int)sizeof(T)) == 0 && aligned(a) && aligned(b) && aligned(h);
+// The chunked kernel on one launch's streams (unused ones null): 16-byte
+// loads and stores where W and every pointer allow, one element a lane else.
+template <typename T, bool BWD>
+int launch_streams(const void* a, const void* x, const void* h, void* y, void* da, int B, int S, int W, int cluster,
+                   cudaStream_t stream) {
+  constexpr int VEC = VEC_BYTES / (int)sizeof(T);
+  const Streams<T> s{static_cast<const T*>(a), static_cast<const T*>(x), static_cast<const T*>(h), static_cast<T*>(y),
+                     static_cast<T*>(da)};
+  const bool vec = W % VEC == 0 && aligned(a) && aligned(x) && aligned(h) && aligned(y) && aligned(da);
+  return vec ? launch_chunked<T, VEC, BWD>(s, B, S, W, cluster, stream)
+             : launch_chunked<T, 1, BWD>(s, B, S, W, cluster, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -331,6 +392,8 @@ int launch_sequential(const void* a, const void* b, void* h, int B, int S, int W
 
 bool valid(int B, int S, int W) { return B > 0 && B <= 65535 && S > 0 && W > 0; }
 
+bool valid_cluster(int cluster) { return cluster == 1 || cluster == 2 || cluster == 4 || cluster == MAX_CLUSTER; }
+
 }  // namespace
 
 // a, b, h: contiguous (B, S, W) arrays of one dtype, 0 = float32, 1 = bfloat16;
@@ -338,28 +401,42 @@ bool valid(int B, int S, int W) { return B > 0 && B <= 65535 && S > 0 && W > 0; 
 // cudaError_t (0 on success), or -1 if the card cannot hold one such cluster.
 extern "C" int rglru_scan_fwd(const void* a, const void* b, void* h, int dtype, int B, int S, int W, int cluster,
                               void* stream) {
-  if (!valid(B, S, W) || (cluster != 1 && cluster != 2 && cluster != 4 && cluster != MAX_CLUSTER))
-    return (int)cudaErrorInvalidValue;
+  if (!valid(B, S, W) || !valid_cluster(cluster)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return vector_path<float>(a, b, h, W) ? launch_chunked<float, 4>(a, b, h, B, S, W, cluster, st)
-                                          : launch_chunked<float, 1>(a, b, h, B, S, W, cluster, st);
-  if (dtype == 1)
-    return vector_path<__nv_bfloat16>(a, b, h, W) ? launch_chunked<__nv_bfloat16, 8>(a, b, h, B, S, W, cluster, st)
-                                                  : launch_chunked<__nv_bfloat16, 1>(a, b, h, B, S, W, cluster, st);
+  if (dtype == 0) return launch_streams<float, false>(a, b, nullptr, h, nullptr, B, S, W, cluster, st);
+  if (dtype == 1) return launch_streams<__nv_bfloat16, false>(a, b, nullptr, h, nullptr, B, S, W, cluster, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: a, the forward's output h and its gradient dh in; da, db out;
+// all contiguous (B, S, W) arrays of one dtype. Arguments and return as
+// rglru_scan_fwd's.
+extern "C" int rglru_scan_bwd(const void* a, const void* h, const void* dh, void* da, void* db, int dtype, int B,
+                              int S, int W, int cluster, void* stream) {
+  if (!valid(B, S, W) || !valid_cluster(cluster)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_streams<float, true>(a, dh, h, db, da, B, S, W, cluster, st);
+  if (dtype == 1) return launch_streams<__nv_bfloat16, true>(a, dh, h, db, da, B, S, W, cluster, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The clusters of `cluster` blocks the card holds at once for the kernel that
-// rglru_scan_fwd would pick for (dtype, W, vector) (vector: 16-byte aligned
-// pointers); 0 if none.
-extern "C" int rglru_scan_max_active_clusters(int dtype, int W, int vector, int cluster) {
-  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != MAX_CLUSTER) return 0;
-  if (dtype == 0)
-    return vector && W % 4 == 0 ? max_active_clusters<float, 4>(cluster) : max_active_clusters<float, 1>(cluster);
-  if (dtype == 1)
-    return vector && W % 8 == 0 ? max_active_clusters<__nv_bfloat16, 8>(cluster)
-                                : max_active_clusters<__nv_bfloat16, 1>(cluster);
+// rglru_scan_fwd (backward = 0) or rglru_scan_bwd (1) would pick for
+// (dtype, W, vector) (vector: 16-byte aligned pointers); 0 if none.
+extern "C" int rglru_scan_max_active_clusters(int dtype, int W, int vector, int cluster, int backward) {
+  if (!valid_cluster(cluster)) return 0;
+  if (dtype == 0) {
+    if (vector && W % 4 == 0)
+      return backward ? max_active_clusters<float, 4, true>(cluster) : max_active_clusters<float, 4, false>(cluster);
+    return backward ? max_active_clusters<float, 1, true>(cluster) : max_active_clusters<float, 1, false>(cluster);
+  }
+  if (dtype == 1) {
+    if (vector && W % 8 == 0)
+      return backward ? max_active_clusters<__nv_bfloat16, 8, true>(cluster)
+                      : max_active_clusters<__nv_bfloat16, 8, false>(cluster);
+    return backward ? max_active_clusters<__nv_bfloat16, 1, true>(cluster)
+                    : max_active_clusters<__nv_bfloat16, 1, false>(cluster);
+  }
   return 0;
 }
 

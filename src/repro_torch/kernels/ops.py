@@ -10,17 +10,23 @@ unsupported dtype or head dim, or a last axis that is not contiguous raises
 kernel cannot read through TMA, on either device.
 
 Gradients: where autograd records (grad mode on and an input that requires
-grad), ``flash_attention`` and ``fused_rmsnorm`` run through a
-``torch.autograd.Function`` whose backward calls ``flash_attention_bwd`` or
-``fused_rmsnorm_bwd``, which dispatch the same way (the hand-written backward
-kernel for a CUDA tensor, the plain backward in ``ref.py`` for a CPU one).
-Flash attention's forward then also keeps the rows' statistics ``lse`` for
-the backward where the backward reads them (the plain version, and the
-wgmma backward pair).
-``rglru_scan`` has no backward yet and raises when a gradient reaches it.
+grad), ``flash_attention``, ``fused_rmsnorm`` and ``rglru_scan`` run through a
+``torch.autograd.Function`` whose backward calls ``flash_attention_bwd``,
+``fused_rmsnorm_bwd`` or ``rglru_scan_bwd``, which dispatch the same way (the
+hand-written backward kernel for a CUDA tensor, the plain backward in
+``ref.py`` for a CPU one). Flash attention's forward then also keeps the rows'
+statistics ``lse`` for the backward where the backward reads them (the plain
+version, and the wgmma backward pair); the scan's keeps a and its output h.
+
+``plain_versions`` is for checks that hold the kernels to their plain
+versions on the card: inside it the named kernels take their plain versions
+(forward and backward) whatever the device, and count no launch. The model's
+paths never enter it.
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -40,6 +46,31 @@ RGLRU_SCAN_LAUNCHES = 0  # the chunked kernel, the only one ops launches
 FLASH_ATTENTION_BWD_LAUNCHES = 0  # one per backward (a pair of kernels), either variant ops picks
 FLASH_ATTENTION_BWD_WGMMA_LAUNCHES = 0  # those that took the wgmma pair
 FUSED_RMSNORM_BWD_LAUNCHES = 0  # one per backward: the row pass and the column sum
+RGLRU_SCAN_BWD_LAUNCHES = 0  # the chunked kernel run backward in time
+
+KERNELS = ("flash_attention", "fused_rmsnorm", "rglru_scan")  # each with its backward
+_PLAIN: frozenset[str] = frozenset()  # the kernels that take their plain versions on any device
+
+
+@contextmanager
+def plain_versions(*kernels: str):
+    """Within: ``kernels`` (all of ``KERNELS`` when none is named), forward and
+    backward, run their plain versions in ``ref.py`` whatever the device, and
+    count no launch."""
+    global _PLAIN
+    unknown = set(kernels) - set(KERNELS)
+    if unknown:
+        raise ValueError(f"unknown kernels {sorted(unknown)}; expected some of {KERNELS}")
+    saved, _PLAIN = _PLAIN, frozenset(kernels or KERNELS)
+    try:
+        yield
+    finally:
+        _PLAIN = saved
+
+
+def _plain(kernel: str, t: torch.Tensor) -> bool:
+    """Whether ``kernel`` takes its plain version for a tensor on ``t``'s device."""
+    return t.device.type == "cpu" or kernel in _PLAIN
 
 
 def launch_counts() -> dict[str, int]:
@@ -53,12 +84,14 @@ def launch_counts() -> dict[str, int]:
         "flash_attention_bwd_wgmma": FLASH_ATTENTION_BWD_WGMMA_LAUNCHES,
         "flash_attention_bwd_mma": _flash.MMA_BWD_LAUNCHES,  # never launched through ops
         "fused_rmsnorm_bwd": FUSED_RMSNORM_BWD_LAUNCHES,
+        "rglru_scan_bwd": RGLRU_SCAN_BWD_LAUNCHES,
     }
 
 
 def reset_launch_counts() -> None:
     global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_WGMMA_LAUNCHES, FUSED_RMSNORM_LAUNCHES, RGLRU_SCAN_LAUNCHES
     global FLASH_ATTENTION_BWD_LAUNCHES, FLASH_ATTENTION_BWD_WGMMA_LAUNCHES, FUSED_RMSNORM_BWD_LAUNCHES
+    global RGLRU_SCAN_BWD_LAUNCHES
     FLASH_ATTENTION_LAUNCHES = 0
     FLASH_ATTENTION_WGMMA_LAUNCHES = 0
     FUSED_RMSNORM_LAUNCHES = 0
@@ -68,6 +101,7 @@ def reset_launch_counts() -> None:
     FLASH_ATTENTION_BWD_WGMMA_LAUNCHES = 0
     _flash.MMA_BWD_LAUNCHES = 0
     FUSED_RMSNORM_BWD_LAUNCHES = 0
+    RGLRU_SCAN_BWD_LAUNCHES = 0
 
 
 def _device_type(*tensors: torch.Tensor) -> str:
@@ -134,7 +168,7 @@ def _wgmma(q: torch.Tensor) -> bool:
 
 def _flash_fwd(q, k, v, causal: bool, window: int | None, with_lse: bool = False):
     """-> o, or (o, lse) ``with_lse``."""
-    if q.device.type == "cpu":
+    if _plain("flash_attention", q):
         t = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window,
                               return_lse=with_lse)
         return (t[0].transpose(1, 2), t[1]) if with_lse else t.transpose(1, 2)
@@ -152,7 +186,7 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window):
         # the plain backward and the wgmma pair read the forward's row
         # statistics; the FMA pair recomputes them
-        if q.device.type == "cpu" or _flash.bwd_variant(q.dtype, q.shape[-1]) == "wgmma":
+        if _plain("flash_attention", q) or _flash.bwd_variant(q.dtype, q.shape[-1]) == "wgmma":
             o, lse = _flash_fwd(q, k, v, causal, window, with_lse=True)
         else:
             o, lse = _flash_fwd(q, k, v, causal, window), None
@@ -184,7 +218,7 @@ def flash_attention_bwd(
     row statistics ``lse`` that ``flash_attention(..., return_lse=True)``
     gives. The plain backward recomputes them when ``lse`` is None; the wgmma
     pair (bf16 at D 16/64/128 on the card) needs them."""
-    device = _device_type(q, k, v, o, do)
+    _device_type(q, k, v, o, do)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} must match q "
                          f"{tuple(q.shape)} {q.dtype}")
@@ -197,7 +231,7 @@ def flash_attention_bwd(
     wgmma = _flash.bwd_variant(q.dtype, q.shape[-1]) == "wgmma"
     if wgmma:
         _flash.check_tma_layout(q, k, v, o, do)
-    if device == "cpu":
+    if _plain("flash_attention", q):
         t = [a.transpose(1, 2) for a in (q, k, v, o, do)]
         return tuple(g.transpose(1, 2) for g in ref.attention_bwd_ref(*t, causal=causal, window=window, lse=lse))
     if wgmma and lse is None:
@@ -228,7 +262,7 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) ->
 
 
 def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if _plain("fused_rmsnorm", x):
         return ref.rmsnorm_ref(x, scale, eps=eps)
     global FUSED_RMSNORM_LAUNCHES
     y = _rmsnorm.launch(x.view(-1, x.shape[-1]), scale, eps)
@@ -255,14 +289,14 @@ def fused_rmsnorm_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The gradient of :func:`fused_rmsnorm` -> (dx in x's dtype and shape,
     dscale f32). dy has x's shape, in x's dtype or f32."""
-    device = _device_type(x, scale, dy)
+    _device_type(x, scale, dy)
     D = x.shape[-1]
     if dy.shape != x.shape or dy.dtype not in (x.dtype, torch.float32):
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must have x's shape {tuple(x.shape)}, in {x.dtype} or f32")
     if x.stride(-1) != 1:
         raise ValueError("the normalised axis must be contiguous")
     dy = dy.contiguous()  # autograd may hand an expanded or strided gradient
-    if device == "cpu":
+    if _plain("fused_rmsnorm", x):
         return ref.rmsnorm_bwd_ref(x, scale, dy, eps=eps)
     global FUSED_RMSNORM_BWD_LAUNCHES
     dx, dscale = _rmsnorm.launch_bwd(x.view(-1, D), scale, dy.view(-1, D), eps)
@@ -286,7 +320,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _rglru_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    if a.device.type == "cpu":
+    if _plain("rglru_scan", a):
         return ref.rglru_ref(a, b)
     global RGLRU_SCAN_LAUNCHES
     h = _rglru.launch(a, b)
@@ -297,10 +331,32 @@ def _rglru_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class _RGLRUScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b):
-        return _rglru_fwd(a, b)
+        h = _rglru_fwd(a, b)
+        ctx.save_for_backward(a, h)
+        return h
 
     @staticmethod
     def backward(ctx, dh):
-        raise NotImplementedError(
-            "rglru_scan has no backward yet (a reverse-time scan): ROADMAP, the hybrid training slice"
-        )
+        a, h = ctx.saved_tensors
+        return rglru_scan_bwd(a, h, dh)
+
+
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`rglru_scan` -> (da, db) in a's dtype, from a,
+    the scan's output h and h's gradient dh: (B, S, W) of one dtype, f32 or
+    bf16, a and h contiguous (checked as there)."""
+    _device_type(a, h, dh)
+    if a.ndim != 3 or h.shape != a.shape or dh.shape != a.shape:
+        raise ValueError(f"expected a, h and dh of one (B, S, W) shape; got {tuple(a.shape)}, {tuple(h.shape)}, "
+                         f"{tuple(dh.shape)}")
+    if a.dtype not in DTYPES or h.dtype != a.dtype or dh.dtype != a.dtype:
+        raise TypeError(f"dtypes {a.dtype}, {h.dtype}, {dh.dtype}: need one of {DTYPES} for all three")
+    if not (a.is_contiguous() and h.is_contiguous()):
+        raise ValueError("a and h must be contiguous")
+    dh = dh.contiguous()  # autograd may hand an expanded or strided gradient
+    if _plain("rglru_scan", a):
+        return ref.rglru_bwd_ref(a, h, dh)
+    global RGLRU_SCAN_BWD_LAUNCHES
+    grads = _rglru.launch_bwd(a, h, dh)
+    RGLRU_SCAN_BWD_LAUNCHES += 1
+    return grads

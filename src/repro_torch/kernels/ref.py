@@ -145,6 +145,24 @@ def rglru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.to(a.dtype)
 
 
+def rglru_bwd_ref(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`rglru_ref` from its input ``a``, its output
+    ``h`` and the output's gradient ``dh``, all (B, S, W): the reverse-time
+    scan ``g_t = dh_t + a_{t+1} g_{t+1}`` with ``g_S = 0``, then
+    ``db_t = g_t`` and ``da_t = g_t h_{t-1}`` with ``h_{-1} = 0``. Arithmetic
+    in f32 (h as given, rounded where the forward rounded it); -> (da, db) in
+    a's dtype."""
+    af, dhf = a.float(), dh.float()
+    g = torch.zeros_like(af[:, 0])
+    db = torch.empty_like(af)
+    for t in range(a.shape[1] - 1, -1, -1):
+        g = dhf[:, t] + (af[:, t + 1] * g if t + 1 < a.shape[1] else 0.0)
+        db[:, t] = g
+    da = torch.zeros_like(db)
+    da[:, 1:] = db[:, 1:] * h[:, :-1].float()
+    return da.to(a.dtype), db.to(a.dtype)
+
+
 def _fma(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """f32 ``x * y + z`` rounded once, as ``fmaf``: the f32 product is exact in
     f64 and only the sum rounds (a second rounding to f32 can differ from one
@@ -197,3 +215,17 @@ def rglru_chunked_ref(a: torch.Tensor, b: torch.Tensor, chunk: int, *, warps: in
         x = _fma(af[..., i, :], x, bf[..., i, :])
         out[..., i, :] = x
     return out.view(B, rounds * per_round, W)[:, :S].to(a.dtype)
+
+
+def rglru_bwd_chunked_ref(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor, chunk: int, *, warps: int,
+                          cluster: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rglru_bwd_ref` in the chunked backward kernel's order of f32
+    arithmetic: :func:`rglru_chunked_ref` over reversed time of the shifted
+    coefficients ``a_{t+1}`` (0 at the last step, where there is no
+    ``a_S``) and of dh gives g; then ``db_t = g_t`` and
+    ``da_t = g_t h_{t-1}``, each rounded once to a's dtype."""
+    c = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1).float()
+    g = rglru_chunked_ref(c.flip(1), dh.float().flip(1), chunk, warps=warps, cluster=cluster).flip(1)
+    da = torch.zeros_like(g)
+    da[:, 1:] = g[:, 1:] * h[:, :-1].float()
+    return da.to(a.dtype), g.to(a.dtype)

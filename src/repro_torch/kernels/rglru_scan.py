@@ -8,11 +8,15 @@ over contiguous (B, S, W) arrays, h in f32, output in the inputs' dtype:
 - ``launch``: the chunked kernel, parallel in time (sub-chunks of
   ``SUB_CHUNK`` steps, ``WARPS`` of them a block, blocks joined by a
   thread-block cluster of ``cluster_size(S)``); ``ops.rglru_scan`` runs it;
-- ``launch_sequential``: the kernel it replaced, one thread per (batch,
-  feature) walking all of S; kept only to be timed and checked beside it.
+- ``launch_bwd``: the same kernel run backward in time, the scan's gradient
+  (da, db) from a, h and dh; ``ops.rglru_scan_bwd`` runs it;
+- ``launch_sequential``: the kernel the chunked one replaced, one thread per
+  (batch, feature) walking all of S; kept only to be timed and checked
+  beside it.
 
-Their plain version is ``ref.rglru_ref``; ``ref.rglru_chunked_ref`` repeats
-the chunked kernel's order of arithmetic.
+Their plain versions are ``ref.rglru_ref`` and ``ref.rglru_bwd_ref``;
+``ref.rglru_chunked_ref`` and ``ref.rglru_bwd_chunked_ref`` repeat the
+chunked kernel's order of arithmetic.
 """
 
 from __future__ import annotations
@@ -52,8 +56,9 @@ def library(flags: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, tuple[int, int, i
         lib = build.load("rglru_scan", flags)
         p, i = ctypes.c_void_p, ctypes.c_int
         for name, argtypes in (("rglru_scan_fwd", [p, p, p, i, i, i, i, i, p]),
+                               ("rglru_scan_bwd", [p, p, p, p, p, i, i, i, i, i, p]),
                                ("rglru_scan_sequential_fwd", [p, p, p, i, i, i, i, p]),
-                               ("rglru_scan_max_active_clusters", [i, i, i, i])):
+                               ("rglru_scan_max_active_clusters", [i, i, i, i, i])):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
         tiling = (ctypes.c_int * 3)()
@@ -66,16 +71,19 @@ def library(flags: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, tuple[int, int, i
     return _LIBS[flags]
 
 
-def _run(fn, a: torch.Tensor, b: torch.Tensor, *extra: int) -> torch.Tensor:
+def _run(fn, inputs: tuple[torch.Tensor, ...], n_out: int, *extra: int) -> list[torch.Tensor]:
+    """``fn`` on the contiguous (B, S, W) ``inputs`` and ``n_out`` new outputs
+    of their shape and dtype, on the current stream; -> the outputs."""
+    a = inputs[0]
     B, S, W = a.shape
-    h = torch.empty_like(a)
-    err = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), _DTYPE_CODE[a.dtype], B, S, W, *extra,
+    outs = [torch.empty_like(a) for _ in range(n_out)]
+    err = fn(*(t.data_ptr() for t in (*inputs, *outs)), _DTYPE_CODE[a.dtype], B, S, W, *extra,
              torch.cuda.current_stream(a.device).cuda_stream)
     if err == -1:
         raise RuntimeError(f"rglru_scan: the card cannot hold a cluster of {extra[0]} blocks of the chunked kernel")
     if err != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError {err}")
-    return h
+    return outs
 
 
 def launch(a: torch.Tensor, b: torch.Tensor, *, flags: tuple[str, ...] = ()) -> torch.Tensor:
@@ -84,18 +92,31 @@ def launch(a: torch.Tensor, b: torch.Tensor, *, flags: tuple[str, ...] = ()) -> 
     caller (``ops.rglru_scan``) has checked devices, types and shapes.
     Launches on the current stream and returns h: (B, S, W) in a's dtype."""
     lib, (sub, warps, _) = library(flags)
-    return _run(lib.rglru_scan_fwd, a, b, cluster_size(a.shape[1], sub * warps))
+    return _run(lib.rglru_scan_fwd, (a, b), 1, cluster_size(a.shape[1], sub * warps))[0]
+
+
+def launch_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor, *,
+               flags: tuple[str, ...] = ()) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked kernel backward in time: the scan's gradient from a, its
+    output h and h's gradient dh, contiguous (B, S, W) CUDA tensors of one
+    dtype (the caller, ``ops.rglru_scan_bwd``, has checked them). -> (da, db)
+    in a's dtype, on the current stream."""
+    lib, (sub, warps, _) = library(flags)
+    da, db = _run(lib.rglru_scan_bwd, (a, h, dh), 2, cluster_size(a.shape[1], sub * warps))
+    return da, db
 
 
 def launch_sequential(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The sequential kernel, on the same terms as ``launch``."""
     global SEQUENTIAL_LAUNCHES
-    h = _run(library()[0].rglru_scan_sequential_fwd, a, b)
+    h = _run(library()[0].rglru_scan_sequential_fwd, (a, b), 1)[0]
     SEQUENTIAL_LAUNCHES += 1
     return h
 
 
-def max_active_clusters(dtype: torch.dtype, W: int, cluster: int, *, flags: tuple[str, ...] = ()) -> int:
+def max_active_clusters(dtype: torch.dtype, W: int, cluster: int, *, flags: tuple[str, ...] = (),
+                        backward: bool = False) -> int:
     """Clusters of ``cluster`` blocks the card holds at once for the chunked
-    kernel at width W (16-byte aligned pointers, as ``torch.empty`` gives)."""
-    return library(flags)[0].rglru_scan_max_active_clusters(_DTYPE_CODE[dtype], W, 1, cluster)
+    kernel, forward or ``backward``, at width W (16-byte aligned pointers, as
+    ``torch.empty`` gives)."""
+    return library(flags)[0].rglru_scan_max_active_clusters(_DTYPE_CODE[dtype], W, 1, cluster, int(backward))

@@ -117,6 +117,21 @@ def param_count(spec_tree) -> int:
     return total
 
 
+def at_unstacked_std(params: dict) -> dict:
+    """``params`` with each stacked matrix of the layer stack (``layers.scan``,
+    (n_units, d_in, ...)) scaled from the std its init draws, 1/sqrt(n_units)
+    (:meth:`ArraySpec.std`), to 1/sqrt(d_in), that of its unstacked spec. The
+    model never calls it: it gives checks weights where a smoke config with
+    one unit (std 1) has a well-conditioned gradient."""
+
+    def scaled(path, x):
+        if path[:2] == ("layers", "scan") and x.ndim >= 3:
+            return x * math.sqrt(x.shape[0] / x.shape[1])
+        return x
+
+    return tree_map_with_path(scaled, params)
+
+
 def stack_specs(spec_tree, n: int, axis_name: str = "layers"):
     """Stack a per-layer spec ``n`` times along a leading 'layers' axis."""
     return tree_map_with_path(

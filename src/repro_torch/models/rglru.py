@@ -14,9 +14,10 @@ place.
 
 Block structure (Griffin):  x -> [linear_x -> conv1d -> RG-LRU] * gelu(linear_gate) -> linear_out
 
-Rounding follows the JAX package: the gate products run in f32 on the
-weights as stored (bf16-valued in the stacked units, f32 in the remainder
-layers), the projections and the conv in the bf16 activation dtype.
+Rounding follows the JAX package compiled: the gate products run in f32 on
+the weights as stored (bf16-valued in the stacked units, f32 in the remainder
+layers), the projections and the conv's products in the bf16 activation
+dtype, the conv's bias add in f32 (the gates read it in f32).
 """
 
 from __future__ import annotations
@@ -87,31 +88,38 @@ def rglru_step(params, x_t: torch.Tensor, h_prev: torch.Tensor) -> tuple[torch.T
 
 
 def causal_conv1d(params, x: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv, width W_c, as shifted multiply-adds in x's
-    dtype (not ``F.conv1d``: cuDNN would take f32 into TF32 and sum in
-    another order). x: (B,S,W)."""
+    """Depthwise causal conv plus bias, width W_c, as the gates read it in the
+    JAX package compiled. x: (B,S,W) -> f32 (B,S,W). The shifted
+    multiply-adds are rounded op by op in x's dtype (not ``F.conv1d``: cuDNN
+    would take f32 into TF32 and sum in another order); XLA fuses the conv
+    into the gates, which take it in f32, and keeps the bias add in f32 there
+    (excess precision). Rounded to x's dtype, this is the JAX function's
+    output. At the initial zero bias the two agree; after one train step a
+    bias add rounded to bf16 moves the smoke model's block output by ~1 %
+    (std-1 gate weights drive some r to ~1e-9, where beta is ill-conditioned)."""
     w = params["conv_w"].to(x.dtype)  # (Wc, W)
     Wc, S = w.shape[0], x.shape[1]
     pad = F.pad(x, (0, 0, Wc - 1, 0))
     y = sum(pad[:, i : i + S] * w[i] for i in range(Wc))
-    return y + params["conv_b"].to(x.dtype)
+    return y.float() + params["conv_b"].to(x.dtype).float()
 
 
 def causal_conv1d_step(params, x_t: torch.Tensor, conv_state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Decode: conv_state holds the last Wc-1 inputs. x_t: (B,1,W) -> (y (B,1,W), new conv state)."""
+    """Decode: conv_state holds the last Wc-1 inputs. x_t: (B,1,W) -> (y f32
+    (B,1,W), new conv state). The products are summed in f32 and rounded to
+    x_t's dtype, the bias added in f32, as :func:`causal_conv1d` adds it."""
     w = params["conv_w"].to(x_t.dtype)
     window = torch.cat([conv_state, x_t], dim=1)  # (B, Wc, W)
     y = (window.float() * w.float()).sum(dim=1).to(x_t.dtype)[:, None]
-    return y + params["conv_b"].to(x_t.dtype), window[:, 1:]
+    return y.float() + params["conv_b"].to(x_t.dtype).float(), window[:, 1:]
 
 
 def recurrent_block(params, x: torch.Tensor, cfg) -> torch.Tensor:
     """Full Griffin temporal-mixing block (prefill). x: (B,S,D)."""
     xb = x @ params["in_x"]["w"].to(x.dtype)
     gb = x @ params["in_gate"]["w"].to(x.dtype)
-    xb = causal_conv1d(params, xb)
-    h, _ = rglru(params["lru"], xb)
-    y = h * ACTIVATIONS["gelu"](gb)
+    h, _ = rglru(params["lru"], causal_conv1d(params, xb))
+    y = h.to(x.dtype) * ACTIVATIONS["gelu"](gb)
     return y @ params["out"]["w"].to(x.dtype)
 
 
@@ -131,9 +139,9 @@ def recurrent_block_step(params, x_t: torch.Tensor, state: dict, cfg) -> tuple[t
     returns new arrays instead)."""
     xb = x_t @ params["in_x"]["w"].to(x_t.dtype)
     gb = x_t @ params["in_gate"]["w"].to(x_t.dtype)
-    xb, conv = causal_conv1d_step(params, xb, state["conv"])
-    h_seq, h = rglru_step(params["lru"], xb, state["h"])
-    y = h_seq * ACTIVATIONS["gelu"](gb)
+    xc, conv = causal_conv1d_step(params, xb, state["conv"])
+    h_seq, h = rglru_step(params["lru"], xc, state["h"])
+    y = h_seq.to(x_t.dtype) * ACTIVATIONS["gelu"](gb)
     out = y @ params["out"]["w"].to(x_t.dtype)
     state["conv"].copy_(conv)
     state["h"].copy_(h)

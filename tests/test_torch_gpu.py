@@ -11,12 +11,14 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru_scan as rgk
 from repro_torch.launch.serve import BatchedServer, make_requests
 from repro_torch.models import Model
-from repro_torch.models.modules import tree_map_with_path
+from repro_torch.models.modules import at_unstacked_std, tree_map_with_path
+from repro_torch.models.transformer import layer_kind
 
 # tests/test_kernels.py's tolerances
 TOL = {"f32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
@@ -45,6 +47,7 @@ FLASH_CASES = [
     (2, 256, 256, 4, 4, 128, None),  # Hq / Hkv = 1, 4 and 16 with B > 1
     (2, 256, 256, 16, 4, 128, None),
     (2, 320, 320, 16, 1, 256, 96),
+    (4, 64, 64, 4, 1, 16, 8),        # recurrentgemma smoke: windowed MQA at head dim 16
 ]
 # Beside the sweep's tolerance, the wgmma kernel's bf16 output stays within one
 # bf16 rounding of the plain version that feeds P as the same two bf16 terms
@@ -431,6 +434,84 @@ def test_rglru_scan_kernel_reads_misaligned_inputs(card, dtype):
     assert torch.equal(ops.rglru_scan(a_off, b_off), ops.rglru_scan(a, b))
 
 
+def _scan_bwd_inputs(card, B, S, W, dtype, seed=20):
+    """a, the scan's output h (through the kernel) and a gradient dh."""
+    a, b = _scan_inputs(card, B, S, W, dtype, seed=seed)
+    g = torch.Generator(device=card).manual_seed(seed + 1)
+    return a, ops.rglru_scan(a, b), torch.randn((B, S, W), generator=g, device=card).to(TDT[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,W", SCAN_CASES)
+def test_rglru_scan_bwd_kernel_vs_plain(card, B, S, W, dtype):
+    """Through ops, which launches the chunked kernel backward in time; against
+    the plain backward at the dtype's tolerance, beside its own order of
+    arithmetic (ref.rglru_bwd_chunked_ref) within a few f32 roundings, one
+    bf16 rounding for bf16 outputs; two launches give equal bits."""
+    a, h, dh = _scan_bwd_inputs(card, B, S, W, dtype)
+    before = ops.launch_counts()["rglru_scan_bwd"]
+    da, db = ops.rglru_scan_bwd(a, h, dh)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rglru_scan_bwd"] == before + 1
+    want = ops.ref.rglru_bwd_ref(a, h, dh)
+    model = ops.ref.rglru_bwd_chunked_ref(a, h, dh, rgk.SUB_CHUNK, warps=rgk.WARPS, cluster=rgk.cluster_size(S))
+    for got, w, m in zip((da, db), want, model):
+        _close(got, w, dtype)
+        torch.testing.assert_close(got.float(), m.float(), rtol=1e-6 if dtype == "f32" else 2**-8, atol=1e-6)
+    again = ops.rglru_scan_bwd(a, h, dh)
+    assert torch.equal(again[0], da) and torch.equal(again[1], db)
+
+
+@pytest.mark.gpu
+def test_rglru_scan_bwd_kernel_holds_f32_on_slow_decays(card):
+    """a in [0.99, 1) over 4096 steps, where g sums ~100 terms of dh (|g| up to
+    ~60): within a few f32 roundings of its own order of arithmetic, and
+    within f32 2e-5 of the plain loop with the atol scaled by the largest
+    |g| (_grad_close): an entry near 0 carries the rounding of its terms, not
+    of itself (at the plain atol 3 of the 1M entries part by up to 3.0e-5)."""
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(rng.uniform(0.99, 1.0, (1, 4096, 256)).astype(np.float32)).to(card)
+    h = torch.from_numpy(rng.standard_normal((1, 4096, 256)).astype(np.float32)).to(card)
+    dh = torch.from_numpy(rng.standard_normal((1, 4096, 256)).astype(np.float32)).to(card)
+    got = ops.rglru_scan_bwd(a, h, dh)
+    model = ops.ref.rglru_bwd_chunked_ref(a, h, dh, rgk.SUB_CHUNK, warps=rgk.WARPS, cluster=rgk.cluster_size(4096))
+    for x, want, m in zip(got, ops.ref.rglru_bwd_ref(a, h, dh), model):
+        _grad_close(x, want, "f32")
+        torch.testing.assert_close(x, m, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rglru_scan_bwd_kernel_reads_misaligned_inputs(card, dtype):
+    """Views off a 16-byte boundary take the one-element loads: the same bits."""
+    B, S, W = 2, 300, 512
+    a, h, dh = _scan_bwd_inputs(card, B, S, W, dtype, seed=22)
+
+    def off(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype, device=card)[1:].view(t.shape).copy_(t)
+
+    got, want = ops.rglru_scan_bwd(off(a), off(h), off(dh)), ops.rglru_scan_bwd(a, h, dh)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rglru_scan_autograd_launches_the_bwd_kernel_once(card, dtype):
+    """A recorded scan's backward is one launch of the backward kernel, whose
+    gradients are the plain backward's from the saved a and h."""
+    a, b = _scan_inputs(card, 2, 300, 256, dtype, seed=23)
+    a, b = a.requires_grad_(), b.requires_grad_()
+    dh = torch.randn(a.shape, device=card).to(a.dtype)
+    ops.reset_launch_counts()
+    h = ops.rglru_scan(a, b)
+    da, db = torch.autograd.grad(h, (a, b), dh)
+    counts = ops.launch_counts()
+    assert counts["rglru_scan"] == 1 and counts["rglru_scan_bwd"] == 1
+    for got, want in zip((da, db), ops.ref.rglru_bwd_ref(a.detach(), h.detach(), dh)):
+        _close(got, want, dtype)
+
+
 # The launches of one smoke forward: one flash per attn layer, each on the
 # wgmma kernel (bf16 at head dim 16), two RMSNorms per layer (four with
 # qk-norms) plus the final one, one scan per rec layer.
@@ -439,17 +520,17 @@ SMOKE_FORWARD_LAUNCHES = {
     "qwen3-4b": {"flash_attention": 3, "flash_attention_wgmma": 3, "fused_rmsnorm": 13, "rglru_scan": 0,
                  "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                  "flash_attention_bwd_mma": 0,
-                 "fused_rmsnorm_bwd": 0},
+                 "fused_rmsnorm_bwd": 0, "rglru_scan_bwd": 0},
     # 2 attn layers
     "gemma-2b": {"flash_attention": 2, "flash_attention_wgmma": 2, "fused_rmsnorm": 5, "rglru_scan": 0,
                  "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                  "flash_attention_bwd_mma": 0,
-                 "fused_rmsnorm_bwd": 0},
+                 "fused_rmsnorm_bwd": 0, "rglru_scan_bwd": 0},
     # one (rec, rec, attn) unit + two remainder rec layers
     "recurrentgemma-9b": {"flash_attention": 1, "flash_attention_wgmma": 1, "fused_rmsnorm": 11, "rglru_scan": 4,
                           "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                  "flash_attention_bwd_mma": 0,
-                 "fused_rmsnorm_bwd": 0},
+                 "fused_rmsnorm_bwd": 0, "rglru_scan_bwd": 0},
 }
 
 
@@ -489,6 +570,7 @@ def test_smoke_server_on_card_launches_the_norm_kernel(card):
         "flash_attention_bwd_wgmma": 0,
         "flash_attention_bwd_mma": 0,
         "fused_rmsnorm_bwd": 0,
+        "rglru_scan_bwd": 0,
     }
 
 
@@ -511,6 +593,7 @@ def test_hybrid_smoke_server_on_card(card):
         "flash_attention_bwd_wgmma": 0,
         "flash_attention_bwd_mma": 0,
         "fused_rmsnorm_bwd": 0,
+        "rglru_scan_bwd": 0,
     }
     assert server.state["remainder"]["layer4"]["h"].abs().sum() > 0
 
@@ -523,51 +606,120 @@ def _leaves(tree, prefix=()):
         yield ".".join(prefix), tree
 
 
-def _smoke_train_step(card, remat=None):
-    """One train step at qwen3-4b smoke on the card and on the CPU from the same
-    weights and batch. -> (card (params, state, metrics, launches), CPU (...),
-    the weights before the step)."""
-    from repro_torch.data import DataConfig, SyntheticLM
+def _smoke_train_step(card, remat=None, arch="qwen3-4b", plain_on_card=False):
+    """One train step at ``arch``'s smoke config through the kernels on the
+    card, and one on the CPU (or, ``plain_on_card``, through the plain
+    versions on the card), from the same weights and batch. -> (card (params,
+    state, metrics, launches), the other run (...), the weights before the
+    step)."""
+    from contextlib import nullcontext
+
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw_init, cosine_schedule
 
-    cfg = get_config("qwen3-4b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     if remat is not None:
         cfg = dataclasses.replace(cfg, remat=remat)
     params_cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0), train=True)
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0)).batch(0)
     lr_fn = cosine_schedule(1e-2, warmup_steps=0, total_steps=10)
     out = []
-    for dev in (card, torch.device("cpu")):
+    for dev, plain in ((card, False), (card, True) if plain_on_card else (torch.device("cpu"), False)):
         model = Model(cfg, device=dev)
         p = tree_map_with_path(lambda _, x: x.to(dev, copy=True), params_cpu)
-        ops.reset_launch_counts()
-        p, st, met = make_train_step(model, lr_fn)(p, adamw_init(p), {k: torch.from_numpy(v).to(dev)
-                                                                     for k, v in batch.items()})
-        out.append((p, st, met, ops.launch_counts()))
+        with ops.plain_versions() if plain else nullcontext():
+            ops.reset_launch_counts()
+            p, st, met = make_train_step(model, lr_fn)(p, adamw_init(p), {k: torch.from_numpy(v).to(dev)
+                                                                         for k, v in batch.items()})
+            out.append((p, st, met, ops.launch_counts()))
     return (*out, params_cpu)
+
+
+def _hold_step(card_run, ref_run, p0):
+    """chip_smoke.py's TRAIN_CARD_VS_CPU bounds, the card's step against a
+    reference run (the CPU's, or the plain path on the card): the loss within
+    0.01, each moment leaf within 5 % relative L2, each leaf's update within
+    20 % relative L2 (Adam's first update is lr * sign(g), so the update's
+    error counts the entries whose sign flips)."""
+    (pg, sg, mg, _), (pc, sc, mc, _) = card_run, ref_run
+    assert abs(float(mg["loss"]) - float(mc["loss"])) < 1e-2
+    for part in ("m", "v"):
+        for (name, x), (_, y) in zip(_leaves(sg[part]), _leaves(sc[part])):
+            x, y = x.cpu(), y.cpu()
+            rel = float((x - y).norm() / y.norm().clamp_min(1e-30))
+            assert rel < 5e-2, (part, name, rel)
+    for (name, x), (_, y), (_, p) in zip(_leaves(pg), _leaves(pc), _leaves(p0)):
+        x, y = x.cpu(), y.cpu()
+        rel = float((x - y).norm() / (y - p).norm().clamp_min(1e-30))
+        assert rel < 0.2, (name, rel)
 
 
 @pytest.mark.gpu
 def test_smoke_train_step_on_card_vs_cpu(card):
-    """chip_smoke.py's TRAIN_CARD_VS_CPU bounds: the loss within 0.01, each
-    moment leaf within 5 % relative L2, each leaf's update within 20 %
-    relative L2 (Adam's first update is lr * sign(g), so the update's error
-    counts the entries whose sign flips). Both backward kernels launch once
-    per layer (four norms a layer plus the final one), no plain backward on
-    the card."""
-    (pg, sg, mg, counts), (pc, sc, mc, _), p0 = _smoke_train_step(card)
-    assert abs(float(mg["loss"]) - float(mc["loss"])) < 1e-2
-    for part in ("m", "v"):
-        for (name, x), (_, y) in zip(_leaves(sg[part]), _leaves(sc[part])):
-            rel = float((x.cpu() - y).norm() / y.norm().clamp_min(1e-30))
-            assert rel < 5e-2, (part, name, rel)
-    for (name, x), (_, y), (_, p) in zip(_leaves(pg), _leaves(pc), _leaves(p0)):
-        rel = float((x.cpu() - y).norm() / (y - p).norm().clamp_min(1e-30))
-        assert rel < 0.2, (name, rel)
+    """Both backward kernels launch once per layer (four norms a layer plus
+    the final one), no plain backward on the card."""
+    card_run, cpu_run, p0 = _smoke_train_step(card)
+    _hold_step(card_run, cpu_run, p0)
+    counts = card_run[3]
     assert counts == {"flash_attention": 3, "flash_attention_wgmma": 3, "fused_rmsnorm": 13, "rglru_scan": 0,
                       "rglru_scan_sequential": 0, "flash_attention_bwd": 3, "flash_attention_bwd_wgmma": 3,
-                      "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 13}
+                      "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 13,
+                      "rglru_scan_bwd": 0}
+
+
+@pytest.mark.gpu
+def test_hybrid_smoke_train_step_kernels_vs_plain_on_card(card):
+    """recurrentgemma-9b smoke (one (rec, rec, attn) unit and two remainder
+    rec layers, remat "none") through the kernels against the same step
+    through the plain versions on the same card, at the bounds above: the
+    scan and its backward kernel once per rec layer, flash and its wgmma pair
+    once (bf16 at head dim 16), two norms a layer plus the final one, each
+    with its backward. Against the CPU the step is ill-posed at this init
+    (chip_smoke.py's TRAIN_CHECKS): the card's plain path parts from the
+    CPU's by 0.48 on the moments, as far as the kernels do. The hybrid's
+    gradients are held to the CPU's in
+    test_smoke_grads_on_card_vs_cpu_with_plain_attention."""
+    card_run, plain_run, p0 = _smoke_train_step(card, arch="recurrentgemma-9b", plain_on_card=True)
+    _hold_step(card_run, plain_run, p0)
+    assert not any(plain_run[3].values())
+    assert card_run[3] == {"flash_attention": 1, "flash_attention_wgmma": 1, "fused_rmsnorm": 11, "rglru_scan": 4,
+                           "rglru_scan_sequential": 0, "flash_attention_bwd": 1, "flash_attention_bwd_wgmma": 1,
+                           "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 11, "rglru_scan_bwd": 4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-4b", "recurrentgemma-9b"])
+def test_smoke_grads_on_card_vs_cpu_with_plain_attention(card, arch):
+    """The loss and each leaf's gradient of the smoke config, the card
+    against the CPU, flash attention through its plain f32 version on both
+    sides and the other kernels launched on the card: chip_smoke.py's
+    GRADS_CARD_VS_CPU (the loss within 1e-4, each leaf within 5 % relative
+    L2). The initial weights with each stacked matrix scaled from std
+    1/sqrt(n_units) to 1/sqrt(d_in), its unstacked spec's: at the init itself
+    the hybrid's gradients move by up to 0.43 per leaf under a 1e-6 nudge of
+    the norm scales on one device, so no two devices can agree there."""
+    cfg = get_config(arch, smoke=True)
+    params_cpu = at_unstacked_std(Model(cfg, device="cpu").init(torch.Generator().manual_seed(0), train=True))
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0)).batch(0)
+    out = []
+    for dev in (card, torch.device("cpu")):
+        model = Model(cfg, device=dev)
+        p = tree_map_with_path(lambda _, x: x.to(dev, copy=True), params_cpu)
+        grads = tree_map_with_path(lambda _, x: torch.zeros_like(x, dtype=torch.float32), p)
+        ops.reset_launch_counts()
+        with ops.plain_versions("flash_attention"):
+            loss, _ = model.loss(model.grad_leaves(p, grads), {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+            loss.backward()
+        out.append((float(loss.detach()), grads, ops.launch_counts()))
+    (lc, gc, counts), (lw, gw, _) = out
+    assert abs(lc - lw) < 1e-4
+    for (name, x), (_, y) in zip(_leaves(gc), _leaves(gw)):
+        rel = float((x.cpu() - y).norm() / y.norm().clamp_min(1e-30))
+        assert rel < 5e-2, (name, rel)
+    n_rec = sum(layer_kind(cfg, i) == "rec" for i in range(cfg.n_layers))
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == 0
+    assert counts["rglru_scan"] == counts["rglru_scan_bwd"] == n_rec
+    assert counts["fused_rmsnorm"] == counts["fused_rmsnorm_bwd"] > 0
 
 
 @pytest.mark.gpu

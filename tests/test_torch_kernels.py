@@ -373,12 +373,39 @@ def test_rmsnorm_function_cpu_path_takes_the_plain_backward(dtype):
     assert set(ops.launch_counts().values()) == {0}
 
 
-def test_rglru_scan_gradient_raises():
-    a, b = torch.rand(1, 8, 4, requires_grad=True), torch.randn(1, 8, 4)
-    h = ops.rglru_scan(a, b)
-    assert torch.equal(h.detach(), ref.rglru_ref(a.detach(), b))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        h.sum().backward()
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rglru_scan_function_cpu_path_takes_the_plain_backward(dtype):
+    """A recorded scan on the CPU: the Function saves a and h, and its
+    backward is the plain one on them, with no launch counted."""
+    rng = np.random.default_rng(27)
+    a = torch.from_numpy(rng.uniform(0.1, 0.9, (2, 19, 6)).astype(np.float32)).to(TDT[dtype])
+    b = torch.from_numpy(rng.standard_normal((2, 19, 6), np.float32)).to(TDT[dtype])
+    dh = torch.from_numpy(rng.standard_normal((2, 19, 6), np.float32)).to(TDT[dtype])
+    al, bl = a.clone().requires_grad_(), b.clone().requires_grad_()
+    ops.reset_launch_counts()
+    h = ops.rglru_scan(al, bl)
+    assert torch.equal(h.detach(), ref.rglru_ref(a, b))
+    got = torch.autograd.grad(h, (al, bl), dh)
+    want = ref.rglru_bwd_ref(a, h.detach(), dh)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert set(ops.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("bad", ["float16", "shape", "mixed_dtypes", "strided_h", "meta_device"])
+def test_rglru_scan_bwd_dispatch_rejects(bad):
+    a = h = dh = torch.rand(1, 8, 4)
+    if bad == "float16":
+        a = h = dh = a.half()
+    elif bad == "shape":
+        dh = dh[:, :4]
+    elif bad == "mixed_dtypes":
+        h = h.bfloat16()
+    elif bad == "strided_h":
+        h = torch.rand(1, 8, 8)[..., ::2]
+    elif bad == "meta_device":
+        a = h = dh = torch.empty((1, 8, 4), device="meta")
+    with pytest.raises((ValueError, TypeError)):
+        ops.rglru_scan_bwd(a, h, dh)
 
 
 @pytest.mark.parametrize("bad", ["o_shape", "do_dtype", "strided_o"])
@@ -409,7 +436,26 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 0,
                                    "rglru_scan": 0, "rglru_scan_sequential": 0, "flash_attention_bwd": 0,
                                    "flash_attention_bwd_wgmma": 0, "flash_attention_bwd_mma": 0,
-                                   "fused_rmsnorm_bwd": 0}
+                                   "fused_rmsnorm_bwd": 0, "rglru_scan_bwd": 0}
+
+
+def test_plain_versions_names_the_kernels_it_swaps_and_restores_them():
+    """Inside ``plain_versions`` the named kernels take their plain versions on
+    any device (a meta tensor stands for the card's here), the others do not;
+    the context nests and restores on exit, also after an error."""
+    t = torch.empty(1, device="meta")
+    assert not any(ops._plain(k, t) for k in ops.KERNELS)
+    with ops.plain_versions("rglru_scan"):
+        assert ops._plain("rglru_scan", t) and not ops._plain("flash_attention", t)
+        with ops.plain_versions():
+            assert all(ops._plain(k, t) for k in ops.KERNELS)
+        assert ops._plain("rglru_scan", t) and not ops._plain("fused_rmsnorm", t)
+    with pytest.raises(RuntimeError), ops.plain_versions("flash_attention"):
+        raise RuntimeError
+    assert not any(ops._plain(k, t) for k in ops.KERNELS)
+    assert ops._plain("flash_attention", torch.empty(1))  # a CPU tensor, always
+    with pytest.raises(ValueError, match="unknown kernels"), ops.plain_versions("rglru_scan_bwd"):
+        pass
 
 
 @pytest.mark.parametrize("D", flash.HEAD_DIMS)

@@ -73,20 +73,22 @@ class TestTrainer:
             log = json.load(f)
         assert [m["step"] for m in log["steps"]] == [7, 8, 9]
 
-    def test_resume_reproduces_uninterrupted_run(self, tmp_path):
-        """train(5) + resume(5) == train(10): the loss curve, and the
+    @pytest.mark.parametrize("arch,k,n", [("qwen3-4b", 5, 10), ("recurrentgemma-9b", 3, 6)])
+    def test_resume_reproduces_uninterrupted_run(self, tmp_path, arch, k, n):
+        """train(k) + resume(n - k) == train(n): the loss curve, and the
         parameters and optimizer state at the end, bit for bit."""
         a, b = tmp_path / "a", tmp_path / "b"
-        Trainer(job(a, steps=5, ckpt_every=5, profile=False)).run()
-        ta = Trainer(job(a, steps=10, ckpt_every=5, profile=False))
+        Trainer(job(a, arch=arch, steps=k, ckpt_every=k, profile=False)).run()
+        ta = Trainer(job(a, arch=arch, steps=n, ckpt_every=k, profile=False))
         ta.run()
-        tb = Trainer(job(b, steps=10, ckpt_every=10, profile=False))
+        tb = Trainer(job(b, arch=arch, steps=n, ckpt_every=n, profile=False))
         tb.run()
         with open(a / "metrics.json") as f:
             la = {m["step"]: m["loss"] for m in json.load(f)["steps"]}
         with open(b / "metrics.json") as f:
             lb = {m["step"]: m["loss"] for m in json.load(f)["steps"]}
-        for s in (6, 8, 10):
+        assert sorted(la) == list(range(k + 1, n + 1))
+        for s in la:
             assert la[s] == pytest.approx(lb[s], rel=1e-4), f"divergence at step {s}"
         for (pa, x), (pb, y) in zip(_flat(ta._state_tree()), _flat(tb._state_tree())):
             assert pa == pb and np.array_equal(np.asarray(x), np.asarray(y)), pa
@@ -189,12 +191,16 @@ class TestTrainer:
         assert saved == [1, 2] and len(trainer.anomalies) == 6
         assert CheckpointManager(str(tmp_path / "ckpt")).list_steps() == [1, 2, 3]
 
-    def test_cli_on_the_cpu(self, tmp_path):
-        """``python -m repro_torch.launch.train --arch qwen3-4b --device cpu --steps 5``"""
-        main(["--arch", "qwen3-4b", "--device", "cpu", "--steps", "5", "--out", str(tmp_path), "--no-resume"])
+    @pytest.mark.parametrize("arch,steps", [("qwen3-4b", 5), ("recurrentgemma-9b", 20)])
+    def test_cli_on_the_cpu(self, tmp_path, arch, steps):
+        """``python -m repro_torch.launch.train --arch <arch> --device cpu --steps <steps>``.
+        The hybrid's smoke model starts at the uniform loss (ln 256, its tied
+        embedding's logits are ~0.6 at most) and falls slowly under the CLI's
+        warm-up: 5.544 to 5.548 after 5 steps, 5.529 after 20."""
+        main(["--arch", arch, "--device", "cpu", "--steps", str(steps), "--out", str(tmp_path), "--no-resume"])
         with open(tmp_path / "metrics.json") as f:
             summary = json.load(f)["summary"]
-        assert summary["steps"] == 5 and summary["final_loss"] < summary["first_loss"]
+        assert summary["steps"] == steps and summary["final_loss"] < summary["first_loss"]
 
     def test_daemon_backend_is_not_ported(self, tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
