@@ -26,8 +26,9 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               the plain backward, the library call's backward through autograd
               (where one exists) and the bound; the flash backward as the wgmma
               pair (from the forward's lse, held to the plain lse) beside the mma
-              and FMA pairs it replaced at qwen3-4b's shape, and as the FMA pair
-              at the hybrid's (windowed MQA at head dim 256); the scan backward
+              and FMA pairs it replaced at qwen3-4b's shape, and beside the FMA
+              pair at the hybrid's (windowed MQA at head dim 256, with its dQ,
+              dK/dV and partial-sum kernels apart); the scan backward
               at 1 and 2 x 4096 x 4096 f32, also held to its own order of
               arithmetic, its two launches equal to the bit;
 
@@ -133,10 +134,9 @@ PATHS = {
 #   45.3 GB) its peak is 75.0 GB. S = 4096, so that the window of 2048 binds
 #   in the backward too.
 # ``flash`` names the flash kernels each step must take (forward, backward):
-# the wgmma kernel and pair for qwen3-4b (bf16, D = 128); for the hybrid
-# (D = 256) the wgmma forward and the FMA backward pair.
+# the wgmma kernel and pair for both (bf16 at D = 128 and 256).
 TRAIN = dict(arch="qwen3-4b", B=1, S=2048, timed_steps=3, flash=("wgmma", "wgmma"))
-TRAIN_HYBRID = dict(arch="recurrentgemma-9b", B=1, S=4096, timed_steps=3, n_layers=8, flash=("wgmma", "fma"),
+TRAIN_HYBRID = dict(arch="recurrentgemma-9b", B=1, S=4096, timed_steps=3, n_layers=8, flash=("wgmma", "wgmma"),
                     depth_why="38 layers need 150 GB of state; 11 ran out of memory on an H100; 8 fit")
 # One train step at qwen3-4b smoke, card against CPU, from the same weights and
 # batch: the loss within 0.01; each moment leaf within 5 % relative L2 (the
@@ -349,6 +349,7 @@ FLASH_CASES = [
     (1, 100, 300, 4, 2, 128, None), (1, 260, 130, 2, 1, 256, None),  # S < T, S > T
     (1, 512, 512, 4, 4, 128, 200), (1, 512, 512, 2, 1, 256, 100),  # windows off the tile grid
     (2, 256, 256, 4, 4, 128, None), (2, 256, 256, 16, 4, 128, None), (2, 320, 320, 16, 1, 256, 96),  # G 1/4/16
+    (2, 192, 192, 4, 2, 256, None), (1, 256, 256, 2, 2, 256, 64),  # D = 256: head groups of Hkv > 1; Hq = Hkv
     (4, 64, 64, 4, 1, 16, 8),  # recurrentgemma smoke: windowed MQA at head dim 16
 ]
 
@@ -744,12 +745,13 @@ def flash_bwd_sweep(torch, ops, ref, dev) -> tuple[dict, int]:
     """The backward kernels over FLASH_CASES in f32 and bf16, causal and not,
     from the forward kernel's own output (and its lse where the wgmma pair
     reads it, held to the plain lse), through ``ops`` (the wgmma pair for bf16
-    at D 16/64/128, the FMA pair otherwise; one launch counted per call), and
-    on the wgmma pair's cases the pairs ops does not pick too: the mma pair,
-    and the FMA pair where it is built (not bf16 at D = 16); each gradient
-    against the plain backward (``flash_grad_close``). The wgmma pair runs
-    twice on each case: equal bits. -> (worst error by pair, worst block
-    error by pair and dtype, worst lse error; cases)."""
+    at D 16/64/128/256, the FMA pair otherwise; one launch counted per call),
+    and on the wgmma pair's cases the pairs ops does not pick too: the mma
+    pair where it is built (D 16/64/128), and the FMA pair where it is built
+    (not bf16 at D = 16); each gradient against the plain backward
+    (``flash_grad_close``). The wgmma pair runs twice on each case: equal
+    bits. -> (worst error by pair, worst block error by pair and dtype, worst
+    lse error; cases)."""
     from repro_torch.kernels import flash_attention as flash
 
     g = torch.Generator(device=dev).manual_seed(16)
@@ -784,7 +786,8 @@ def flash_bwd_sweep(torch, ops, ref, dev) -> tuple[dict, int]:
                     again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
                     if not all(torch.equal(x, y) for x, y in zip(got, again)):
                         raise AssertionError(f"flash_attention_bwd (wgmma) {case}: two launches differ")
-                    runs.append(("mma", flash.launch_bwd_mma(q, k, v, o, do, causal=causal, window=window)))
+                    if D in flash.MMA_BWD_HEAD_DIMS:
+                        runs.append(("mma", flash.launch_bwd_mma(q, k, v, o, do, causal=causal, window=window)))
                     if D in flash.FMA_BWD_BF16_HEAD_DIMS:
                         runs.append(("fma", flash.launch_bwd_fma(q, k, v, o, do, causal=causal, window=window)))
                 for pair, grads in runs:
@@ -879,35 +882,51 @@ def time_flash_bwd(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
     }
 
 
+def bwd_kernel_ms(by_kernel: dict) -> dict:
+    """A backward pair's device ms by kernel name -> ms of its dQ kernel, its
+    dK/dV kernel and the sum of the dK/dV partials (0 where it did not run)."""
+    out = {"dq_ms": 0.0, "dkdv_ms": 0.0, "dkdv_sum_ms": 0.0}
+    for name, ms in by_kernel.items():
+        key = "dkdv_sum_ms" if "dkdv_sum" in name else "dkdv_ms" if "dkdv" in name else "dq_ms"
+        out[key] += ms
+    return out
+
+
 def time_flash_bwd_windowed(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
     """The hybrid training step's attention backward: B x S tokens, causal,
-    the config's window, MQA at head dim 256, bf16, through ``ops`` (the FMA
-    pair: the wgmma pair is built for D 16/64/128), from the forward kernel's
-    output, held to the plain backward (``flash_grad_close``) and timed beside
-    the plain backward and SDPA's backward through ``torch.autograd.grad``
-    with the window as ``attn_mask`` and k/v repeated to every q head, as the
-    forward's hybrid row. Bound: 2.5 x the forward's operations over the
-    windowed pairs at the bf16 tensor-core peak."""
+    the config's window, MQA at head dim 256, bf16, through ``ops`` (the
+    wgmma pair) from the wgmma forward's output and lse (held to the plain
+    lse), held to the plain backward (``flash_grad_close``), its two launches
+    equal to the bit, and timed (per kernel: dQ, dK/dV, the partial sum; and
+    on CUDA events) beside the FMA pair it replaced, the plain backward and
+    SDPA's backward through ``torch.autograd.grad`` with the window as
+    ``attn_mask`` and k/v repeated to every q head, as the forward's hybrid
+    row. Bound: 2.5 x the forward's operations over the windowed pairs at the
+    bf16 tensor-core peak."""
     from repro_torch.kernels import flash_attention as flash
 
     g = torch.Generator(device=dev).manual_seed(23)
     Hq, Hkv, D, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
     q = torch.randn((B, S, Hq, D), generator=g, device=dev).bfloat16()
     k, v = (torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16() for _ in range(2))
-    o = ops.flash_attention(q, k, v, window=window)
+    o, lse = ops.flash_attention(q, k, v, window=window, return_lse=True)
     do = torch.randn(o.shape, generator=g, device=dev).bfloat16()
     t = [a.transpose(1, 2) for a in (q, k, v, o, do)]
-    variant = flash.bwd_variant(q.dtype, D)
+    lse_rel = lse_close("flash lse", lse, ref.attention_ref(*t[:3], window=window, return_lse=True)[1], B=B, S=S)
     before = ops.launch_counts()
-    got = ops.flash_attention_bwd(q, k, v, o, do, window=window)
+    got = ops.flash_attention_bwd(q, k, v, o, do, window=window, lse=lse)
     after = ops.launch_counts()
     if (after["flash_attention_bwd"] != before["flash_attention_bwd"] + 1
-            or after["flash_attention_bwd_wgmma"] != before["flash_attention_bwd_wgmma"] + (variant == "wgmma")):
-        raise AssertionError(f"flash_attention_bwd at the hybrid training shape: expected one launch of the {variant} "
-                             "pair")
+            or after["flash_attention_bwd_wgmma"] != before["flash_attention_bwd_wgmma"] + 1):
+        raise AssertionError("flash_attention_bwd at the hybrid training shape did not take the wgmma pair")
+    if not all(torch.equal(x, y) for x, y in zip(got, ops.flash_attention_bwd(q, k, v, o, do, window=window,
+                                                                              lse=lse))):
+        raise AssertionError("flash_attention_bwd (wgmma) at the hybrid training shape: two launches differ")
     want = ref.attention_bwd_ref(*t, window=window)
-    checks = {n: flash_grad_close(f"flash_attention_bwd ({variant}) {n}", x, w.transpose(1, 2), B=B, S=S, D=D)
-              for n, x, w in zip(("dq", "dk", "dv"), got, want)}
+    checks = {}
+    for pair, grads in (("wgmma", got), ("fma", flash.launch_bwd_fma(q, k, v, o, do, causal=True, window=window))):
+        checks[pair] = {n: flash_grad_close(f"flash_attention_bwd ({pair}) {n}", x, w.transpose(1, 2), B=B, S=S, D=D)
+                        for n, x, w in zip(("dq", "dk", "dv"), grads, want)}
     del got, want
     pairs = sum(min(i + 1, window) for i in range(S))
     flops = 2.5 * 4 * B * Hq * D * pairs
@@ -919,17 +938,22 @@ def time_flash_bwd_windowed(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dic
                                                  for x in t[1:3]]
     lo = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
     library = lambda: torch.autograd.grad(lo, leaves, t[4], retain_graph=True)  # noqa: E731
-    return {
+    row = {
         "shape": f"q {B}x{S}x{Hq}x{D}, k/v {B}x{S}x{Hkv}x{D}, bf16, causal, window {window}",
-        "variant": variant, "max_abs_err": max(e for e, _ in checks.values()),
-        "block_rel_l2": {n: r for n, (_, r) in checks.items()},
-        **timed("", lambda: ops.flash_attention_bwd(q, k, v, o, do, window=window), 3, by_kernel=True),
+        "variant": "wgmma", "max_abs_err": max(e for e, _ in checks["wgmma"].values()), "lse_rel_err": lse_rel,
+        "fma_max_abs_err": max(e for e, _ in checks["fma"].values()),
+        **{f"{p}_block_rel_l2": {n: r for n, (_, r) in c.items()} for p, c in checks.items()},
+        "dkdv_splits": flash.dkdv_splits(B, Hkv, Hq // Hkv, S,
+                                         torch.cuda.get_device_properties(dev).multi_processor_count),
+        **timed("", lambda: ops.flash_attention_bwd(q, k, v, o, do, window=window, lse=lse), 20, by_kernel=True),
+        **timed("fma_", lambda: flash.launch_bwd_fma(q, k, v, o, do, causal=True, window=window), 3, by_kernel=True),
         **timed("plain_", lambda: ref.attention_bwd_ref(*t, window=window), 2),
-        **timed("library_", library, 5),
+        **timed("library_", library, 10),
         "library_call": f"torch.autograd.grad of F.scaled_dot_product_attention(attn_mask=causal window {window}), "
                         f"k/v repeated to {Hq} heads",
         "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": nbytes,
     }
+    return {**row, **bwd_kernel_ms(row["by_kernel_ms"])}
 
 
 def time_rmsnorm_bwd(torch, F, ops, ref, dev, rows: int, D: int, dtype) -> dict:
@@ -1409,25 +1433,25 @@ def main() -> int:
             }
             if n_wgmma != launches[name]:
                 raise AssertionError(f"flash launches on the main paths: {n_wgmma} of {launches[name]} on wgmma")
-        if name == "flash_attention_bwd":  # the main paths' pairs (wgmma; FMA at D = 256), and the mma pair
+        if name == "flash_attention_bwd":  # the main paths' pair (wgmma), and the mma and FMA pairs it replaced
             n_wgmma, n_mma = launches["flash_attention_bwd_wgmma"], launches["flash_attention_bwd_mma"]
-            fma_rows = [r for r in rows if r["variant"] == "fma"]
             row["variants"] = {
-                "wgmma": {"launches": n_wgmma, "ms": [main_row["ms"]], "events_ms": [main_row["events_ms"]],
-                          "max_abs_err": max(sweep_err[name]["wgmma"], main_row["max_abs_err"]),
+                "wgmma": {"launches": n_wgmma, "shapes": [r["shape"] for r in rows], "ms": [r["ms"] for r in rows],
+                          "events_ms": [r["events_ms"] for r in rows],
+                          "kernels_ms": [bwd_kernel_ms(r["by_kernel_ms"]) for r in rows],
+                          "bound_ms": [r["bound_ms"] for r in rows], "library_ms": [r["library_ms"] for r in rows],
+                          "max_abs_err": max(sweep_err[name]["wgmma"], *(r["max_abs_err"] for r in rows)),
                           "block_rel_l2": max(sweep_err[name]["wgmma_block_rel_l2_bfloat16"],
-                                              *main_row["wgmma_block_rel_l2"].values())},
+                                              *(x for r in rows for x in r["wgmma_block_rel_l2"].values()))},
                 "mma": {"launches": n_mma, "ms": [main_row["mma_ms"]], "events_ms": [main_row["mma_events_ms"]],
                         "max_abs_err": max(sweep_err[name]["mma"], main_row["mma_max_abs_err"])},
-                "fma": {"launches": launches[name] - n_wgmma, "shapes": [main_row["shape"]] + [r["shape"] for r in fma_rows],
-                        "ms": [main_row["fma_ms"]] + [r["ms"] for r in fma_rows],
-                        "events_ms": [main_row["fma_events_ms"]] + [r["events_ms"] for r in fma_rows],
-                        "bound_ms": [r["bound_ms"] for r in fma_rows], "library_ms": [r["library_ms"] for r in fma_rows],
-                        "max_abs_err": max(sweep_err[name]["fma"], main_row["fma_max_abs_err"],
-                                           *(r["max_abs_err"] for r in fma_rows))},
+                "fma": {"launches": launches[name] - n_wgmma, "ms": [r["fma_ms"] for r in rows],
+                        "events_ms": [r["fma_events_ms"] for r in rows],
+                        "max_abs_err": max(sweep_err[name]["fma"], *(r["fma_max_abs_err"] for r in rows))},
             }
-            if n_mma:
-                raise AssertionError(f"flash backward launches on the main paths: {n_mma} on the mma pair")
+            if n_mma or n_wgmma != launches[name]:
+                raise AssertionError(f"flash backward launches on the main paths: {n_wgmma} of {launches[name]} on "
+                                     f"the wgmma pair, {n_mma} on the mma pair")
         if name == "rglru_scan_bwd":
             row["shapes_ms"] = {r["shape"]: r["ms"] for r in rows}
         if name == "rglru_scan":  # ops launches only the chunked kernel; the sequential one is timed beside it

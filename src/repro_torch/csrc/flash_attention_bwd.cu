@@ -23,10 +23,11 @@
 // five products of S x T x D per head against the forward's two). Three
 // variants, picked by dtype and head dim alone (kernels/flash_attention.py
 // bwd_variant; the mma pair is kept as a yardstick that ops never picks),
-// each a pair of kernels, all deterministic (no atomics):
+// each a pair of kernels (the wgmma pair at D = 256 may launch a third that
+// adds partial sums), all deterministic (no atomics):
 //
-// The wgmma variant (bf16 at D in {16, 64, 128}: the models' training path)
-// is built for that bound with Hopper's tensor-core pipeline, as the
+// The wgmma variant (bf16 at D in {16, 64, 128, 256}: the models' training
+// path) is built for that bound with Hopper's tensor-core pipeline, as the
 // forward's wgmma kernel (flash_attention_sm90.cuh holds the building blocks):
 // a producer warpgroup of which one thread keeps TMA loads in flight through
 // mbarrier rings, two consumer warpgroups running wgmma (setmaxnreg 24/240, so
@@ -42,11 +43,13 @@
 //   * flash_bwd_dq_wgmma_kernel, one block per (b, q-head, 128 query rows),
 //     the last rows first (the longest under a causal mask): Dr for its rows
 //     from dO and O (to scratch for the second kernel); Q and dO loaded once;
-//     64-key K/V tiles through a 2-stage ring; per tile S = Q K^T and
-//     dP = dO V^T (SS, two commit groups, so P's exponentials run while dP is
-//     multiplied), P and dS in registers, dQ += dS K (RS, K MN-major);
-//   * flash_bwd_dkdv_wgmma_kernel, one block per (b, kv-head, pair of 64-key
-//     tiles j and n - 1 - j): under a causal mask a pair sees the same number
+//     64-key K/V tiles through a 2-stage ring (32-key at D = 256, where Q and
+//     dO take 128 KB); per tile S = Q K^T and dP = dO V^T (SS, two commit
+//     groups, so P's exponentials run while dP is multiplied), P and dS in
+//     registers, dQ += dS K (RS, K MN-major; dQ is 128 f32 a thread at
+//     D = 256, one m64n256 product a k16 step);
+//   * flash_bwd_dkdv_wgmma_kernel (D <= 128), one block per (b, kv-head,
+//     pair of 64-key tiles j and n - 1 - j): under a causal mask a pair sees the same number
 //     of q tiles in every block, so 128 equal blocks fill the card at the
 //     training shape where one block per key tile would leave the first
 //     tiles' blocks running alone. K and V stay in shared memory while a
@@ -55,7 +58,20 @@
 //     q tiles: S^T = K Q^T and dP^T = V dO^T (SS), P^T and dS^T in registers,
 //     dV += P^T dO and dK += dS^T Q (RS, dO and Q MN-major). At each key
 //     tile's end the warpgroups add their partial sums through shared memory
-//     in a fixed order and write dK and dV.
+//     in a fixed order and write dK and dV;
+//   * flash_bwd_dkdv_d256_kernel (D = 256), where a warpgroup's dK and dV
+//     over all of D would be 256 f32 a thread and the partial-sum buffer
+//     alone 128 KB: one block per (64-key tile, b, kv-head, group of the kv
+//     group's q-heads), the key tiles in order. Both warpgroups take every
+//     q tile: warpgroup 0 runs S^T = K Q^T and hands P^T (f32) over through
+//     shared memory, warpgroup 1 runs dP^T = V dO^T and hands dS^T (bf16
+//     fragments) back, named barriers between; each then accumulates its
+//     own 128 columns of dV += P^T dO and dK += dS^T Q, so no product runs
+//     twice and no sum is held twice (64 + 64 f32 a thread). At MQA and
+//     batch 1 one block per key tile leaves most SMs idle (64 blocks at
+//     T = 4096): the wrapper then splits the q-heads into groups
+//     (kernels/flash_attention.py dkdv_splits), each block writes f32 partial
+//     sums, and flash_bwd_dkdv_sum_kernel adds them in the groups' order.
 //
 // The mma variant (bf16 at D in {16, 64, 128}), the first tensor-core pair,
 // runs the five products with mma.sync m16n8k16 (bf16 operands, f32 sums),
@@ -76,10 +92,10 @@
 //     32-row q tiles that see its keys: S^T = K Q^T and dP^T = V dO^T, P^T and
 //     dS^T from the scratch lse and Dr, dV += P^T dO and dK += dS^T Q.
 //
-// The FMA variant (f32 at any D, bf16 at D = 8 and 256; bf16 at D = 16 is
-// not built, the wgmma pair's) is the first kernel written, built to be right
-// and simple: f32 FMAs out of shared memory, so shared-memory bandwidth is its
-// limit, as for the forward's FMA kernel:
+// The FMA variant (f32 at any D, bf16 at D = 8; also built for bf16 at 64,
+// 128 and 256 as a yardstick of the wgmma pair, not at 16) is the first kernel
+// written, built to be right and simple: f32 FMAs out of shared memory, so
+// shared-memory bandwidth is its limit, as for the forward's FMA kernel:
 //
 //   * flash_bwd_dq_kernel, one block per (b, q-head, BLOCK query rows),
 //     TPR threads a row: Dr from dO and O; a pass over the visible K tiles
@@ -808,7 +824,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }  // namespace mma_bwd
 
 // ---------------------------------------------------------------------------
-// The wgmma variant: bf16, D in {16, 64, 128}
+// The wgmma variant: bf16, D in {16, 64, 128, 256}
 // ---------------------------------------------------------------------------
 
 namespace wgmma_bwd {
@@ -819,9 +835,9 @@ constexpr int THREADS = 384;    // warpgroups 0-1 consume, warpgroup 2 produces 
 constexpr int CONSUMERS = 256;
 constexpr int ROWS = 64;        // rows of a K, V, Q or dO tile that a product reads; one consumer warpgroup's M
 constexpr int DQ_ROWS = 128;    // query rows of a dQ block: one 64-row slice per consumer warpgroup
-constexpr int DQ_KEYS = 64;     // keys of a K/V tile of the dQ kernel (128 measured slower, and spills)
 constexpr int DQ_STAGES = 2;    // K/V ring of the dQ kernel
-constexpr int DKDV_STAGES = 3;  // Q/dO/lse/Dr ring of the dK/dV kernel
+constexpr int DKDV_STAGES = 3;  // Q/dO/lse/Dr ring of the dK/dV kernel (D <= 128)
+constexpr int D256_STAGES = 2;  // Q/dO/lse/Dr ring of the D = 256 dK/dV kernel
 constexpr int MIN_SMEM = 116 * 1024;  // one block an SM, so setmaxnreg.inc finds what the producer gave up
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -833,13 +849,17 @@ struct Cfg {
   static constexpr int ATOM = 8 * ROW_BYTES;  // bytes of 8 swizzled rows: the descriptors' stride offset
   static constexpr int NCB = D / DB;          // column blocks of a tile, each [rows][DB]
   static constexpr int TILE = ROWS * D * 2;   // bytes of a 64-row tile
+  // keys of a K/V tile of the dQ kernel: 64 (128 measured slower, and spills);
+  // 32 at D = 256, where Q and dO of the block take 128 KB and 64-key tiles
+  // in two stages would not fit
+  static constexpr int DQ_KEYS = D == 256 ? 32 : 64;
   static constexpr int DQ_KV = DQ_KEYS * D * 2;  // bytes of a K or V tile of the dQ kernel
   // dQ kernel: Q and dO of the block (128 rows each), then the K/V ring
   static constexpr int DQ_BAR = 4 * TILE + DQ_STAGES * 2 * DQ_KV;
   static constexpr int DQ_USED = DQ_BAR + 64 + 1024;
   static constexpr int DQ_SMEM = DQ_USED > MIN_SMEM ? DQ_USED : MIN_SMEM;
-  // dK/dV kernel: K, V; the Q ring, the dO ring; lse and Dr of each stage;
-  // the two warpgroups' partial sums (64 x D f32 each); the barriers
+  // dK/dV kernel (D <= 128): K, V; the Q ring, the dO ring; lse and Dr of
+  // each stage; the two warpgroups' partial sums (64 x D f32 each); the barriers
   static constexpr int KV_Q = 2 * TILE;
   static constexpr int KV_DO = KV_Q + DKDV_STAGES * TILE;
   static constexpr int KV_STATS = KV_DO + DKDV_STAGES * TILE;
@@ -847,21 +867,33 @@ struct Cfg {
   static constexpr int KV_BAR = KV_RED + 2 * ROWS * D * 4;
   static constexpr int KV_USED = KV_BAR + 128 + 1024;
   static constexpr int KV_SMEM = KV_USED > MIN_SMEM ? KV_USED : MIN_SMEM;
+  // D = 256 dK/dV kernel: K, V; the Q ring, the dO ring; lse and Dr of each
+  // stage; P^T in f32 (32 accumulators x 128 threads) and dS^T as bf16
+  // fragments (16 x 128), passed between the warpgroups; the barriers
+  static constexpr int D256_Q = 2 * TILE;
+  static constexpr int D256_DO = D256_Q + D256_STAGES * TILE;
+  static constexpr int D256_STATS = D256_DO + D256_STAGES * TILE;
+  static constexpr int D256_P = D256_STATS + D256_STAGES * 2 * ROWS * 4;
+  static constexpr int D256_DS = D256_P + 32 * 128 * 4;
+  static constexpr int D256_BAR = D256_DS + 16 * 128 * 4;
+  static constexpr int D256_SMEM = D256_BAR + 64 + 1024;  // 223,296 bytes at D = 256
 };
 
-// D[64 x N] (+)= A B, A and B K-major in shared memory (N = 64 or 128).
+// D[64 x N] (+)= A B, A and B K-major in shared memory (N = 32, 64 or 128).
 template <int N>
 __device__ __forceinline__ void ss_mma(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
-  if constexpr (N == 64) sm90::wgmma_ss_n64(d, da, db, scale_d);
+  if constexpr (N == 32) sm90::wgmma_ss_n32(d, da, db, scale_d);
+  else if constexpr (N == 64) sm90::wgmma_ss_n64(d, da, db, scale_d);
   else sm90::wgmma_ss_n128(d, da, db, scale_d);
 }
 
-// D[64 x N] += A B, A in registers, B MN-major in shared memory (N = 16, 64, 128).
+// D[64 x N] += A B, A in registers, B MN-major in shared memory (N = 16, 64, 128, 256).
 template <int N>
 __device__ __forceinline__ void rs_mma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 16) sm90::wgmma_rs_n16(d, a, db);
   else if constexpr (N == 64) sm90::wgmma_rs_n64(d, a, db);
-  else sm90::wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 128) sm90::wgmma_rs_n128(d, a, db);
+  else sm90::wgmma_rs_n256(d, a, db);
 }
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
@@ -883,14 +915,15 @@ __device__ __forceinline__ void rows_dot_rows(float (&acc)[N / 2], uint32_t a, i
   }
 }
 
-// acc[64 x D] += A[64 x K] T, A as bf16 fragments (K / 16 k16 steps), T the
-// K-row tile at `t` read MN-major (its rows are the reduction axis).
-template <int D, int K>
-__device__ __forceinline__ void frags_dot_tile(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4], uint32_t t) {
+// acc[64 x N] += A[64 x K] T, A as bf16 fragments (K / 16 k16 steps), T the N
+// columns from the column block at `t` of a K-row tile of D columns, read
+// MN-major (its rows are the reduction axis); N = D takes the whole tile.
+template <int D, int K, int N = D>
+__device__ __forceinline__ void frags_dot_tile(float (&acc)[N / 2], const uint32_t (&a)[K / 16][4], uint32_t t) {
   using C = Cfg<D>;
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
-    rs_mma<D>(acc, a[kk], sm90::make_desc(t + kk * 16 * C::ROW_BYTES, K * C::ROW_BYTES, C::ATOM, C::SWIZZLE));
+    rs_mma<N>(acc, a[kk], sm90::make_desc(t + kk * 16 * C::ROW_BYTES, K * C::ROW_BYTES, C::ATOM, C::SWIZZLE));
 }
 
 __device__ __forceinline__ bool visible(int q, int key, int S, int T_len, int causal, int window) {
@@ -902,8 +935,9 @@ __device__ __forceinline__ bool visible(int q, int key, int S, int T_len, int ca
 
 // One block per (b, q-head, 128 query rows), the longest (last) q tiles first:
 // Dr = rowsum(dO * O) for the block's rows (to `dr` for the dK/dV kernel),
-// then over the visible 64-key tiles S = Q K^T and dP = dO V^T (SS), P and
-// dS in registers from the forward's lse, dQ += dS K (RS, K MN-major).
+// then over the visible K/V tiles (64 keys; 32 at D = 256) S = Q K^T and
+// dP = dO V^T (SS), P and dS in registers from the forward's lse, dQ += dS K
+// (RS, K MN-major; one m64n256 product a k16 step at D = 256).
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
@@ -912,6 +946,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma_kernel(
     int64_t ls, int B, int S, int T_len, int Hq, int Hkv, int causal, int window, Strides os, Strides dos,
     Strides dqs, float scale, float scale_log2) {
   using C = Cfg<D>;
+  constexpr int DQ_KEYS = C::DQ_KEYS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* q_tile = smem;                 // [NCB][128 rows][DB]
@@ -1120,6 +1155,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_wgmma_kernel(
     const float* __restrict__ lse, const float* __restrict__ dr, bf16* __restrict__ dk, bf16* __restrict__ dv,
     int64_t ls, int B, int S, int T_len, int Hq, int Hkv, int causal, int window, Strides dks, Strides dvs,
     float scale, float scale_log2) {
+  static_assert(D <= 128, "D = 256 takes flash_bwd_dkdv_d256_kernel");
   using C = Cfg<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
@@ -1280,11 +1316,241 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_wgmma_kernel(
   }
 }
 
+// dK and dV at D = 256, one block per (64-key tile, b, kv-head, group of
+// G / splits q-heads), the key tiles in order (under a causal mask the first
+// see the most q tiles, so the longest blocks start first). The partial sums
+// of a warpgroup at D = 128 (dK and dV, 64 f32 a thread each, the whole of D)
+// would be 256 registers at D = 256, and adding the two warpgroups' sums
+// needs 128 KB of shared memory: so here the warpgroups split the work of
+// each q tile by product and D by column half, and no two hold the same sum.
+// Both take every q tile of the ring: warpgroup 0 runs S^T = K Q^T and
+// turns it into P^T (f32, to shared memory), warpgroup 1 runs dP^T = V dO^T
+// and, once P^T is there, forms dS^T = P^T (dP^T - Dr) (bf16 fragments, to
+// shared memory); each then accumulates its 128 columns of dV += P^T dO and
+// dK += dS^T Q (RS, dO and Q MN-major). Named barriers order the two
+// hand-overs (1: P^T written, 2: dS^T written), and each warpgroup only
+// arrives where the other waits. With splits = 1 the block writes dK and dV
+// in bf16; otherwise its f32 partial sums go to `part`
+// ([2][splits][B][T][Hkv][256]) and flash_bwd_dkdv_sum_kernel adds them.
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_d256_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+    const float* __restrict__ lse, const float* __restrict__ dr, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    float* __restrict__ part, int64_t ls, int B, int S, int T_len, int Hq, int Hkv, int causal, int window,
+    int splits, Strides dks, Strides dvs, float scale, float scale_log2) {
+  constexpr int D = 256;
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* k_tile = smem;  // [NCB][64][DB]
+  uint8_t* v_tile = smem + C::TILE;
+  uint8_t* q_tiles = smem + C::D256_Q;  // [STAGES][NCB][64][DB]
+  uint8_t* do_tiles = smem + C::D256_DO;
+  float* lse_s = reinterpret_cast<float*>(smem + C::D256_STATS);  // [STAGES][64]
+  float* dr_s = lse_s + D256_STAGES * ROWS;
+  float* p_buf = reinterpret_cast<float*>(smem + C::D256_P);        // [32][128]: P^T, accumulator j of thread t
+  uint32_t* ds_buf = reinterpret_cast<uint32_t*>(smem + C::D256_DS);  // [16][128]: dS^T fragment (kk, r) of t
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::D256_BAR);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + D256_STAGES;
+
+  const int per_tile = B * Hkv * splits;
+  const int k0 = static_cast<int>(blockIdx.x) / per_tile * ROWS;
+  const int rest = static_cast<int>(blockIdx.x) % per_tile;
+  const int split = rest % splits, bk = rest / splits;
+  const int b = bk / Hkv, hk = bk % Hkv;
+  const int heads = Hq / Hkv / splits;       // q-heads of this block
+  const int h0 = hk * (Hq / Hkv) + split * heads;
+  const int qf = q_first(k0, causal), qe = q_end(k0, S, window);
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < D256_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], CONSUMERS);  // both warpgroups read every stage
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");  // the producer needs few
+    if (threadIdx.x == 2 * 128) {
+      sm90::mbar_arrive_expect_tx(kv_full, 2 * C::TILE);
+      for (int cb = 0; cb < C::NCB; ++cb) {
+        sm90::tma_load_4d(k_tile + cb * ROWS * C::ROW_BYTES, &tm_k, kv_full, cb * C::DB, k0, hk, b);
+        sm90::tma_load_4d(v_tile + cb * ROWS * C::ROW_BYTES, &tm_v, kv_full, cb * C::DB, k0, hk, b);
+      }
+      int it = 0;
+      for (int h = h0; h < h0 + heads; ++h) {
+        const int64_t stat0 = ((int64_t)b * Hq + h) * ls;
+        for (int q0 = qf; q0 < qe; q0 += ROWS, ++it) {
+          const int s = it % D256_STAGES;
+          sm90::mbar_wait(&empty[s], ((it / D256_STAGES) & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(&full[s], 2 * C::TILE + 2 * ROWS * 4);
+          for (int cb = 0; cb < C::NCB; ++cb) {
+            const int off = s * C::TILE + cb * ROWS * C::ROW_BYTES;
+            sm90::tma_load_4d(q_tiles + off, &tm_q, &full[s], cb * C::DB, q0, h, b);
+            sm90::tma_load_4d(do_tiles + off, &tm_do, &full[s], cb * C::DB, q0, h, b);
+          }
+          sm90::bulk_load(lse_s + s * ROWS, lse + stat0 + q0, ROWS * 4, &full[s]);
+          sm90::bulk_load(dr_s + s * ROWS, dr + stat0 + q0, ROWS * 4, &full[s]);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");  // 2 x 128 x 240 + 128 x 24 <= 64K
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int col_lane = 2 * (lane % 4);
+    const int key0 = k0 + (t / 32) * 16 + lane / 4;  // this thread's keys: key0 and key0 + 8
+    const uint32_t half_off = wg * 2 * ROWS * C::ROW_BYTES;  // this warpgroup's 128 columns: 2 column blocks
+    float acc_k[64], acc_v[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc_k[i] = acc_v[i] = 0.f;
+    sm90::mbar_wait(kv_full, 0);
+    const uint32_t a_base = sm90::smem_u32(wg == 0 ? k_tile : v_tile);  // K for S^T, V for dP^T
+    int it = 0;
+    for (int h = h0; h < h0 + heads; ++h) {
+      for (int q0 = qf; q0 < qe; q0 += ROWS, ++it) {
+        const int s = it % D256_STAGES;
+        sm90::mbar_wait(&full[s], (it / D256_STAGES) & 1);
+        const uint32_t q_base = sm90::smem_u32(q_tiles + s * C::TILE);
+        const uint32_t do_base = sm90::smem_u32(do_tiles + s * C::TILE);
+
+        float sc[32];  // S^T (warpgroup 0) or dP^T (warpgroup 1): 64 keys x 64 query rows
+#pragma unroll
+        for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+        sm90::fence_operands(sc);
+        sm90::wgmma_fence();
+        rows_dot_rows<D, ROWS>(sc, a_base, ROWS, wg == 0 ? q_base : do_base);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_operands(sc);
+
+        uint32_t pf[4][4], dsf[4][4];
+        if (wg == 0) {
+          const float* lse_t = lse_s + s * ROWS;
+          const bool need_mask = q0 + ROWS > S || k0 + ROWS > T_len || (causal && k0 + ROWS - 1 > q0) ||
+                                 (window > 0 && q0 + ROWS - 1 - k0 >= window);
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const int qc = (j >> 2) * 8 + col_lane + (j & 1);
+            sc[j] = exp2f(sc[j] * scale_log2 - lse_t[qc] * LOG2E);
+            if (need_mask && !visible(q0 + qc, key0 + ((j >> 1) & 1) * 8, S, T_len, causal, window)) sc[j] = 0.f;
+            p_buf[j * 128 + t] = sc[j];
+          }
+          sm90::named_arrive(1, CONSUMERS);  // P^T is written
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) pf[kk][r] = pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+          sm90::named_sync(2, CONSUMERS);  // dS^T is written
+#pragma unroll
+          for (int i = 0; i < 16; ++i) dsf[i / 4][i % 4] = ds_buf[i * 128 + t];
+        } else {
+          const float* dr_t = dr_s + s * ROWS;
+          sm90::named_sync(1, CONSUMERS);  // P^T is written
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int j = 8 * kk + 2 * r, qc = (j >> 2) * 8 + col_lane;
+              const float p0 = p_buf[j * 128 + t], p1 = p_buf[(j + 1) * 128 + t];
+              pf[kk][r] = pack(p0, p1);
+              dsf[kk][r] = pack(p0 * (sc[j] - dr_t[qc]), p1 * (sc[j + 1] - dr_t[qc + 1]));
+              ds_buf[(4 * kk + r) * 128 + t] = dsf[kk][r];
+            }
+          sm90::named_arrive(2, CONSUMERS);  // dS^T is written
+        }
+
+        // dV[:, half] += P^T dO[:, half] and dK[:, half] += dS^T Q[:, half]:
+        // dO's and Q's rows are the query rows, the reduction axis: MN-major.
+        sm90::fence_operands(acc_v);
+        sm90::fence_operands(acc_k);
+        sm90::wgmma_fence();
+        frags_dot_tile<D, ROWS, 128>(acc_v, pf, do_base + half_off);
+        frags_dot_tile<D, ROWS, 128>(acc_k, dsf, q_base + half_off);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_operands(acc_v);
+        sm90::fence_operands(acc_k);
+        sm90::mbar_arrive(&empty[s]);
+      }
+    }
+
+    const int col0 = wg * 128 + col_lane;
+    if (splits == 1) {
+      bf16* ok = dk + b * dks.b + hk * dks.h + col0;
+      bf16* ov = dv + b * dvs.b + hk * dvs.h + col0;
+#pragma unroll
+      for (int j = 0; j < 64; j += 2) {
+        const int key = key0 + ((j >> 1) & 1) * 8;
+        if (key < T_len) {
+          *reinterpret_cast<__nv_bfloat162*>(ok + (int64_t)key * dks.s + (j >> 2) * 8) =
+              __floats2bfloat162_rn(acc_k[j] * scale, acc_k[j + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(ov + (int64_t)key * dvs.s + (j >> 2) * 8) =
+              __floats2bfloat162_rn(acc_v[j], acc_v[j + 1]);
+        }
+      }
+    } else {
+      const int64_t plane = (int64_t)B * T_len * Hkv * D;
+      float* pk = part + split * plane + ((int64_t)b * T_len * Hkv + hk) * D + col0;
+      float* pv = pk + splits * plane;
+#pragma unroll
+      for (int j = 0; j < 64; j += 2) {
+        const int key = key0 + ((j >> 1) & 1) * 8;
+        if (key < T_len) {
+          const int64_t off = (int64_t)key * Hkv * D + (j >> 2) * 8;
+          *reinterpret_cast<float2*>(pk + off) = make_float2(acc_k[j], acc_k[j + 1]);
+          *reinterpret_cast<float2*>(pv + off) = make_float2(acc_v[j], acc_v[j + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dK and dV in bf16 from the D = 256 dK/dV kernel's partial sums
+// ([2][splits][B][T][Hkv][256] f32), added in the order of the head groups,
+// so the result does not depend on which block finished first; dK times the
+// softmax scale. Four columns a thread.
+__global__ void flash_bwd_dkdv_sum_kernel(const float* __restrict__ part, int splits, int B, int T_len, int Hkv,
+                                          bf16* __restrict__ dk, bf16* __restrict__ dv, Strides dks, Strides dvs,
+                                          float scale) {
+  constexpr int D = 256;
+  const int64_t n = (int64_t)B * T_len * Hkv * (D / 4);  // groups of four columns of dK (and of dV)
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 2 * n) return;
+  const int which = i >= n;  // 0: dK, 1: dV
+  const int64_t e = which ? i - n : i;
+  const int64_t row = e / (D / 4);  // (b * T + key) * Hkv + hk
+  const int col = static_cast<int>(e % (D / 4)) * 4;
+  const int hk = static_cast<int>(row % Hkv);
+  const int key = static_cast<int>(row / Hkv % T_len);
+  const int b = static_cast<int>(row / Hkv / T_len);
+  const int64_t plane = (int64_t)B * T_len * Hkv * D;
+  const float* p = part + which * splits * plane + row * D + col;
+  float4 acc = *reinterpret_cast<const float4*>(p);
+  for (int sp = 1; sp < splits; ++sp) {
+    const float4 x = *reinterpret_cast<const float4*>(p + sp * plane);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const float mult = which ? 1.f : scale;
+  bf16* out = which ? dv + b * dvs.b + (int64_t)key * dvs.s + hk * dvs.h + col
+                    : dk + b * dks.b + (int64_t)key * dks.s + hk * dks.h + col;
+  reinterpret_cast<__nv_bfloat162*>(out)[0] = __floats2bfloat162_rn(acc.x * mult, acc.y * mult);
+  reinterpret_cast<__nv_bfloat162*>(out)[1] = __floats2bfloat162_rn(acc.z * mult, acc.w * mult);
+}
+
 // Errors of the host side, beside the cudaError_t values of a launch.
 constexpr int ERR_NO_ENCODER = -1, ERR_TENSOR_MAP = -2;
 
 template <int D>
-int launch(const Args& a, int64_t ls, cudaStream_t stream) {
+int launch(const Args& a, int64_t ls, float* part, int splits, cudaStream_t stream) {
   using C = Cfg<D>;
   if (sm90::encode_fn() == nullptr) return ERR_NO_ENCODER;
   const bool sw32 = D < 64;
@@ -1294,14 +1560,11 @@ int launch(const Args& a, int64_t ls, cudaStream_t stream) {
   };
   if (!map(&tq128, a.q, a.S, a.Hq, a.qs, DQ_ROWS) || !map(&tdo128, a.dout, a.S, a.Hq, a.dos, DQ_ROWS) ||
       !map(&tq, a.q, a.S, a.Hq, a.qs, ROWS) || !map(&tdo, a.dout, a.S, a.Hq, a.dos, ROWS) ||
-      !map(&tk_dq, a.k, a.T_len, a.Hkv, a.ks, DQ_KEYS) || !map(&tv_dq, a.v, a.T_len, a.Hkv, a.vs, DQ_KEYS) ||
+      !map(&tk_dq, a.k, a.T_len, a.Hkv, a.ks, C::DQ_KEYS) || !map(&tv_dq, a.v, a.T_len, a.Hkv, a.vs, C::DQ_KEYS) ||
       !map(&tk, a.k, a.T_len, a.Hkv, a.ks, ROWS) || !map(&tv, a.v, a.T_len, a.Hkv, a.vs, ROWS))
     return ERR_TENSOR_MAP;
   cudaError_t err =
       cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::DQ_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::KV_SMEM);
   if (err != cudaSuccess) return (int)err;
   const float scale = (float)(1.0 / sqrt((double)D));  // as the forward
   const float scale_log2 = scale * LOG2E;               // as the forward's wgmma kernel
@@ -1312,10 +1575,29 @@ int launch(const Args& a, int64_t ls, cudaStream_t stream) {
       scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n_pairs = ((a.T_len + ROWS - 1) / ROWS + 1) / 2;
-  flash_bwd_dkdv_wgmma_kernel<D><<<n_pairs * a.B * a.Hkv, THREADS, C::KV_SMEM, stream>>>(
-      tq, tdo, tk, tv, a.lse, a.dr, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), ls, a.B, a.S, a.T_len,
-      a.Hq, a.Hkv, a.causal, a.window, a.dks, a.dvs, scale, scale_log2);
+  bf16 *dk = static_cast<bf16*>(a.dk), *dv = static_cast<bf16*>(a.dv);
+  if constexpr (D == 256) {
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::D256_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const int n_kt = (a.T_len + ROWS - 1) / ROWS;
+    flash_bwd_dkdv_d256_kernel<<<n_kt * a.B * a.Hkv * splits, THREADS, C::D256_SMEM, stream>>>(
+        tq, tdo, tk, tv, a.lse, a.dr, dk, dv, part, ls, a.B, a.S, a.T_len, a.Hq, a.Hkv, a.causal, a.window,
+        splits, a.dks, a.dvs, scale, scale_log2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return (int)err;
+    const int64_t n = 2 * (int64_t)a.B * a.T_len * a.Hkv * (D / 4);
+    flash_bwd_dkdv_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, splits, a.B, a.T_len, a.Hkv,
+                                                                             dk, dv, a.dks, a.dvs, scale);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::KV_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const int n_pairs = ((a.T_len + ROWS - 1) / ROWS + 1) / 2;
+    flash_bwd_dkdv_wgmma_kernel<D><<<n_pairs * a.B * a.Hkv, THREADS, C::KV_SMEM, stream>>>(
+        tq, tdo, tk, tv, a.lse, a.dr, dk, dv, ls, a.B, a.S, a.T_len, a.Hq, a.Hkv, a.causal, a.window, a.dks,
+        a.dvs, scale, scale_log2);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1373,33 +1655,40 @@ extern "C" int flash_attention_bwd_mma(const void* q, const void* k, const void*
   }
 }
 
-// The wgmma variant: bf16 for all eight tensors, D in {16, 64, 128}. lse
-// holds the forward's row statistics (flash_attention_fwd_wgmma with an lse
-// buffer; +inf past S) and dr is scratch, both B * Hq rows of lse_stride
-// floats, a multiple of 64 and at least S, 16-byte aligned. Other arguments
-// as flash_attention_bwd's, without the dtype; every tensor's base must be
-// 16-byte aligned and every stride a multiple of 8 elements (TMA). Returns 0,
-// a launch's cudaError_t, -1 when the driver has no cuTensorMapEncodeTiled,
-// or -2 when a tensor map cannot be encoded.
+// The wgmma variant: bf16 for all eight tensors, D in {16, 64, 128, 256}.
+// lse holds the forward's row statistics (flash_attention_fwd_wgmma with an
+// lse buffer; +inf past S) and dr is scratch, both B * Hq rows of lse_stride
+// floats, a multiple of 64 and at least S, 16-byte aligned. At D = 256 the
+// dK/dV grid splits each kv group's q-heads into `splits` groups (a divisor
+// of Hq / Hkv) and, when splits > 1, `part` is f32 scratch of
+// 2 * splits * B * T_len * Hkv * 256 floats, 16-byte aligned, for their
+// partial sums; other head dims take splits = 1 and no scratch. Other
+// arguments as flash_attention_bwd's, without the dtype; every tensor's base
+// must be 16-byte aligned and every stride a multiple of 8 elements (TMA).
+// Returns 0, a launch's cudaError_t, -1 when the driver has no
+// cuTensorMapEncodeTiled, or -2 when a tensor map cannot be encoded.
 extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
                                          const void* dout, void* dq, void* dk, void* dv, float* lse, float* dr,
-                                         int64_t lse_stride, int B, int S, int T_len, int Hq, int Hkv, int D,
-                                         int causal, int window, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                                         int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                                         int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t do_sb,
-                                         int64_t do_ss, int64_t do_sh, int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
-                                         int64_t dk_sb, int64_t dk_ss, int64_t dk_sh, int64_t dv_sb, int64_t dv_ss,
-                                         int64_t dv_sh, void* stream) {
+                                         float* part, int64_t lse_stride, int splits, int B, int S, int T_len,
+                                         int Hq, int Hkv, int D, int causal, int window, int64_t q_sb,
+                                         int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                                         int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
+                                         int64_t o_sh, int64_t do_sb, int64_t do_ss, int64_t do_sh, int64_t dq_sb,
+                                         int64_t dq_ss, int64_t dq_sh, int64_t dk_sb, int64_t dk_ss, int64_t dk_sh,
+                                         int64_t dv_sb, int64_t dv_ss, int64_t dv_sh, void* stream) {
   if (B <= 0 || S <= 0 || T_len <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (lse_stride < S || lse_stride % wgmma_bwd::ROWS != 0) return (int)cudaErrorInvalidValue;
+  if (splits < 1 || (Hq / Hkv) % splits != 0 || (splits > 1 && (D != 256 || part == nullptr)))
+    return (int)cudaErrorInvalidValue;
   const Args a{q,  k,  v,  o,   dout,   dq,     dk,   dv, lse, dr, B, S, T_len, Hq, Hkv, causal, window,
                {q_sb, q_ss, q_sh},    {k_sb, k_ss, k_sh},    {v_sb, v_ss, v_sh},    {o_sb, o_ss, o_sh},
                {do_sb, do_ss, do_sh}, {dq_sb, dq_ss, dq_sh}, {dk_sb, dk_ss, dk_sh}, {dv_sb, dv_ss, dv_sh}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return wgmma_bwd::launch<16>(a, lse_stride, st);
-    case 64: return wgmma_bwd::launch<64>(a, lse_stride, st);
-    case 128: return wgmma_bwd::launch<128>(a, lse_stride, st);
+    case 16: return wgmma_bwd::launch<16>(a, lse_stride, part, splits, st);
+    case 64: return wgmma_bwd::launch<64>(a, lse_stride, part, splits, st);
+    case 128: return wgmma_bwd::launch<128>(a, lse_stride, part, splits, st);
+    case 256: return wgmma_bwd::launch<256>(a, lse_stride, part, splits, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

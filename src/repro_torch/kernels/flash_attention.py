@@ -17,16 +17,21 @@ Their gradient is computed by ``csrc/flash_attention_bwd.cu``, whose header
 says how. ``bwd_variant`` picks one of its kernel pairs by dtype and head dim
 alone, so every dtype and head dim the forward takes has a backward:
 
-- ``"wgmma"``: bf16 at D in {16, 64, 128} (the models' training path);
+- ``"wgmma"``: bf16 at D in {16, 64, 128, 256} (the models' training path);
   tensor cores through wgmma, TMA and mbarrier rings, reading the row
   statistics ``lse`` that the wgmma forward writes (``launch_wgmma(...,
-  lse=...)``); the C entry point ``flash_attention_bwd_wgmma``;
-- ``"fma"``: f32 at any head dim, and bf16 at D = 8 and 256; f32 FMAs, the C
-  entry point ``flash_attention_bwd``.
+  lse=...)``); the C entry point ``flash_attention_bwd_wgmma``. At D = 256
+  its dK/dV kernel splits D between its two warpgroups and, where the
+  (key tile, batch, kv-head) grid leaves the card idle (MQA at batch 1),
+  each kv group's q-heads into ``dkdv_splits`` groups whose f32 partial sums
+  a second kernel adds in a fixed order;
+- ``"fma"``: f32 at any head dim, and bf16 at D = 8; f32 FMAs, the C entry
+  point ``flash_attention_bwd``.
 
-The ``"mma"`` pair (``mma.sync``, bf16 at D in {16, 64, 128}) is the pair the
-wgmma one replaced; ``launch_bwd_mma`` runs it as a yardstick, ``ops`` never
-does. Their plain version is ``ref.attention_bwd_ref``.
+Two pairs are kept as yardsticks that ``ops`` never runs: the ``"mma"`` pair
+(``mma.sync``, bf16 at D in {16, 64, 128}), which the wgmma one replaced
+(``launch_bwd_mma``), and the FMA pair in bf16 at D = 64, 128 and 256
+(``launch_bwd_fma``). Their plain version is ``ref.attention_bwd_ref``.
 
 ``lse`` is f32 (B, Hq, S), the natural-log row statistic of
 ``ref.attention_ref(return_lse=True)``, +inf for a row that sees no key. The
@@ -38,6 +43,7 @@ tensors handed out are views of the first S.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,9 +52,10 @@ from . import build
 HEAD_DIMS = (8, 16, 64, 128, 256)
 WGMMA_HEAD_DIMS = (16, 64, 128, 256)
 MMA_BWD_HEAD_DIMS = (16, 64, 128)
-WGMMA_BWD_HEAD_DIMS = MMA_BWD_HEAD_DIMS
+WGMMA_BWD_HEAD_DIMS = (16, 64, 128, 256)
 FMA_BWD_BF16_HEAD_DIMS = (8, 64, 128, 256)  # the FMA pair is not built for bf16 at D = 16 (the wgmma pair's)
 LSE_ROWS = 64  # the backward's q tile: lse rows are padded to a multiple of it
+KEY_TILE = 64  # keys of a dK/dV block of the wgmma backward
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}  # variant -> ctypes function
 MMA_BWD_LAUNCHES = 0  # launches of the mma backward pair, the yardstick ops never runs
@@ -64,6 +71,24 @@ def variant(dtype: torch.dtype, D: int) -> str:
 def bwd_variant(dtype: torch.dtype, D: int) -> str:
     """The backward kernel pair that runs attention's gradient in ``dtype`` at head dim ``D``."""
     return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_BWD_HEAD_DIMS else "fma"
+
+
+def dkdv_splits(B: int, Hkv: int, G: int, T: int, n_sm: int) -> int:
+    """Groups into which the D = 256 wgmma dK/dV kernel splits each kv group's
+    G q-heads: 1 (no partial sums) where its grid of one block per (64-key
+    tile, batch, kv-head) already has a block for every one of the card's
+    ``n_sm`` SMs; else the smallest divisor of G that gives two blocks an SM
+    (the blocks differ in length under a causal mask, and the second wave
+    evens them out), or G."""
+    blocks = B * Hkv * -(-T // KEY_TILE)
+    if blocks >= n_sm:
+        return 1
+    return next((s for s in range(2, G + 1) if G % s == 0 and blocks * s >= 2 * n_sm), G)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def lse_stride(S: int) -> int:
@@ -131,7 +156,7 @@ def _bwd_fn(name: str):
             fn.argtypes = [p] * 10 + [i] * 8 + [i64] * 24 + [p]
         else:
             fn = lib.flash_attention_bwd_wgmma
-            fn.argtypes = [p] * 10 + [i64] + [i] * 8 + [i64] * 24 + [p]
+            fn.argtypes = [p] * 11 + [i64] + [i] * 9 + [i64] * 24 + [p]  # part, lse_stride, splits, ...
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
@@ -181,14 +206,17 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, w
     return launch_fma(q, k, v, causal=causal, window=window)
 
 
-def _run_bwd(name: str, q, k, v, o, do, causal: bool, window: int | None, lse: torch.Tensor | None = None):
+def _run_bwd(name: str, q, k, v, o, do, causal: bool, window: int | None, lse: torch.Tensor | None = None,
+             splits: int = 1):
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
     tensors = (q, k, v, o, do, dq, dk, dv)
     if name == "bwd_wgmma":
         dr = torch.empty((B, Hq, lse_stride(S)), dtype=torch.float32, device=q.device)  # dQ kernel -> dK/dV kernel
-        extra = [lse_stride(S)]
+        # the head groups' partial sums of dK and dV (D = 256 with splits > 1)
+        part = torch.empty((2, splits, B, T, Hkv, D), dtype=torch.float32, device=q.device) if splits > 1 else None
+        extra = [0 if part is None else part.data_ptr(), lse_stride(S), splits]
     else:  # the row statistics, recomputed by the first kernel for the second
         lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
         dr = torch.empty_like(lse)
@@ -214,18 +242,27 @@ def launch_bwd_fma(q, k, v, o, do, *, causal: bool, window: int | None):
 def launch_bwd_mma(q, k, v, o, do, *, causal: bool, window: int | None):
     """The mma backward pair, bf16 at a head dim of ``MMA_BWD_HEAD_DIMS``,
     every tensor laid out as ``check_tma_layout`` asks (16-byte loads)."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in MMA_BWD_HEAD_DIMS:
+        raise ValueError(f"the mma backward pair is built for bf16 at head dims {MMA_BWD_HEAD_DIMS}, "
+                         f"not {q.dtype} at {q.shape[-1]}")
     global MMA_BWD_LAUNCHES
     grads = _run_bwd("bwd_mma", q, k, v, o, do, causal, window)
     MMA_BWD_LAUNCHES += 1
     return grads
 
 
-def launch_bwd_wgmma(q, k, v, o, do, lse, *, causal: bool, window: int | None):
+def launch_bwd_wgmma(q, k, v, o, do, lse, *, causal: bool, window: int | None, splits: int | None = None):
     """The wgmma backward pair, bf16 at a head dim of ``WGMMA_BWD_HEAD_DIMS``,
     every tensor laid out as ``check_tma_layout`` asks; ``lse`` the row
-    statistics the wgmma forward wrote (``check_lse_layout``)."""
+    statistics the wgmma forward wrote (``check_lse_layout``). At D = 256
+    ``splits`` (a divisor of Hq / Hkv) sets the dK/dV kernel's q-head
+    groups; None takes ``dkdv_splits`` for this card."""
     check_lse_layout(lse)
-    return _run_bwd("bwd_wgmma", q, k, v, o, do, causal, window, lse)
+    B, _, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if splits is None:
+        splits = dkdv_splits(B, Hkv, Hq // Hkv, T, _sm_count(q.device.index)) if D == 256 else 1
+    return _run_bwd("bwd_wgmma", q, k, v, o, do, causal, window, lse, splits)
 
 
 def launch_bwd(

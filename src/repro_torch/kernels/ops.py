@@ -217,7 +217,7 @@ def flash_attention_bwd(
     output and the output's gradient, both of q's shape and dtype, and the
     row statistics ``lse`` that ``flash_attention(..., return_lse=True)``
     gives. The plain backward recomputes them when ``lse`` is None; the wgmma
-    pair (bf16 at D 16/64/128 on the card) needs them."""
+    pair (bf16 at D 16/64/128/256 on the card) needs them."""
     _device_type(q, k, v, o, do)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} must match q "

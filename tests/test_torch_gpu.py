@@ -47,6 +47,8 @@ FLASH_CASES = [
     (2, 256, 256, 4, 4, 128, None),  # Hq / Hkv = 1, 4 and 16 with B > 1
     (2, 256, 256, 16, 4, 128, None),
     (2, 320, 320, 16, 1, 256, 96),
+    (2, 192, 192, 4, 2, 256, None),  # D = 256 with Hkv > 1 and B > 1: the dK/dV grid's head groups
+    (1, 256, 256, 2, 2, 256, 64),    # D = 256 with Hq = Hkv: no head groups
     (4, 64, 64, 4, 1, 16, 8),        # recurrentgemma smoke: windowed MQA at head dim 16
 ]
 # Beside the sweep's tolerance, the wgmma kernel's bf16 output stays within one
@@ -196,9 +198,10 @@ def _forward_for_bwd(q, k, v, **kw):
 def test_flash_bwd_kernel_vs_plain(card, B, S, T, Hq, Hkv, D, window, dtype):
     """The backward kernels against ref.attention_bwd_ref over the forward's
     sweep, from the forward kernel's own output (and lse), one launch counted
-    each: the wgmma pair through ops for bf16 at D 16/64/128, the FMA pair
+    each: the wgmma pair through ops for bf16 at D 16/64/128/256, the FMA pair
     otherwise; then the pairs ops does not pick on the wgmma pair's cases, the
-    mma pair and the FMA pair (built there but for D = 16)."""
+    mma pair (built for D 16/64/128) and the FMA pair (built there but for
+    D = 16)."""
     q, k, v = _qkv(card, 12, B, S, T, Hq, Hkv, D, dtype)
     g = torch.Generator(device=card).manual_seed(13)
     wgmma = flash.bwd_variant(q.dtype, D) == "wgmma"
@@ -217,7 +220,9 @@ def test_flash_bwd_kernel_vs_plain(card, B, S, T, Hq, Hkv, D, window, dtype):
         for x, w in zip(got, want):
             _flash_grad_close(x, w.transpose(1, 2), dtype)
         if wgmma:  # the pairs ops does not pick here hold the same tolerance
-            others = [flash.launch_bwd_mma(q, k, v, o, do, causal=causal, window=window)]
+            others = []
+            if D in flash.MMA_BWD_HEAD_DIMS:
+                others.append(flash.launch_bwd_mma(q, k, v, o, do, causal=causal, window=window))
             if D in flash.FMA_BWD_BF16_HEAD_DIMS:
                 others.append(flash.launch_bwd_fma(q, k, v, o, do, causal=causal, window=window))
             for grads in others:
@@ -267,7 +272,7 @@ def test_flash_forward_lse_vs_plain(card, B, S, T, Hq, Hkv, D, window):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype,D", [("bf16", 16), ("bf16", 64), ("bf16", 128), ("f32", 64)])
+@pytest.mark.parametrize("dtype,D", [("bf16", 16), ("bf16", 64), ("bf16", 128), ("bf16", 256), ("f32", 64)])
 def test_flash_bwd_rows_that_see_no_key(card, dtype, D, causal):
     """S > T + window: the q tiles from row T + window - 1 on see no key, so
     the dQ kernel loops over no key tile. Their dq is 0, they add nothing to
@@ -288,13 +293,31 @@ def test_flash_bwd_rows_that_see_no_key(card, dtype, D, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
 def test_flash_bwd_kernel_is_deterministic(card, D):
     q, k, v = _qkv(card, 14, 1, 384, 384, 8, 2, D, "bf16")
     o, lse = ops.flash_attention(q, k, v, return_lse=True)
     do = torch.randn_like(o)
     a, b = ops.flash_attention_bwd(q, k, v, o, do, lse=lse), ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
+def test_flash_bwd_d256_head_groups_vs_plain(card, splits):
+    """The D = 256 wgmma pair at a windowed MQA shape (16 q-heads a kv-head,
+    as recurrentgemma-9b) with the dK/dV kernel's q-heads in 1 to 16 groups:
+    each within the tolerance of the plain backward, two launches equal to
+    the bit (the partial sums are added in a fixed order)."""
+    q, k, v = _qkv(card, 24, 1, 640, 640, 16, 1, 256, "bf16")
+    o, lse = ops.flash_attention(q, k, v, window=256, return_lse=True)
+    do = torch.randn(o.shape, generator=torch.Generator(device=card).manual_seed(25), device=card).to(o.dtype)
+    got = flash.launch_bwd_wgmma(q, k, v, o, do, lse, causal=True, window=256, splits=splits)
+    again = flash.launch_bwd_wgmma(q, k, v, o, do, lse, causal=True, window=256, splits=splits)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = ops.ref.attention_bwd_ref(*(a.transpose(1, 2) for a in (q, k, v, o, do)), window=256)
+    for x, w in zip(got, want):
+        _flash_grad_close(x, w.transpose(1, 2), "bf16")
 
 
 @pytest.mark.gpu

@@ -470,12 +470,56 @@ def test_flash_variant_goes_by_dtype_and_head_dim(dtype, D):
 @pytest.mark.parametrize("D", flash.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_flash_bwd_variant_goes_by_dtype_and_head_dim(dtype, D):
-    """bf16 at D 16/64/128 takes the wgmma backward (the mma pair is never
-    picked); f32, and bf16 at D = 8 and 256, the FMA backward: every forward
-    shape has a backward, and the FMA pair is built for every other one."""
-    want = "wgmma" if dtype == "bf16" and D in (16, 64, 128) else "fma"
+    """bf16 at D 16/64/128/256 takes the wgmma backward (the mma pair is never
+    picked); f32, and bf16 at D = 8, the FMA backward: every forward shape has
+    a backward, the FMA pair is built for every other one, and in bf16 at
+    D = 256 too, as the yardstick of the wgmma pair there."""
+    want = "wgmma" if dtype == "bf16" and D in (16, 64, 128, 256) else "fma"
     assert flash.bwd_variant(TDT[dtype], D) == want
     assert want == "wgmma" or dtype == "f32" or D in flash.FMA_BWD_BF16_HEAD_DIMS
+    assert dtype == "f32" or D != 256 or D in flash.FMA_BWD_BF16_HEAD_DIMS
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize(
+    "B,Hkv,G,T,want",
+    [
+        (1, 1, 16, 4096, 8),  # recurrentgemma-9b training (MQA, 64 key tiles): 512 blocks
+        (8, 1, 8, 2048, 1),  # gemma-2b at batch 8: 256 blocks already fill the card
+        (1, 8, 4, 2048, 1),  # qwen3-4b's shape (8 kv-heads): 256 blocks
+        (1, 1, 16, 1024, 16),  # 16 key tiles: even 16 groups give fewer than two blocks an SM
+        (2, 2, 2, 192, 2),  # the GPU sweep's D = 256 case with Hkv > 1, B > 1
+        (1, 2, 1, 256, 1),  # Hq = Hkv: nothing to split
+    ],
+)
+def test_dkdv_splits_fill_the_card_only_where_it_is_idle(B, Hkv, G, T, want):
+    """The D = 256 dK/dV grid's q-head groups: a divisor of G; none where one
+    block per (key tile, batch, kv-head) already covers the SMs; otherwise
+    the fewest that give two blocks an SM, or all G."""
+    s = flash.dkdv_splits(B, Hkv, G, T, H100_SMS)
+    assert s == want and G % s == 0
+    blocks = B * Hkv * -(-T // flash.KEY_TILE)
+    if blocks >= H100_SMS:
+        assert s == 1
+    else:
+        assert blocks * s >= 2 * H100_SMS or s == G
+        assert all(blocks * d < 2 * H100_SMS for d in range(2, s) if G % d == 0)
+
+
+def test_launch_bwd_mma_refuses_head_dim_256_before_touching_cuda(monkeypatch):
+    """The mma pair is built for D 16/64/128: at D = 256 its wrapper raises
+    before it builds or loads the library."""
+
+    def no_build(*_):
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(flash.build, "load", no_build)
+    q = torch.zeros((1, 64, 2, 256), dtype=torch.bfloat16)
+    k = v = torch.zeros((1, 64, 1, 256), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        flash.launch_bwd_mma(q, k, v, q, q, causal=True, window=None)
 
 
 @pytest.mark.parametrize(
