@@ -32,8 +32,8 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               at 1 and 2 x 4096 x 4096 f32, also held to its own order of
               arithmetic, its two launches equal to the bit;
 
-then two paths, each through the entry points a user calls, with random weights
-drawn from seed 0, the first freed before the second:
+then four serving paths, each through the entry points a user calls, with
+random weights drawn from seed 0, each freed before the next:
 
   qwen3-4b (dense decoder; flash attention and RMSNorm):
 4. prefill -- ``Model.forward`` at full width on 2 x 2048 tokens, asserting 36
@@ -48,13 +48,28 @@ drawn from seed 0, the first freed before the second:
               config's prefill and decode through the kernels on the card
               against its plain path on the CPU, and the card's decode-vs-
               prefill gap against the CPU's; the card's smoke prefill runs every
-              flash launch on the wgmma kernel (head dim 16);
+              flash launch on the wgmma kernel (head dim 16; the MoE smoke
+              configs' head dim 8 takes the FMA kernel);
 
   recurrentgemma-9b (hybrid: RG-LRU scan, windowed MQA at head dim 256):
 4-7 again, prefill on 2 x 4096 tokens (the window of 2048 binds) asserting 12
 flash-attention (all wgmma), 77 RMSNorm and 26 RG-LRU scan launches, serve
 asserting 77 RMSNorm launches per decode step, and the check over 12 tokens,
 past the smoke window of 8.
+
+  deepseek-moe-16b (MoE: 2 shared + 64 routed experts, top 6, a dense layer 0;
+  MHA, 16 q-heads on 16 kv-heads), at full size (16.4 B parameters, 32.9 GB):
+4-7 again, prefill on 2 x 2048 tokens asserting 28 flash (all wgmma) and 57
+RMSNorm launches, its line also giving the MoE's capacity (488) and dropped
+fraction per layer, serve asserting 57 RMSNorm launches per decode step, the
+profile also giving the device time of each MoE scope (router, dispatch,
+experts, combine, shared experts), and the check with the routes of both
+devices counted (a route flip limits the logit comparisons to the tokens
+before it) and each MoE layer held layer by layer;
+
+  qwen3-moe-235b-a22b (128 routed experts, top 8, GQA 64 / 4, qk-norms) at
+  full width cut to 4 layers (94 need 470 GB): 4-7 again, prefill on 2 x 2048
+  tokens asserting 4 flash and 17 RMSNorm launches, serve asserting 17 a step.
 
 then the training paths:
 
@@ -63,7 +78,9 @@ then the training paths:
               reckoning line: on full qwen3-4b (36 layers, the config's remat
               "full") at B = 1, S = 2048, then on recurrentgemma-9b at full width
               cut to 8 layers (2 stacked units + the 2 remainder rec layers; 11
-              do not fit, see TRAIN_HYBRID) at B = 1, S = 4096, from
+              do not fit, see TRAIN_HYBRID) at B = 1, S = 4096, then on
+              deepseek-moe-16b at full width cut to 6 layers (TRAIN_MOE) at
+              B = 1, S = 2048, from
               ``SyntheticLM``: one warm-up step, three timed steps (step ms,
               tokens/s, peak GB, loss / grad_norm / lr, launches of every kernel
               per step, each asserted against ``train_launches``), and
@@ -72,12 +89,14 @@ then the training paths:
               watchdog on: 3 steps and a checkpoint, a second Trainer that resumes
               to 6, a third that runs 6 in one go; parameters and optimizer state
               equal to the bit; heartbeat, metrics.json and host_profile.html;
-10. train_check -- one train step at qwen3-4b smoke and one at recurrentgemma-9b
-              smoke through the kernels on the card, and the same step through
-              the plain versions on the card and on the CPU, from the same
-              weights and batch: loss, moments and each leaf's update within
-              ``TRAIN_CARD_VS_CPU`` of the references ``TRAIN_CHECKS`` names (the
-              card's plain path for both, the CPU's for qwen3-4b too);
+10. train_check -- one train step at the smoke config of qwen3-4b,
+              recurrentgemma-9b and deepseek-moe-16b through the kernels on the
+              card, and the same step through the plain versions on the card and
+              on the CPU, from the same weights and batch: loss, moments and each
+              leaf's update within ``TRAIN_CARD_VS_CPU`` of the references
+              ``TRAIN_CHECKS`` names (the card's plain path for all, the CPU's
+              for qwen3-4b and deepseek-moe-16b too), with the MoE's route flips
+              between the runs reported;
 11. grads_check -- at each of those smoke configs, ``Model.loss`` and its
               gradient (the initial weights, each stacked matrix at the std of
               its unstacked spec: see GRADS_CARD_VS_CPU) on the card (flash attention
@@ -99,6 +118,8 @@ card holds, time at the hybrid prefill's scan shapes), then the card's
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -121,6 +142,21 @@ PATHS = {
                               prefill={**NO_LAUNCHES, "flash_attention": 12, "flash_attention_wgmma": 12,
                                        "fused_rmsnorm": 77, "rglru_scan": 26},
                               per_step={**NO_LAUNCHES, "fused_rmsnorm": 77}),
+    # MoE: 16,375,728,128 parameters, 32.9 GB in bf16 storage (the dense layer 0
+    # stays f32); the init draws the (27, 64, 2048, 1408) expert leaves one at
+    # a time in f32, 19.9 GB transient beside the bf16 copy
+    "deepseek-moe-16b": dict(B=2, S=2048, check_tokens=8,
+                             prefill={**NO_LAUNCHES, "flash_attention": 28, "flash_attention_wgmma": 28,
+                                      "fused_rmsnorm": 57},
+                             per_step={**NO_LAUNCHES, "fused_rmsnorm": 57}),
+    # full width cut in depth: 94 layers need 470 GB in bf16; 4 layers have
+    # 11,195,683,840 parameters, 22.4 GB (the expert leaf drawn in f32: 12.9 GB)
+    "qwen3-moe-235b-a22b": dict(B=2, S=2048, check_tokens=8, n_layers=4,
+                                depth_why="94 layers need 470 GB in bf16, beyond one 80 GB card; 4 layers "
+                                          "(22.4 GB) fit",
+                                prefill={**NO_LAUNCHES, "flash_attention": 4, "flash_attention_wgmma": 4,
+                                         "fused_rmsnorm": 17},
+                                per_step={**NO_LAUNCHES, "fused_rmsnorm": 17}),
 }
 # The training paths, at B x S tokens a step. Parameters, gradients and the
 # two f32 AdamW moments take 16 bytes a parameter.
@@ -138,6 +174,11 @@ PATHS = {
 TRAIN = dict(arch="qwen3-4b", B=1, S=2048, timed_steps=3, flash=("wgmma", "wgmma"))
 TRAIN_HYBRID = dict(arch="recurrentgemma-9b", B=1, S=4096, timed_steps=3, n_layers=8, flash=("wgmma", "wgmma"),
                     depth_why="38 layers need 150 GB of state; 11 ran out of memory on an H100; 8 fit")
+# deepseek-moe-16b at full width, cut in depth: 28 layers need 262 GB of f32
+# state; 6 (the dense layer 0 and 5 MoE units, 3,442,763,776 parameters) need
+# 55.1 GB, and the f32 logits of 2048 x 102,400 are 0.84 GB.
+TRAIN_MOE = dict(arch="deepseek-moe-16b", B=1, S=2048, timed_steps=3, n_layers=6, flash=("wgmma", "wgmma"),
+                 depth_why="28 layers need 262 GB of f32 state; 6 (the dense layer and 5 MoE units) need 55.1 GB")
 # One train step at qwen3-4b smoke, card against CPU, from the same weights and
 # batch: the loss within 0.01; each moment leaf within 5 % relative L2 (the
 # matrix products sum in another order on the card, and bf16 activations round
@@ -159,7 +200,8 @@ TRAIN_CARD_VS_CPU = dict(loss=1e-2, moment_rel_l2=5e-2, update_rel_l2=0.2)
 # the updates, as far as the kernels do (0.48, 0.63), while the kernels
 # against the card's plain path read 0.017 and 0.16 (on an H100). Its
 # gradients are held to the CPU's where that is well-posed: GRADS_CARD_VS_CPU.
-TRAIN_CHECKS = {"qwen3-4b": ("card_plain", "cpu"), "recurrentgemma-9b": ("card_plain",)}
+TRAIN_CHECKS = {"qwen3-4b": ("card_plain", "cpu"), "recurrentgemma-9b": ("card_plain",),
+                "deepseek-moe-16b": ("card_plain", "cpu")}
 # The loss and each leaf's gradient of a smoke config, the card against the
 # CPU, with the plain (f32) attention on both sides and the other kernels on
 # the card: the hybrid's own code on the card (f32 gate products, conv, scan
@@ -228,10 +270,12 @@ def nvidia_smi() -> str:
 
 def _kernel_events(prof):
     """The profiler's device-side events (kernels, copies), not the host ops
-    that launched them: summing both would count device time twice."""
+    that launched them, nor the device-side spans of ``record_function``
+    ranges (the MoE's scopes): summing those would count device time twice."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False) and e.key not in MOE_SCOPES]
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2, sessions: int = 5) -> tuple[float, float, dict]:
@@ -985,19 +1029,22 @@ def time_rmsnorm_bwd(torch, F, ops, ref, dev, rows: int, D: int, dtype) -> dict:
 
 def train_launches(cfg, flash: tuple[str, str]) -> dict:
     """The kernel launches of one train step of ``cfg`` (bf16 activations), as
-    the model code makes them: each layer's norms (norm1 and, with an MLP,
-    norm2; q- and k-norm where the config has them) and the final norm, one
+    the model code makes them: each layer's norms (norm1 and, with a
+    feed-forward, dense or MoE, norm2; q- and k-norm where the config has
+    them) and the final norm, one
     flash per attn layer, one scan per rec layer; under remat "full" or "dots"
     the stacked units' forward runs again in the backward pass (the prefix
     and remainder layers are not checkpointed); one backward per forward op.
     qwen3-4b (36 layers, all in units): flash 72, flash backward 36, RMSNorm
     289 and 145. recurrentgemma-9b at 8 layers (2 units + 2 remainder rec
     layers): scan 10 and 6, flash 4 and 2, RMSNorm 29 and 17; at 11 layers
-    scan 14 and 8, flash 6 and 3, RMSNorm 41 and 23. ``flash`` names the
+    scan 14 and 8, flash 6 and 3, RMSNorm 41 and 23. deepseek-moe-16b at 6
+    layers (the dense prefix layer 0 + 5 MoE units): flash 11 and 6, RMSNorm
+    23 and 13. ``flash`` names the
     forward kernel and the backward pair every flash launch takes: "wgmma"
     counts it under ``flash_attention_wgmma`` or ``flash_attention_bwd_wgmma``
     too."""
-    from repro_torch.models.transformer import StackLayout, layer_kind
+    from repro_torch.models.transformer import StackLayout, _ffn_kind, layer_kind
 
     lay = StackLayout(cfg)
     in_units = set(range(cfg.first_dense, cfg.first_dense + lay.n_units * len(cfg.pattern)))
@@ -1005,7 +1052,7 @@ def train_launches(cfg, flash: tuple[str, str]) -> dict:
     for i in range(cfg.n_layers):
         runs = 2 if (i in in_units and cfg.remat != "none") else 1
         kind = layer_kind(cfg, i)
-        norms = 1 + (cfg.d_ff > 0) + 2 * (kind == "attn" and cfg.qk_norm)
+        norms = 1 + (_ffn_kind(cfg, i) != "none") + 2 * (kind == "attn" and cfg.qk_norm)
         out["fused_rmsnorm"] += runs * norms
         out["fused_rmsnorm_bwd"] += norms
         if kind == "attn":
@@ -1121,6 +1168,7 @@ def profile_step(torch, fn) -> dict:
         "top": [{"name": e.key[:80], "count": e.count, "device_ms": e.self_device_time_total / 1e3} for e in top],
         "host_top": [{"name": e.key[:80], "count": e.count, "self_cpu_ms": e.self_cpu_time_total / 1e3}
                      for e in host_top],
+        **moe_scopes(prof, busy_ms),
     }
 
 
@@ -1182,11 +1230,11 @@ def train_check(torch, get_config, ops, dev, arch: str) -> dict:
     before = tree_map_with_path(lambda _, x: x.clone(), params_cpu)
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0)).batch(0)
     lr_fn = cosine_schedule(1e-2, warmup_steps=0, total_steps=10)
-    runs = {}
+    runs, routes = {}, {}
     for name, device, plain in (("card", dev, False), ("card_plain", dev, True), ("cpu", torch.device("cpu"), False)):
         p = tree_map_with_path(lambda _, x: x.to(device, copy=True), params_cpu)  # each step updates its own copy
         b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-        with ops.plain_versions() if plain else nullcontext():
+        with ops.plain_versions() if plain else nullcontext(), recording_moe() as routes[name]:
             p, st, met = make_train_step(Model(cfg, device=device), lr_fn)(p, adamw_init(p), b)
         runs[name] = (p, st, {k: float(v) for k, v in met.items()})
 
@@ -1205,6 +1253,8 @@ def train_check(torch, get_config, ops, dev, arch: str) -> dict:
         "card_plain_vs_cpu": compare("card_plain", "cpu"), "held_against": TRAIN_CHECKS[arch],
         "bounds": TRAIN_CARD_VS_CPU,
     }
+    if routes["card"]:  # MoE: the first token routed otherwise than on the card (None: no route flip)
+        res["moe_first_route_flip"] = {ref: first_flip(routes["card"], routes[ref]) for ref in ("card_plain", "cpu")}
     emit("train_check", **res)
     for ref_name in TRAIN_CHECKS[arch]:
         c = res[f"card_vs_{ref_name}"]
@@ -1227,13 +1277,13 @@ def grads_check(torch, get_config, ops, dev, arch: str) -> dict:
     cfg = get_config(arch, smoke=True)
     params_cpu = at_unstacked_std(Model(cfg, device="cpu").init(torch.Generator().manual_seed(0), train=True))
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0)).batch(0)
-    runs = {}
+    runs, routes = {}, {}
     for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
         model = Model(cfg, device=device)
         p = tree_map_with_path(lambda _, x: x.to(device, copy=True), params_cpu)
         grads = tree_map_with_path(lambda _, x: torch.zeros_like(x, dtype=torch.float32), p)
         ops.reset_launch_counts()
-        with ops.plain_versions("flash_attention"):
+        with ops.plain_versions("flash_attention"), recording_moe() as routes[name]:
             loss, _ = model.loss(model.grad_leaves(p, grads), {k: torch.from_numpy(v).to(device)
                                                                for k, v in batch.items()})
             loss.backward()
@@ -1246,6 +1296,8 @@ def grads_check(torch, get_config, ops, dev, arch: str) -> dict:
            "attention": "plain f32 on both", "loss_card": lc, "loss_cpu": lw,
            "loss_diff": abs(lc - lw), "grad_max_rel_l2": rel[worst], "worst_leaf": worst, "launches_card": counts,
            "bounds": GRADS_CARD_VS_CPU}
+    if routes["card"]:  # MoE: the first token routed otherwise on the two devices (None: no route flip)
+        res["moe_first_route_flip"] = first_flip(routes["card"], routes["cpu"])
     emit("grads_check", **res)
     want = {**train_launches(cfg, ("fma", "fma")), "flash_attention": 0, "flash_attention_bwd": 0}
     if not (counts == want and res["loss_diff"] < GRADS_CARD_VS_CPU["loss"]
@@ -1361,9 +1413,14 @@ def main() -> int:
     hB, hS = PATHS["recurrentgemma-9b"]["B"], PATHS["recurrentgemma-9b"]["S"]
     tB, tS = TRAIN["B"], TRAIN["S"]
     yB, yS = TRAIN_HYBRID["B"], TRAIN_HYBRID["S"]
+    ds, qm = get_config("deepseek-moe-16b"), get_config("qwen3-moe-235b-a22b")
+    dB, dS = PATHS["deepseek-moe-16b"]["B"], PATHS["deepseek-moe-16b"]["S"]
+    mB, mS = TRAIN_MOE["B"], TRAIN_MOE["S"]
     timing = {  # the first row of each kernel is its summary row
         "flash_attention": [time_flash(torch, F, ops, ref, dev, qwen, qB, qS),
-                            time_flash(torch, F, ops, ref, dev, hyb, hB, hS)],
+                            time_flash(torch, F, ops, ref, dev, hyb, hB, hS),
+                            time_flash(torch, F, ops, ref, dev, ds, dB, dS),  # MHA: 16 q-heads on 16 kv-heads
+                            time_flash(torch, F, ops, ref, dev, qm, dB, dS)],  # GQA 64 / 4
         "fused_rmsnorm": [
             time_rmsnorm(torch, F, ops, ref, dev, qB * qS, qwen.d_model, torch.bfloat16),  # norm1, final_norm
             time_rmsnorm(torch, F, ops, ref, dev, qB * qS, qwen.d_model, torch.float32),  # norm2 on the f32 sum
@@ -1371,17 +1428,22 @@ def main() -> int:
             time_rmsnorm(torch, F, ops, ref, dev, qB * qS * qwen.n_kv_heads, qwen.head_dim, torch.bfloat16),  # k_norm
             time_rmsnorm(torch, F, ops, ref, dev, hB * hS, hyb.d_model, torch.bfloat16),  # hybrid norm1 after a carry
             time_rmsnorm(torch, F, ops, ref, dev, hB * hS, hyb.d_model, torch.float32),  # hybrid norms on f32 sums
+            time_rmsnorm(torch, F, ops, ref, dev, dB * dS, ds.d_model, torch.bfloat16),  # deepseek norm1, final
+            time_rmsnorm(torch, F, ops, ref, dev, dB * dS, ds.d_model, torch.float32),  # deepseek pre-MoE norm
         ],
         # the hybrid prefill's, and one prompt through Model.forward
         "rglru_scan": time_rglru(torch, ops, ref, dev, [(hB, hS, hyb.lru_width), (1, hS, hyb.lru_width)]),
         # the training steps' (TRAIN: B x S tokens of qwen3-4b; TRAIN_HYBRID's)
         "flash_attention_bwd": [time_flash_bwd(torch, F, ops, ref, dev, qwen, tB, tS),
-                                time_flash_bwd_windowed(torch, F, ops, ref, dev, hyb, yB, yS)],
+                                time_flash_bwd_windowed(torch, F, ops, ref, dev, hyb, yB, yS),
+                                time_flash_bwd(torch, F, ops, ref, dev, ds, mB, mS)],  # TRAIN_MOE's
         "fused_rmsnorm_bwd": [
             time_rmsnorm_bwd(torch, F, ops, ref, dev, tB * tS, qwen.d_model, torch.bfloat16),  # norm1, final_norm
             time_rmsnorm_bwd(torch, F, ops, ref, dev, tB * tS, qwen.d_model, torch.float32),  # norm2 on the f32 sum
             time_rmsnorm_bwd(torch, F, ops, ref, dev, tB * tS * qwen.n_heads, qwen.head_dim, torch.bfloat16),
             time_rmsnorm_bwd(torch, F, ops, ref, dev, tB * tS * qwen.n_kv_heads, qwen.head_dim, torch.bfloat16),
+            time_rmsnorm_bwd(torch, F, ops, ref, dev, mB * mS, ds.d_model, torch.bfloat16),  # TRAIN_MOE's norms
+            time_rmsnorm_bwd(torch, F, ops, ref, dev, mB * mS, ds.d_model, torch.float32),
         ],
         # the hybrid training step's (B = 1), and at the prefill's B = 2
         "rglru_scan_bwd": time_rglru_bwd(torch, ops, ref, dev, [(yB, yS, hyb.lru_width), (2, yS, hyb.lru_width)]),
@@ -1391,7 +1453,7 @@ def main() -> int:
             emit("kernel_timing", name=name, **row)
     torch.cuda.empty_cache()
 
-    # -- the two paths: prefill, serve, profile, check -------------------------------------------
+    # -- the serving paths: prefill, serve, profile, check ---------------------------------------
     launches = dict.fromkeys(ops.launch_counts(), 0)
     for arch in PATHS:
         for counts in drive_path(torch, get_config, ops, dev, arch):
@@ -1402,6 +1464,7 @@ def main() -> int:
     # -- the training paths: train at full width, the Trainer at smoke size, card vs CPU -----------
     for run in (lambda: train_phase(torch, get_config, ops, dev, TRAIN),
                 lambda: train_phase(torch, get_config, ops, dev, TRAIN_HYBRID),
+                lambda: train_phase(torch, get_config, ops, dev, TRAIN_MOE),
                 lambda: trainer_phase(torch, ops, dev)):
         for name, n in run().items():
             launches[name] += n
@@ -1472,10 +1535,93 @@ def main() -> int:
     return 0
 
 
+def memory_reckoning(cfg, full) -> dict:
+    """The serving path's weights in their storage dtypes and the largest
+    f32 draw of the init (each leaf is drawn in f32, then stored)."""
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.models.modules import storage_dtype, tree_leaves
+
+    leaves = list(tree_leaves(Model(cfg, device="meta").spec()))
+    stored = sum(math.prod(s.shape) * storage_dtype(p, len(s.shape)).itemsize for p, s in leaves)
+    largest = max(math.prod(s.shape) for _, s in leaves)
+    return {"n_params": cfg.n_params(), "n_active_params": cfg.n_active_params(), "weights_gb": stored / 1e9,
+            "largest_leaf_f32_draw_gb": 4 * largest / 1e9, "full_layers": full.n_layers,
+            "full_depth_weights_gb": stored / 1e9 * full.n_params() / cfg.n_params(),
+            "card_gb": torch.cuda.get_device_properties(0).total_memory / 1e9}
+
+
+@contextlib.contextmanager
+def recording_moe(keep_io: bool = False):
+    """Within: each MoE call (``transformer.moe``) appends {"aux", "ids",
+    "top": its router's top K+1 probabilities} to the yielded list, and with
+    ``keep_io`` its input, output and weights; nothing is recorded for a
+    model without MoE. Reads no value on the host while recording."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+
+    calls, moe, route = [], tfm.moe, moe_mod.route
+
+    def recording_route(params, xt, cfg):
+        out = route(params, xt, cfg)
+        calls.append({"ids": out[2], "top": out[0].topk(cfg.top_k + 1, dim=-1).values})
+        return out
+
+    def recording_moe_call(params, x, cfg):
+        y, aux = moe(params, x, cfg)
+        calls[-1]["aux"] = aux
+        if keep_io:
+            calls[-1].update(x=x, y=y, params=params)
+        return y, aux
+
+    tfm.moe, moe_mod.route = recording_moe_call, recording_route
+    try:
+        yield calls
+    finally:
+        tfm.moe, moe_mod.route = moe, route
+
+
+def moe_prefill_stats(cfg, n_tokens: int, calls: list) -> dict:
+    """The MoE's own numbers of one prefill: capacity, dropped fraction per
+    layer (its mean and max), the experts' largest and smallest share of the
+    slots, and the smallest top-k margin. Empty without MoE."""
+    if not calls:
+        return {}
+    from repro_torch.models.moe import _capacity
+
+    dropped = [float(c["aux"]["dropped_frac"]) for c in calls]
+    frac = [c["aux"]["expert_frac"] for c in calls]
+    return {"moe": {
+        "capacity": _capacity(n_tokens, cfg), "tokens": n_tokens, "experts": cfg.n_experts, "top_k": cfg.top_k,
+        "dropped_frac_per_layer": dropped, "dropped_frac_mean": sum(dropped) / len(dropped),
+        "dropped_frac_max": max(dropped), "expert_frac_max": max(float(f.max()) for f in frac),
+        "expert_frac_min": min(float(f.min()) for f in frac),
+        "min_top_k_margin": min(float((c["top"][:, -2] - c["top"][:, -1]).min()) for c in calls),
+    }}
+
+
+def first_flip(got: list, want: list) -> int | None:
+    """The first token (flat index over the batch) whose set of experts
+    differs between two recordings of the same MoE calls, or None. Tokens
+    before it saw the same routes in every layer: attention is causal and a
+    slot's rank (its drop) depends only on the slots before it."""
+    if len(got) != len(want):
+        raise AssertionError(f"MoE calls differ in number: {len(got)} against {len(want)}")
+    firsts = []
+    for g, w in zip(got, want):
+        differ = (g["ids"].cpu().sort(-1).values != w["ids"].cpu().sort(-1).values).any(-1)
+        if bool(differ.any()):
+            firsts.append(int(differ.nonzero()[0]))
+    return min(firsts, default=None)
+
+
 def drive_path(torch, get_config, ops, dev, arch: str) -> tuple[dict, dict]:
-    """Prefill, serve, profile and check one architecture at full width through
-    ``Model`` and ``BatchedServer``. -> the kernel launches of the prefill and
-    of the serve run, each counted from 0 just before it."""
+    """Prefill, serve, profile and check one architecture at full width (cut
+    to ``n_layers`` where PATHS names it, with its ``depth_why``) through
+    ``Model`` and ``BatchedServer``, after reckoning its memory. -> the
+    kernel launches of the prefill and of the serve run, each counted from 0
+    just before it."""
     import numpy as np
 
     from repro_torch.launch.serve import BatchedServer, make_requests
@@ -1483,7 +1629,9 @@ def drive_path(torch, get_config, ops, dev, arch: str) -> tuple[dict, dict]:
 
     path = PATHS[arch]
     B, S = path["B"], path["S"]
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=path.get("n_layers", full.n_layers))
+    reckoning = memory_reckoning(cfg, full)
 
     # -- prefill: Model.forward at full width ------------------------------------
     t0 = time.perf_counter()
@@ -1491,13 +1639,15 @@ def drive_path(torch, get_config, ops, dev, arch: str) -> tuple[dict, dict]:
     server = BatchedServer(model, batch=4, max_len=128, seed=0)  # draws the weights once for both phases
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     params = server.params
     tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (B, S))).to(dev)
     t0 = time.perf_counter()
-    with torch.inference_mode():
-        model.forward(params, {"tokens": tokens})  # compiles the Triton kernel for the prefill's shapes
+    with torch.inference_mode(), recording_moe() as moe_calls:  # compiles the Triton kernel for the prefill's shapes
+        model.forward(params, {"tokens": tokens})
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
+    moe_stats = moe_prefill_stats(cfg, B * S, moe_calls)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1508,9 +1658,10 @@ def drive_path(torch, get_config, ops, dev, arch: str) -> tuple[dict, dict]:
     prefill_counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finite = bool(torch.isfinite(logits.float()).all())
-    emit("prefill", arch=arch, n_params=cfg.n_params(), batch=B, seq=S, logits_shape=list(logits.shape),
-         finite=finite, init_s=init_s, first_call_ms=first_ms, wall_ms=prefill_ms,
-         tokens_per_s=B * S / (prefill_ms / 1e3), peak_memory_gb=peak_gb, launches=prefill_counts)
+    emit("prefill", arch=arch, layers=cfg.n_layers, n_params=cfg.n_params(), batch=B, seq=S,
+         logits_shape=list(logits.shape), finite=finite, init_s=init_s, init_peak_memory_gb=init_peak_gb,
+         first_call_ms=first_ms, wall_ms=prefill_ms, tokens_per_s=B * S / (prefill_ms / 1e3), peak_memory_gb=peak_gb,
+         launches=prefill_counts, depth_why=path.get("depth_why", "uncut"), memory=reckoning, **moe_stats)
     if not finite or tuple(logits.shape) != (B, S, cfg.vocab):
         raise AssertionError(f"{arch} prefill logits: shape {tuple(logits.shape)}, finite {finite}")
     if prefill_counts != path["prefill"]:
@@ -1538,7 +1689,7 @@ def drive_path(torch, get_config, ops, dev, arch: str) -> tuple[dict, dict]:
     want = {k: n * stats["decode_steps"] for k, n in path["per_step"].items()}
     if serve_counts != want:
         raise AssertionError(f"{arch} serve launches {serve_counts}, expected {path['per_step']} per decode step")
-    emit("profile", arch=arch, **profile_phase(torch, model, params, tokens, dev))
+    emit("profile", arch=arch, layers=cfg.n_layers, **profile_phase(torch, model, params, tokens, dev))
     del server, params, tokens
     torch.cuda.empty_cache()
 
@@ -1578,8 +1729,30 @@ def profile_phase(torch, model, params, tokens, dev) -> dict:
             "idle_share": (1 - busy_ms / wall_ms) if busy_ms else "not measured",
             "kernel_launches": sum(e.count for e in kernels),
             "top": [{"name": e.key[:80], "count": e.count, "device_ms": e.self_device_time_total / 1e3} for e in top],
+            **moe_scopes(prof, busy_ms),
         }
     return out
+
+
+MOE_SCOPES = ("moe/router", "moe/dispatch", "moe/experts", "moe/combine", "moe/shared_experts", "moe/aux_loss")
+
+
+def moe_scopes(prof, busy_ms: float) -> dict:
+    """Device ms of the kernels launched inside each of the MoE module's
+    ``record_function`` ranges (its host-side range events: a kernel counts
+    where its launch lies), and each one's share of the device busy time.
+    Empty without MoE. In a train step the backward's kernels lie outside the
+    ranges; a checkpoint's recompute lies inside them."""
+    from torch.autograd import DeviceType
+
+    ms = dict.fromkeys(MOE_SCOPES, 0.0)
+    for e in prof.events():
+        if e.name in ms and e.device_type == DeviceType.CPU:
+            ms[e.name] += e.device_time_total / 1e3
+    if not any(ms.values()):
+        return {}
+    return {"moe_scopes_ms": ms, "moe_scopes_share": {k: v / busy_ms for k, v in ms.items()},
+            "moe_share": sum(ms.values()) / busy_ms}
 
 
 def smoke_check(torch, get_config, Model, ops, dev, arch: str, n_tokens: int) -> dict:
@@ -1596,9 +1769,21 @@ def smoke_check(torch, get_config, Model, ops, dev, arch: str, n_tokens: int) ->
       probabilities in f32 and scans, decode rounds them to bf16 and steps
       ``h``) and at recurrentgemma-9b smoke is 0.041-0.084 for the JAX
       package over three token seeds (tests/test_torch_rglru.py), so it is
-      reported, not bounded."""
+      reported, not bounded.
+
+    With MoE, a token whose k-th and (k+1)-th router probabilities lie closer
+    than the two sides' rounding may take another expert on one side (a route
+    flip, an O(1) change of its output). The routes of the four runs (card
+    and CPU, prefill and decode) are recorded, and the three comparisons
+    cover the tokens before the first one any two runs route differently
+    (all when none; attention is causal, and at these sizes nothing drops).
+    Each MoE layer is also held layer by layer: the card's layer from the
+    CPU prefill's input of that layer, its routes equal to the CPU's and its
+    output within the bf16 tolerance (``check_close``)."""
     import numpy as np
 
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models.moe import moe
     from repro_torch.models.modules import tree_map_with_path
 
     cfg = get_config(arch, smoke=True)
@@ -1607,34 +1792,79 @@ def smoke_check(torch, get_config, Model, ops, dev, arch: str, n_tokens: int) ->
     params = tree_map_with_path(lambda _, a: a.to(dev), params_cpu)
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (1, n_tokens)))
     ops.reset_launch_counts()
-    with torch.inference_mode():
+    with torch.inference_mode(), recording_moe() as card_pre:
         fwd, _ = gpu.forward(params, {"tokens": toks.to(dev)})
+    with torch.inference_mode(), recording_moe(keep_io=True) as cpu_pre:
         fwd_cpu, _ = cpu.forward(params_cpu, {"tokens": toks})
     flash_counts = {k: ops.launch_counts()[k] for k in ("flash_attention", "flash_attention_wgmma")}
-    if not flash_counts["flash_attention"] == flash_counts["flash_attention_wgmma"] > 0:
-        raise AssertionError(f"{arch} smoke prefill: flash launches {flash_counts}, all expected on wgmma")
+    variant = flash.variant(torch.bfloat16, cfg.head_dim)  # wgmma, or FMA at the MoE smoke configs' head dim 8
+    if not (flash_counts["flash_attention"] > 0
+            and flash_counts["flash_attention_wgmma"] == flash_counts["flash_attention"] * (variant == "wgmma")):
+        raise AssertionError(f"{arch} smoke prefill: flash launches {flash_counts}, all expected on the {variant} "
+                             "kernel")
     fwd = fwd.cpu().float()
     fwd_cpu = fwd_cpu.float()
     state, state_cpu = gpu.init_decode_state(1, 32), cpu.init_decode_state(1, 32)
     decode_err, gap, gap_cpu = [], [], []
+    card_dec, cpu_dec = [], []  # the MoE calls of each decode step
     for t in range(n_tokens):
-        logits, state = gpu.decode_step(params, {"tokens": toks[:, t : t + 1].to(dev)}, state, t)
-        logits_cpu, state_cpu = cpu.decode_step(params_cpu, {"tokens": toks[:, t : t + 1]}, state_cpu, t)
+        with recording_moe() as card_calls:
+            logits, state = gpu.decode_step(params, {"tokens": toks[:, t : t + 1].to(dev)}, state, t)
+        with recording_moe() as cpu_calls:
+            logits_cpu, state_cpu = cpu.decode_step(params_cpu, {"tokens": toks[:, t : t + 1]}, state_cpu, t)
+        card_dec.append(card_calls)
+        cpu_dec.append(cpu_calls)
         logits, logits_cpu = logits.cpu().float(), logits_cpu.float()
         decode_err.append(float((logits - logits_cpu).abs().max()))
         gap.append(float((logits[0] - fwd[0, t]).abs().max()))
         gap_cpu.append(float((logits_cpu[0] - fwd_cpu[0, t]).abs().max()))
-    out = {
-        "arch": cfg.name, "tokens": n_tokens, "prefill_flash_launches": flash_counts,
-        "prefill_card_vs_cpu_max_abs": float((fwd - fwd_cpu).abs().max()), "prefill_bound": 0.1,
-        "decode_card_vs_cpu_max_abs": max(decode_err), "decode_bound": DECODE_CARD_VS_CPU,
-        "decode_vs_prefill_card": max(gap), "decode_vs_prefill_cpu": max(gap_cpu),
-        "gap_card_vs_cpu": max(abs(x - y) for x, y in zip(gap, gap_cpu)), "gap_bound": 0.1,
-    }
-    if not (out["prefill_card_vs_cpu_max_abs"] < 0.1 and out["decode_card_vs_cpu_max_abs"] < DECODE_CARD_VS_CPU
-            and out["gap_card_vs_cpu"] < 0.1):
-        raise AssertionError(f"smoke check out of bound: {out}")
+    out = {"arch": cfg.name, "tokens": n_tokens, "prefill_flash_launches": flash_counts}
+    n = n_tokens  # the tokens the comparisons cover
+    if cpu_pre:
+        n, moe_out = moe_smoke_routes(torch, moe, cfg, dev, card_pre, cpu_pre, card_dec, cpu_dec, n_tokens)
+        out.update(moe_out)
+    if n:
+        out.update({
+            "prefill_card_vs_cpu_max_abs": float((fwd - fwd_cpu)[0, :n].abs().max()), "prefill_bound": 0.1,
+            "decode_card_vs_cpu_max_abs": max(decode_err[:n]), "decode_bound": DECODE_CARD_VS_CPU,
+            "decode_vs_prefill_card": max(gap[:n]), "decode_vs_prefill_cpu": max(gap_cpu[:n]),
+            "gap_card_vs_cpu": max(abs(x - y) for x, y in zip(gap[:n], gap_cpu[:n])), "gap_bound": 0.1,
+        })
+        if not (out["prefill_card_vs_cpu_max_abs"] < 0.1 and out["decode_card_vs_cpu_max_abs"] < DECODE_CARD_VS_CPU
+                and out["gap_card_vs_cpu"] < 0.1):
+            raise AssertionError(f"smoke check out of bound: {out}")
     return out
+
+
+def moe_smoke_routes(torch, moe, cfg, dev, card_pre, cpu_pre, card_dec, cpu_dec, n_tokens) -> tuple[int, dict]:
+    """``smoke_check``'s MoE part: the first token any two of its four runs
+    route differently (-> the tokens the logit comparisons cover), and each
+    MoE layer of the CPU prefill run again on the card from the same input:
+    routes equal, output within the bf16 tolerance."""
+    from repro_torch.models.modules import tree_map_with_path
+
+    def at_token(calls, t):  # one token's routes in each MoE call of a prefill
+        return [{"ids": c["ids"][t : t + 1]} for c in calls]
+
+    first = n_tokens
+    for t in range(n_tokens):
+        runs = [at_token(card_pre, t), at_token(cpu_pre, t), card_dec[t], cpu_dec[t]]
+        if any(first_flip(a, b) is not None for a in runs for b in runs):
+            first = t
+            break
+    worst, n_layers = 0.0, 0
+    for c in cpu_pre:
+        layer = tree_map_with_path(lambda _, a: a.to(dev), c["params"])
+        with torch.inference_mode(), recording_moe() as again:
+            y, _ = moe(layer, c["x"].to(dev), cfg)
+        if not torch.equal(again[0]["ids"].cpu(), c["ids"]):
+            raise AssertionError(f"{cfg.name} MoE layer {n_layers}: the card routes the CPU's input otherwise")
+        worst = max(worst, check_close(f"{cfg.name} MoE layer {n_layers}, card from the CPU's input", y.cpu(), c["y"]))
+        n_layers += 1
+    margins = [float((c["top"][:, -2] - c["top"][:, -1]).min()) for c in cpu_pre + [d for s in cpu_dec for d in s]]
+    return first, {"moe_first_route_flip": None if first == n_tokens else first, "tokens_compared": first,
+                   "moe_min_top_k_margin": min(margins), "moe_layers_checked": n_layers,
+                   "moe_layer_max_abs_err": worst}
 
 
 if __name__ == "__main__":

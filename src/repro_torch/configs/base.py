@@ -3,8 +3,9 @@
 A copy of the JAX package's config module, so the port imports nothing of
 it. Every registered architecture has a full config plus a reduced ``smoke``
 variant (same family, tiny dims) used by CPU tests. The port registers the
-four dense decoders, which all run through the same code, and the hybrid
-``recurrentgemma-9b`` (recurrent blocks beside windowed attention).
+four dense decoders, which all run through the same code, the hybrid
+``recurrentgemma-9b`` (recurrent blocks beside windowed attention) and the
+two MoE decoders ``deepseek-moe-16b`` and ``qwen3-moe-235b-a22b``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ class ModelConfig:
     capacity_factor: float = 1.25
     first_dense: int = 0  # leading dense-FFN layers (DeepSeekMoE)
     dense_d_ff: int = 0
+    # Ignored by the port, which has no mesh: the JAX package's
+    # ``_apply_moe`` takes the dense dispatch (``models/moe.py``) without one.
+    # Kept so configs compare field by field with the JAX package's.
     moe_impl: str = "dense"
     # recurrent / ssm
     lru_width: int | None = None
@@ -69,6 +73,11 @@ class ModelConfig:
         from repro_torch.models.model import Model
 
         return Model(self, device="meta").n_params
+
+    def n_active_params(self) -> int:
+        from repro_torch.models.model import Model
+
+        return Model(self, device="meta").n_active_params
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +147,14 @@ def _ensure_loaded() -> None:
     global _loaded
     if _loaded:
         return
-    from . import gemma_2b, granite_3_8b, llama3_2_3b, qwen3_4b, recurrentgemma_9b  # noqa: F401
+    from . import (  # noqa: F401
+        deepseek_moe_16b,
+        gemma_2b,
+        granite_3_8b,
+        llama3_2_3b,
+        qwen3_4b,
+        qwen3_moe_235b,
+        recurrentgemma_9b,
+    )
 
     _loaded = True

@@ -30,6 +30,7 @@ from .modules import (
     param_count,
     rms_norm,
     rms_norm_spec,
+    tree_leaves,
     unembed,
 )
 
@@ -97,6 +98,18 @@ class Model:
     def n_params(self) -> int:
         return param_count(self.spec())
 
+    @property
+    def n_active_params(self) -> int:
+        """Per-token active parameters (MoE: the routed experts count k/E), as
+        the JAX package counts them."""
+        cfg = self.cfg
+        total = self.n_params
+        if not cfg.n_experts:
+            return total
+        routed = sum(math.prod(s.shape) for path, s in tree_leaves(self.spec())
+                     if "moe" in path and "router" not in path and "expert" in s.logical)
+        return int(total - routed + routed * cfg.top_k / cfg.n_experts)
+
     # -- forward ----------------------------------------------------------------
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -114,15 +127,16 @@ class Model:
         return logits
 
     def forward(self, params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """-> (logits (B,S,V), load-balance loss (0: no MoE in this slice))."""
+        """-> (logits (B,S,V), the MoE load-balance loss summed over the
+        layers (an f32 0 without an MoE))."""
         x = self._embed(params, batch["tokens"])
         positions = batch.get("positions")
         if positions is None:
             B, S = x.shape[:2]
             positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-        x, x_sum = tfm.stack_apply(params["layers"], x, self.cfg, positions)
+        x, x_sum, lb = tfm.stack_apply(params["layers"], x, self.cfg, positions)
         x = rms_norm(params["final_norm"], x if x_sum is None else x_sum).to(x.dtype)
-        return self.logits_fn(params, x), torch.zeros((), device=x.device)
+        return self.logits_fn(params, x), lb
 
     def loss(self, params, batch: dict) -> tuple[torch.Tensor, dict]:
         """Causal-LM cross entropy + 1e-4 z-loss + 1e-2 load-balance loss, as

@@ -167,10 +167,28 @@ def dtype_const(v: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(v, dtype=dtype))
 
 
+class _Silu(torch.autograd.Function):
+    """jax.nn.silu. The forward op by op (x * 1 / (1 + exp(-x))), rounding to
+    x's dtype after each op as JAX does; F.silu rounds once and differs in
+    ~40% of bf16 values. The backward is the logistic's derivative,
+    g s (1 + x (1 - s)) with s = sigmoid(x), as JAX differentiates
+    ``x * logistic(x)`` (``aten.silu_backward``: one kernel, f32 inside):
+    autograd through the ops above multiplies 0 by exp(-x) = inf where
+    x < -88 and gives NaN."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        return x * torch.reciprocal(1 + torch.exp(-x))
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (x,) = ctx.saved_tensors
+        return torch.ops.aten.silu_backward(g, x)
+
+
 def _silu(x: torch.Tensor) -> torch.Tensor:
-    # jax.nn.silu op by op (x * 1 / (1 + exp(-x))), rounding to x's dtype after
-    # each op as JAX does; F.silu rounds once and differs in ~40% of bf16 values.
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    return _Silu.apply(x)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:

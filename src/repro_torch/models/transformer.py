@@ -3,15 +3,16 @@
 The parameter layout is the JAX package's: [prefix | n_units x pattern |
 remainder], with the units' parameters stacked along a leading 'layers' axis.
 The JAX ``lax.scan`` over that axis becomes a Python loop. The port has the
-``attn`` and ``rec`` (Griffin recurrent block) layer kinds with a dense MLP;
-the other kinds raise.
+``attn`` and ``rec`` (Griffin recurrent block) layer kinds, each with a dense
+MLP or an MoE feed-forward; the xLSTM kinds raise.
 
 Under autograd each stacked unit runs as ``cfg.remat`` says, the counterpart
 of the JAX package's ``jax.checkpoint`` around its scan body: ``"none"``
 stores every activation, ``"full"`` stores only the unit's input and
 recomputes the rest in the backward pass, ``"dots"`` stores the outputs of
 the matrix products (``aten.mm``: the counterpart of
-``dots_with_no_batch_dims_saveable``) and recomputes the rest.
+``dots_with_no_batch_dims_saveable``: the router's product is saved, the
+experts' batched products, ``aten.bmm``, are not) and recomputes the rest.
 """
 
 from __future__ import annotations
@@ -25,12 +26,12 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from . import attention as attn_mod
 from . import rglru as rec_mod
 from .mlp import mlp, mlp_spec
+from .moe import moe, moe_spec
 from .modules import rms_norm, rms_norm_spec, stack_specs
 
 _NOT_PORTED = {
     "slstm": "sLSTM (xlstm) is not ported yet: ROADMAP Queue 1 item 12",
     "mlstm": "mLSTM (xlstm) is not ported yet: ROADMAP Queue 1 item 12",
-    "moe": "MoE feed-forward is not ported yet: ROADMAP Queue 1 item 11",
 }
 
 
@@ -70,15 +71,19 @@ def block_spec(cfg, kind: str, ffn: str) -> dict:
     elif ffn == "dense_mlp":
         spec["norm2"] = rms_norm_spec(d)
         spec["mlp"] = mlp_spec(d, cfg.dense_d_ff or 4 * d)
+    elif ffn == "moe":
+        spec["norm2"] = rms_norm_spec(d)
+        spec["moe"] = moe_spec(cfg)
     return spec
 
 
 def block_apply(
     params, x: torch.Tensor, cfg, kind: str, ffn: str, positions: torch.Tensor, x_sum: torch.Tensor | None = None
-) -> tuple[torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """One residual block (prefill). ``x_sum`` is x before its rounding to
     bf16, where the previous block's residual sum reaches this block's norm
-    unrounded (see :func:`stack_apply`). Returns (x, x_sum) for the next block."""
+    unrounded (see :func:`stack_apply`). Returns (x, x_sum) for the next
+    block and the MoE load-balance loss (None without an MoE)."""
     _check_ported(kind, ffn)
     h = rms_norm(params["norm1"], x if x_sum is None else x_sum).to(x.dtype)
     if kind == "attn":
@@ -91,20 +96,24 @@ def block_apply(
 def block_decode(
     params, x: torch.Tensor, state, pos: int, cfg, kind: str, ffn: str, x_sum: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One residual block, single-token decode, as :func:`block_apply`. The
-    layer's state (KV cache, or conv window and h) is updated in place."""
+    """One residual block, single-token decode, as :func:`block_apply`
+    (-> (x, x_sum)). The layer's state (KV cache, or conv window and h) is
+    updated in place. An MoE routes the B tokens of the step as one batch."""
     _check_ported(kind, ffn)
     h = rms_norm(params["norm1"], x if x_sum is None else x_sum).to(x.dtype)
     if kind == "attn":
         y, _ = attn_mod.decode_attention(params["attn"], h, state, pos, cfg, window=cfg.window)
     else:
         y, _ = rec_mod.recurrent_block_step(params["rec"], h, state, cfg)
-    return _residual_ffn(params, x, y, cfg, ffn)
+    return _residual_ffn(params, x, y, cfg, ffn)[:2]
 
 
-def _residual_ffn(params, x: torch.Tensor, y: torch.Tensor, cfg, ffn: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """x + y, then the pre-MLP norm and the MLP residual. -> (x, x_sum): the
-    new residual in bf16 and the f32 sum it was rounded from.
+def _residual_ffn(
+    params, x: torch.Tensor, y: torch.Tensor, cfg, ffn: str
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """x + y, then the pre-MLP (or pre-MoE) norm and the feed-forward's
+    residual. -> (x, x_sum, lb): the new residual in bf16, the f32 sum it was
+    rounded from, and the MoE's load-balance loss (None without one).
 
     The norm reads the f32 sum, not the bf16 residual: compiled, the JAX
     package fuses ``rms_norm(x + y)`` and XLA keeps the sum in f32 (excess
@@ -112,10 +121,16 @@ def _residual_ffn(params, x: torch.Tensor, y: torch.Tensor, cfg, ffn: str) -> tu
     norm's output is rounded to bf16 once, as there."""
     s = x.float() + y.float()
     x = s.to(x.dtype)
+    lb = None
     if ffn in ("mlp", "dense_mlp"):
-        s = x.float() + mlp(params["mlp"], rms_norm(params["norm2"], s).to(x.dtype), act=cfg.act).float()
-        x = s.to(x.dtype)
-    return x, s
+        y = mlp(params["mlp"], rms_norm(params["norm2"], s).to(x.dtype), act=cfg.act)
+    elif ffn == "moe":
+        y, aux = moe(params["moe"], rms_norm(params["norm2"], s).to(x.dtype), cfg)
+        lb = aux["lb_loss"]
+    else:
+        return x, s, lb
+    s = x.float() + y.float()
+    return s.to(x.dtype), s, lb
 
 
 # ---------------------------------------------------------------------------
@@ -187,14 +202,20 @@ def _unit_apply(scan_params, u: int, x: torch.Tensor, cfg, positions: torch.Tens
     """Stacked unit ``u``, its weights sliced and cast inside, so that a
     checkpoint recomputes the bf16 copies instead of storing them. The f32
     residual sum is handed from block to block within the unit and returned
-    with x."""
+    with x, and the unit's load-balance losses are summed in block order
+    (-> (x, x_sum, lb), lb None without an MoE)."""
     lay = StackLayout(cfg)
     unit_params = _unit(scan_params, u)
-    x_sum = None
+    x_sum, lb = None, None
     for j, kind in enumerate(lay.unit_kinds):
-        x, x_sum = block_apply(unit_params[f"block{j}"], x, cfg, kind, _ffn_kind(cfg, cfg.first_dense + j),
-                               positions, x_sum)
-    return x, x_sum
+        x, x_sum, block_lb = block_apply(unit_params[f"block{j}"], x, cfg, kind,
+                                         _ffn_kind(cfg, cfg.first_dense + j), positions, x_sum)
+        lb = _add_lb(lb, block_lb)
+    return x, x_sum, lb
+
+
+def _add_lb(total: torch.Tensor | None, lb: torch.Tensor | None) -> torch.Tensor | None:
+    return lb if total is None else total if lb is None else total + lb
 
 
 _MATMULS = (torch.ops.aten.mm.default,)
@@ -219,8 +240,12 @@ def _remat(mode: str):
     raise ValueError(f"unknown remat mode {mode!r} (expected 'none', 'full' or 'dots')")
 
 
-def stack_apply(params, x: torch.Tensor, cfg, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Full layer stack forward. -> (x, x_sum) for the final norm.
+def stack_apply(
+    params, x: torch.Tensor, cfg, positions: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor]:
+    """Full layer stack forward. -> (x, x_sum) for the final norm, and the
+    load-balance loss summed over the MoE layers in layer order, as the JAX
+    package sums it (an f32 0 without an MoE).
 
     Compiled, the JAX package fuses a block's last residual add into the
     next consumer's RMSNorm, and XLA keeps the sum in f32 there (excess
@@ -230,19 +255,22 @@ def stack_apply(params, x: torch.Tensor, cfg, positions: torch.Tensor) -> tuple[
     units, is rounded to bf16. So each block hands its f32 sum on, and it is
     dropped where JAX stores the carry (``x_sum = None``)."""
     lay = StackLayout(cfg)
-    x_sum = None
+    x_sum, lb = None, None
     for i in lay.prefix:
-        x, x_sum = block_apply(params["prefix"][f"layer{i}"], x, cfg, layer_kind(cfg, i), _ffn_kind(cfg, i), positions,
-                               x_sum)
+        x, x_sum, block_lb = block_apply(params["prefix"][f"layer{i}"], x, cfg, layer_kind(cfg, i),
+                                         _ffn_kind(cfg, i), positions, x_sum)
+        lb = _add_lb(lb, block_lb)
     run_unit = (_remat(cfg.remat) if torch.is_grad_enabled() else None) or _unit_apply
     for u in range(lay.n_units):
-        x, x_sum = run_unit(params["scan"], u, x, cfg, positions)
+        x, x_sum, unit_lb = run_unit(params["scan"], u, x, cfg, positions)
+        lb = _add_lb(lb, unit_lb)
     if lay.n_units:
         x_sum = None
     for i in lay.remainder:
-        x, x_sum = block_apply(params["remainder"][f"layer{i}"], x, cfg, layer_kind(cfg, i), _ffn_kind(cfg, i),
-                               positions, x_sum)
-    return x, x_sum
+        x, x_sum, block_lb = block_apply(params["remainder"][f"layer{i}"], x, cfg, layer_kind(cfg, i),
+                                         _ffn_kind(cfg, i), positions, x_sum)
+        lb = _add_lb(lb, block_lb)
+    return x, x_sum, torch.zeros((), device=x.device) if lb is None else lb
 
 
 def stack_decode(params, x: torch.Tensor, states, pos: int, cfg) -> tuple[torch.Tensor, torch.Tensor | None]:

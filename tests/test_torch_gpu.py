@@ -758,3 +758,173 @@ def test_remat_on_card_recomputes_through_the_kernels(card, remat):
     assert counts["flash_attention_bwd_mma"] == 0
     for (name, x), (_, y) in zip(_leaves({"p": pg, "m": sg["m"]}), _leaves({"p": pw, "m": sw["m"]})):
         assert torch.equal(x, y), name
+
+
+# ---------------------------------------------------------------------------
+# MoE (plain PyTorch on the card: sort-based dispatch, bmm experts)
+# ---------------------------------------------------------------------------
+# A token whose k-th and (k+1)-th router probabilities lie closer than the
+# card's and the CPU's rounding may take another expert on one side (a route
+# flip), which moves its output by O(1). From the same input the routes agree
+# (the router is an f32 product); from the model's own activations the MoE
+# tests hold the outputs where the routes agree and count the flips.
+MOE = ["deepseek-moe-16b", "qwen3-moe-235b-a22b"]
+
+
+def _moe_layer(arch, full=False, **changes):
+    """(cfg, one MoE layer's weights on the CPU as a stacked unit hands them
+    over: bf16 matrices, the router included). ``full``: the config's full
+    width, one layer drawn from its spec with each expert matrix at std
+    1/sqrt(d_in) (the spec's std takes fan_in = E: 1/8, which makes outputs
+    of ~70, where bf16 rounding of the products alone parts the two devices
+    by more than the elementwise tolerance); else unit 0 of the smoke model."""
+    import math
+
+    from repro_torch.models.moe import moe_spec
+    from repro_torch.models.modules import init_params
+    from repro_torch.models.transformer import _unit
+
+    cfg = dataclasses.replace(get_config(arch, smoke=not full), **changes)
+    if full:
+        layer = init_params(moe_spec(cfg), torch.Generator().manual_seed(0))
+        return cfg, tree_map_with_path(
+            lambda _, a: (a * math.sqrt(a.shape[0] / a.shape[1])).bfloat16() if a.ndim == 3
+            else a.bfloat16() if a.ndim >= 2 else a, layer)
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    return cfg, _unit(params["layers"]["scan"], 0)["block0"]["moe"]
+
+
+def _moe_x(cfg, B, S, seed=1):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal((B, S, cfg.d_model))).bfloat16()
+
+
+# (arch, full width, B, S, capacity_factor)
+MOE_CASES = [("deepseek-moe-16b", False, 2, 16, None), ("deepseek-moe-16b", False, 2, 16, 0.5),
+             ("qwen3-moe-235b-a22b", False, 2, 16, None), ("qwen3-moe-235b-a22b", False, 4, 1, None),
+             ("deepseek-moe-16b", True, 1, 512, None), ("deepseek-moe-16b", True, 4, 1, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,full,B,S,cf", MOE_CASES)
+def test_moe_on_card_vs_cpu(card, arch, full, B, S, cf):
+    """The same layer and input on the card and on the CPU: routes equal,
+    gate weights within f32 2e-5, the output within bf16 2e-2, lb_loss within
+    1e-5 relative, dropped_frac and expert_frac equal."""
+    from repro_torch.models import moe as tmoe
+
+    cfg, layer = _moe_layer(arch, full, **({} if cf is None else {"capacity_factor": cf}))
+    x = _moe_x(cfg, B, S)
+    on_card = tree_map_with_path(lambda _, a: a.to(card), layer)
+    with torch.inference_mode():
+        want_route = tmoe.route(layer, x.reshape(-1, cfg.d_model), cfg)
+        got_route = tmoe.route(on_card, x.to(card).reshape(-1, cfg.d_model), cfg)
+        want, want_aux = tmoe.moe(layer, x, cfg)
+        got, aux = tmoe.moe(on_card, x.to(card), cfg)
+    assert torch.equal(got_route[2].cpu(), want_route[2])
+    _close(got_route[1], want_route[1], "f32")
+    _close(got, want, "bf16")
+    assert float(aux["lb_loss"]) == pytest.approx(float(want_aux["lb_loss"]), rel=1e-5)
+    assert float(aux["dropped_frac"]) == float(want_aux["dropped_frac"])
+    assert torch.equal(aux["expert_frac"].cpu(), want_aux["expert_frac"])
+    if cf is not None:
+        assert float(aux["dropped_frac"]) > 0.05
+
+
+@pytest.mark.gpu
+def test_moe_on_card_repeats_to_the_bit(card):
+    """deepseek-moe-16b's layer at full width, 512 tokens: two forward and
+    backward passes on the card give the same bits (the dispatch and combine
+    gather through permutations and add in a fixed order; no atomics)."""
+    from repro_torch.models import moe as tmoe
+
+    cfg, layer = _moe_layer("deepseek-moe-16b", full=True)
+    x = _moe_x(cfg, 1, 512).to(card)
+    runs = []
+    for _ in range(2):
+        leaves = tree_map_with_path(lambda _, a: a.to(card, copy=True).requires_grad_(), layer)
+        xl = x.clone().requires_grad_()
+        y, aux = tmoe.moe(leaves, xl, cfg)
+        (y.float().square().mean() + aux["lb_loss"]).backward()
+        runs.append([y, xl.grad] + [a.grad for _, a in _leaves(leaves)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def _recording_routes(monkeypatch) -> list:
+    """From now on, each call of the MoE router appends its expert ids (on the
+    CPU) to the returned list."""
+    from repro_torch.models import moe as tmoe
+
+    calls, route = [], tmoe.route
+
+    def recording(params, xt, cfg):
+        out = route(params, xt, cfg)
+        calls.append(out[2].cpu())
+        return out
+
+    monkeypatch.setattr(tmoe, "route", recording)
+    return calls
+
+
+def _first_flip(got_calls, want_calls) -> int | None:
+    """The first token (flat index over the batch) whose set of experts
+    differs between two runs in any MoE call, or None. Tokens before it saw
+    the same routes in every layer: attention is causal and a slot's rank (its
+    drop) depends only on the slots before it."""
+    assert len(got_calls) == len(want_calls) > 0
+    firsts = [int(d.nonzero()[0]) for g, w in zip(got_calls, want_calls)
+              if (d := (g.sort(-1).values != w.sort(-1).values).any(-1)).any()]
+    return min(firsts, default=None)
+
+
+MOE_SMOKE_FORWARD_LAUNCHES = {  # head dim 8: flash on the FMA kernel
+    # the dense layer 0 and two MoE units: two norms a layer plus the final one
+    "deepseek-moe-16b": {"flash_attention": 3, "fused_rmsnorm": 7},
+    # four MoE units with qk-norms
+    "qwen3-moe-235b-a22b": {"flash_attention": 4, "fused_rmsnorm": 17},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_smoke_model_kernel_path_vs_plain_path(card, arch, monkeypatch):
+    """The MoE smoke model through the kernels on the card and the plain
+    versions on the CPU, as test_smoke_model_kernel_path_vs_plain_path: the
+    logits within 0.1 at every token before the first route flip (all tokens
+    when none), and the flip count reported."""
+    cfg = get_config(arch, smoke=True)
+    gpu, cpu = Model(cfg, device=card), Model(cfg, device="cpu")
+    params = gpu.init(torch.Generator(device=card).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 32)))
+    calls = _recording_routes(monkeypatch)
+    ops.reset_launch_counts()
+    got, lb = gpu.forward(params, {"tokens": tokens.to(card)})
+    counts = ops.launch_counts()
+    assert all(counts[k] == MOE_SMOKE_FORWARD_LAUNCHES[arch].get(k, 0) for k in counts), counts
+    n = len(calls)
+    want, want_lb = cpu.forward(tree_map_with_path(lambda _, a: a.cpu(), params), {"tokens": tokens})
+    flip = _first_flip(calls[:n], calls[n:])
+    keep = 2 * 32 if flip is None else flip
+    err = float((got.cpu().float() - want.float()).reshape(2 * 32, -1)[:keep].abs().max()) if keep else 0.0
+    print(f"{arch}: first route flip at token {flip}; logit error {err} over {keep} tokens")
+    assert keep > 0 and err < 0.1, (flip, err)
+    if flip is None:
+        assert float(lb) == pytest.approx(float(want_lb), rel=1e-4)
+
+
+@pytest.mark.gpu
+def test_moe_smoke_train_step_on_card(card, monkeypatch):
+    """One train step at deepseek-moe-16b smoke through the kernels (flash
+    and RMSNorm with their backward kernels; flash at head dim 8 on the FMA
+    kernel and pair) against the same step through
+    the plain versions on the card, at test_smoke_train_step_on_card_vs_cpu's
+    bounds, the routes of both runs counted."""
+    calls = _recording_routes(monkeypatch)
+    card_run, plain_run, p0 = _smoke_train_step(card, arch="deepseek-moe-16b", plain_on_card=True)
+    n = len(calls) // 2
+    flip = _first_flip(calls[:n], calls[n:])
+    print(f"deepseek-moe-16b smoke train step: first route flip at token {flip}")
+    _hold_step(card_run, plain_run, p0)
+    assert not any(plain_run[3].values())
+    assert card_run[3] == {"flash_attention": 3, "flash_attention_wgmma": 0, "fused_rmsnorm": 7, "rglru_scan": 0,
+                           "rglru_scan_sequential": 0, "flash_attention_bwd": 3, "flash_attention_bwd_wgmma": 0,
+                           "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 7, "rglru_scan_bwd": 0}

@@ -1,7 +1,14 @@
 """The port's model against the JAX package on the CPU: configs, parameter
 counts, the weight bridge, module-level parity, and logits of the prefill
 forward and of decode, with the JAX model run on its kernel path
-(``attention_impl="pallas_interpret"``)."""
+(``attention_impl="pallas_interpret"``).
+
+For the MoE archs a token whose k-th and (k+1)-th router probabilities lie
+closer than the two sides' rounding may take another expert on one side (a
+route flip), which moves its output by O(1). The logit tests count the MoE
+calls' differing routes and print them with the smallest top-k margin; the
+logits are held where the routes agree, and the layers are also compared one
+by one from the JAX layer's input (``test_moe_layers_match_jax_layer_by_layer``)."""
 
 import dataclasses
 import functools
@@ -21,6 +28,7 @@ from repro_torch.params import params_from_numpy  # noqa: E402
 
 DENSE = ["qwen3-4b", "gemma-2b", "llama3.2-3b", "granite-3-8b"]
 HYBRID = ["recurrentgemma-9b"]
+MOE = ["deepseek-moe-16b", "qwen3-moe-235b-a22b"]
 LOGIT_TOL = 0.05  # tests/test_smoke_archs.py's decode/prefill bound
 
 
@@ -54,26 +62,32 @@ def _t(a, dtype=torch.bfloat16):
 # ---------------------------------------------------------------------------
 
 
-def test_registry_is_the_dense_slice():
-    """The dense slice plus the hybrid one: the five registered archs."""
-    assert list_archs() == sorted(DENSE + HYBRID)
+def test_registry_lists_the_seven_ported_archs():
+    """The dense slice, the hybrid and the MoE slice: the seven registered archs."""
+    assert list_archs() == sorted(DENSE + HYBRID + MOE)
 
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_config_matches_jax_field_by_field(arch, smoke):
     assert dataclasses.asdict(get_config(arch, smoke=smoke)) == dataclasses.asdict(jax_config(arch, smoke=smoke))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_n_params_matches_jax_full(arch):
     cfg = get_config(arch)
-    assert cfg.n_params() == JaxModel(jax_config(arch)).n_params
+    jm = JaxModel(jax_config(arch))
+    assert cfg.n_params() == jm.n_params
+    assert cfg.n_active_params() == jm.n_active_params
     if arch == "qwen3-4b":
-        assert cfg.n_params() == 4_411_424_256
+        assert cfg.n_params() == cfg.n_active_params() == 4_411_424_256
+    if arch == "deepseek-moe-16b":
+        assert (cfg.n_params(), cfg.n_active_params()) == (16_375_728_128, 2_828_650_496)
+    if arch == "qwen3-moe-235b-a22b":
+        assert (cfg.n_params(), cfg.n_active_params()) == (235_093_634_560, 22_190_763_520)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b"] + MOE)
 def test_bridge_covers_every_jax_leaf(arch):
     _, jp, _, tp = _bridged(arch)
     jleaves = {jax.tree_util.keystr(p): np.shape(a) for p, a in jax.tree_util.tree_leaves_with_path(jp)}
@@ -81,8 +95,16 @@ def test_bridge_covers_every_jax_leaf(arch):
     assert tleaves == jleaves
     # bf16 only where the JAX package casts before every use; norm scales stay f32
     scan = tp["layers"]["scan"]["block0"]
-    assert scan["attn"]["wq"].dtype == torch.bfloat16 and scan["mlp"]["wo"].dtype == torch.bfloat16
-    assert scan["norm1"]["scale"].dtype == torch.float32
+    assert scan["attn"]["wq"].dtype == torch.bfloat16 and scan["norm1"]["scale"].dtype == torch.float32
+    if arch in MOE:
+        # the stacked router (n_units, d, E) is cast before the scan as well
+        assert all(scan["moe"][k].dtype == torch.bfloat16 for k in ("wi", "wg", "wo"))
+        assert scan["moe"]["router"]["w"].dtype == torch.bfloat16
+        if arch == "deepseek-moe-16b":  # the dense prefix layer keeps f32; the shared experts are stacked
+            assert scan["moe"]["shared"]["wo"].dtype == torch.bfloat16
+            assert tp["layers"]["prefix"]["layer0"]["mlp"]["wi"].dtype == torch.float32
+    else:
+        assert scan["mlp"]["wo"].dtype == torch.bfloat16
     if arch == "qwen3-4b":
         assert scan["attn"]["q_norm"]["scale"].dtype == torch.float32
         assert tp["lm_head"]["w"].dtype == torch.bfloat16
@@ -181,16 +203,108 @@ def test_module_parity(arch, module):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b"])
-def test_forward_logits_match_jax_kernel_path(arch):
+def _port_routes(monkeypatch) -> list:
+    """Record each call of the port's MoE router from now on: (the top K+1
+    probabilities, their expert ids) per call, in call order."""
+    from repro_torch.models import moe as tmoe
+
+    calls, route = [], tmoe.route
+
+    def recording(params, xt, cfg):
+        out = route(params, xt, cfg)
+        top = torch.topk(out[0], cfg.top_k + 1, dim=-1)
+        calls.append((top.values.numpy(), out[2].numpy()))
+        return out
+
+    monkeypatch.setattr(tmoe, "route", recording)
+    return calls
+
+
+def _jax_routes(monkeypatch) -> list:
+    """As ``_port_routes``, for the JAX package's MoE under ``jax.jit``: its
+    router's top K+1 reported through ``jax.debug.callback`` (a separate
+    compiled run; the logits compared come from one without it)."""
+    import repro.models.transformer as jtfm
+
+    calls, moe = [], jtfm.moe
+
+    def recording(params, h, cfg, **kw):
+        xt = h.reshape(-1, h.shape[-1])
+        probs = jax.nn.softmax(jnp.einsum("td,de->te", xt.astype(jnp.float32), params["router"]["w"]), axis=-1)
+        vals, ids = jax.lax.top_k(probs, cfg.top_k + 1)
+        jax.debug.callback(lambda v, i: calls.append((np.asarray(v), np.asarray(i)[:, :-1])), vals, ids,
+                           ordered=True)
+        return moe(params, h, cfg, **kw)
+
+    monkeypatch.setattr(jtfm, "moe", recording)
+    return calls
+
+
+def _route_flips(port_calls, jax_calls) -> tuple[int, float]:
+    """-> (tokens whose set of K experts differs between the two sides over
+    all MoE calls, the smallest JAX top-k margin p_k - p_{k+1})."""
+    assert len(port_calls) == len(jax_calls) > 0
+    flips = sum(int((np.sort(pi, -1) != np.sort(ji, -1)).any(-1).sum())
+                for (_, pi), (_, ji) in zip(port_calls, jax_calls))
+    margin = min(float((v[:, -2] - v[:, -1]).min()) for v, _ in jax_calls)
+    return flips, margin
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b"] + MOE)
+def test_forward_logits_match_jax_kernel_path(arch, monkeypatch):
     jm, jp, tm, tp = _bridged(arch)
     toks = _tokens(tm.cfg.vocab, (2, 32))
-    want, _ = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)})
+    want, jlb = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)})
     got, lb = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
-    assert got.shape == (2, 32, tm.cfg.vocab) and float(lb) == 0.0
+    assert got.shape == (2, 32, tm.cfg.vocab)
+    assert float(lb) == pytest.approx(float(jlb), rel=1e-5) and (float(lb) > 0) == (arch in MOE)
     assert np.isfinite(_np(got)).all()
     err = np.abs(_np(got) - _np(want)).max()
+    if arch in MOE:
+        jax_calls, port_calls = _jax_routes(monkeypatch), _port_routes(monkeypatch)
+        jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)})
+        tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+        flips, margin = _route_flips(port_calls, jax_calls)
+        print(f"{arch}: {flips} differing routes over {len(port_calls)} MoE layers, "
+              f"smallest top-k margin {margin:.3g}, logit error {err:.3g}")
+        assert flips == 0, f"a route flip: compare layer by layer (test_moe_layers_match_jax_layer_by_layer); {err}"
     assert err < LOGIT_TOL, err
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_layers_match_jax_layer_by_layer(arch):
+    """Each layer of the port takes the JAX layer's input (jitted
+    ``block_apply`` on the unit's weights cast to bf16 as the scan casts
+    them): its output within bf16 tolerance of JAX's and its load-balance
+    loss within 1e-5 relative, so a route flip in one layer cannot hide
+    another layer's fault. The routes of each layer come from the same input
+    on both sides."""
+    from repro.models import transformer as jtfm
+    from repro.models.modules import embed as jembed
+    from repro_torch.models import transformer as tfm
+
+    jm, jp, tm, tp = _bridged(arch)
+    cfg, jcfg = tm.cfg, jm.cfg
+    toks = _tokens(cfg.vocab, (2, 32))
+    jpos, tpos = _positions(2, 32)
+    x = jax.jit(jembed)(jp["embed"], jnp.asarray(toks)).astype(jnp.bfloat16)
+    lay = tfm.StackLayout(cfg)
+    layers = [(jp["layers"]["prefix"][f"layer{i}"], tp["layers"]["prefix"][f"layer{i}"], i) for i in lay.prefix]
+    jscan = jax.tree.map(lambda a: a.astype(jnp.bfloat16) if a.ndim >= 3 else a, jp["layers"]["scan"])
+    layers += [(jax.tree.map(lambda a, u=u: a[u], jscan)["block0"], tfm._unit(tp["layers"]["scan"], u)["block0"],
+                cfg.first_dense + u) for u in range(lay.n_units)]
+    assert len(layers) == cfg.n_layers
+    for jl, tl, i in layers:
+        kind, ffn = tfm.layer_kind(cfg, i), tfm._ffn_kind(cfg, i)
+        block = jax.jit(functools.partial(jtfm.block_apply, cfg=jcfg, kind=kind, ffn=ffn, scope=f"layer{i}"))
+        want, jlb = block(jl, x, positions=jpos)
+        got, _, lb = tfm.block_apply(tl, _t(x), cfg, kind, ffn, tpos)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2, err_msg=f"layer {i}")
+        if ffn == "moe":
+            assert float(lb) == pytest.approx(float(jlb), rel=1e-5), i
+        else:
+            assert lb is None and float(jlb) == 0.0
+        x = want
 
 
 def _forward_err_with_bf16_p(arch, p_bf16, monkeypatch) -> float:
@@ -225,17 +339,27 @@ def test_one_bf16_term_of_p_misses_logit_tol_at_qwen3_4b(monkeypatch):
     assert err > LOGIT_TOL, err
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b"])
-def test_decode_logits_match_jax_over_8_steps(arch):
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b"] + MOE)
+def test_decode_logits_match_jax_over_8_steps(arch, monkeypatch):
+    """For the MoE archs every step routes its B = 2 tokens as one batch
+    (capacity 8: nothing drops); the routes of all steps are counted."""
     jm, jp, tm, tp = _bridged(arch)
     toks = _tokens(tm.cfg.vocab, (2, 8), seed=1)
     jstate, tstate = jm.init_decode_state(2, 16), tm.init_decode_state(2, 16)
+    if arch in MOE:
+        jax_calls, port_calls = _jax_routes(monkeypatch), _port_routes(monkeypatch)
     jstep = jax.jit(jm.decode_step)
     errs = []
     for t in range(8):
         want, jstate = jstep(jp, {"tokens": jnp.asarray(toks[:, t : t + 1])}, jstate, jnp.int32(t))
         got, tstate = tm.decode_step(tp, {"tokens": torch.from_numpy(toks[:, t : t + 1])}, tstate, t)
         errs.append(float(np.abs(_np(got) - _np(want)).max()))
+    if arch in MOE:
+        jax.effects_barrier()
+        flips, margin = _route_flips(port_calls, jax_calls)
+        print(f"{arch}: {flips} differing routes over {len(port_calls)} MoE calls, smallest top-k margin {margin:.3g}, "
+              f"logit errors {errs}")
+        assert flips == 0, f"a route flip: compare layer by layer (test_moe_layers_match_jax_layer_by_layer); {errs}"
     assert max(errs) < LOGIT_TOL, errs
 
 

@@ -70,6 +70,22 @@ def test_hybrid_server_completes_requests_through_slots():
     assert server.state["remainder"]["layer4"]["h"].abs().sum() > 0
 
 
+def test_moe_server_completes_requests_through_slots():
+    """deepseek-moe-16b smoke through 3 slots, the JAX server beside it on the
+    same weights: each decode step routes the batch's 3 tokens as one batch
+    (capacity 8), and the greedy tokens agree."""
+    arch = "deepseek-moe-16b"
+    jcfg = dataclasses.replace(jax_config(arch, smoke=True), attention_impl="pallas_interpret")
+    jserver = JaxServer(JaxModel(jcfg), batch=3, max_len=64)
+    cfg = get_config(arch, smoke=True)
+    server = BatchedServer(Model(cfg, device="cpu"), batch=3, max_len=64)
+    server.params = params_from_numpy(jax.tree.map(np.asarray, jserver.params), cfg, "cpu")
+    reqs, jreqs = _requests(Request, cfg.vocab), _requests(JaxRequest, cfg.vocab)
+    stats, jstats = server.run(reqs), jserver.run(jreqs)
+    assert stats["requests_done"] == 6 and stats["decode_steps"] == jstats["decode_steps"]
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
+
+
 def test_serve_step_logits_match_jax_on_same_tokens_and_state(servers):
     jserver, server = servers
     cfg = server.model.cfg
@@ -112,5 +128,12 @@ def test_server_without_device_needs_a_card():
 
 def test_cli_serves_on_the_cpu(capsys):
     main(["--arch", ARCH, "--device", "cpu", "--requests", "3", "--batch", "2", "--max-new", "2"])
+    out = capsys.readouterr().out
+    assert '"requests_done": 3' in out and '"device": "cpu"' in out
+
+
+def test_cli_serves_moe_on_the_cpu(capsys):
+    """``python -m repro_torch.launch.serve --arch deepseek-moe-16b --device cpu``."""
+    main(["--arch", "deepseek-moe-16b", "--device", "cpu", "--requests", "3", "--batch", "2", "--max-new", "2"])
     out = capsys.readouterr().out
     assert '"requests_done": 3' in out and '"device": "cpu"' in out

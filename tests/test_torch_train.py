@@ -1,7 +1,8 @@
 """The port's training slice against the JAX package on the CPU: the loss,
 the gradients, AdamW and the cosine schedule, the train step (1 and 3 steps,
-grad_accum 2), remat, and loss-decreases, for the dense decoders and the
-hybrid (recurrentgemma-9b). The same weights pass between the packages
+grad_accum 2), remat, and loss-decreases, for the dense decoders, the
+hybrid (recurrentgemma-9b) and the MoE decoders (deepseek-moe-16b,
+qwen3-moe-235b-a22b: their loss carries 1e-2 x the load-balance term). The same weights pass between the packages
 through ``params_from_numpy``; tokens come from numpy.
 
 The hybrid runs at S = 16, where the JAX package's RG-LRU takes one
@@ -48,12 +49,19 @@ HYBRID = "recurrentgemma-9b"
 # (arch, S): the dense cases at S = 16 keep their ids; the hybrid at both of
 # the JAX package's scan branches (not in test_train_step_matches_jax, see there)
 HYBRID_CASES = [pytest.param(HYBRID, 16, id=f"{HYBRID}-S16"), pytest.param(HYBRID, 32, id=f"{HYBRID}-S32")]
+MOE = ["deepseek-moe-16b", "qwen3-moe-235b-a22b"]
+MOE_S = [pytest.param(a, 16, id=a) for a in MOE]
 ARCH_S = [pytest.param(a, 16, id=a) for a in ("qwen3-4b", "gemma-2b")] + HYBRID_CASES
-DENSE_S = [pytest.param(a, 16, id=a) for a in DENSE] + HYBRID_CASES
+DENSE_S = [pytest.param(a, 16, id=a) for a in DENSE] + HYBRID_CASES + MOE_S
+# The MoE archs are held against JAX's kernel path and its f32 attention, not
+# its xla path: there the bf16 scores and P move the router's inputs enough
+# to send tokens to other experts (route flips), each an O(1) change.
+KERNEL_PATH_S = ARCH_S + MOE_S
 F32 = dict(rtol=2e-5, atol=2e-5)  # tests/test_kernels.py's f32 tolerance
 # Loss, port against JAX's kernel path (pallas_interpret, f32 P as the port):
 # the same arithmetic up to summation order; measured 5e-7 at qwen3-4b smoke,
-# 2.1e-5-3.1e-5 at recurrentgemma-9b smoke (S = 16, 32).
+# 2.1e-5-3.1e-5 at recurrentgemma-9b smoke (S = 16, 32), 0 at the MoE smoke
+# configs (deepseek-moe-16b, qwen3-moe-235b-a22b; lb_loss within 1e-7 relative).
 LOSS_TOL_KERNEL_PATH = 1e-4
 # Loss against JAX's xla path (bf16 scores and P): measured 0.0004-0.0052 over
 # weight seeds 0-1 at qwen3-4b and gemma-2b smoke; 6e-6-2.3e-5 at
@@ -67,7 +75,8 @@ GRAD_REL_XLA = 0.25
 # - with f32 attention in the JAX model (the kernel's arithmetic): measured
 #   0.010-0.020, what remains of the bf16 activations' rounding, which XLA's
 #   fused backward places elsewhere than autograd does; 0.019 and 0.022 at
-#   recurrentgemma-9b smoke, S = 16 and 32.
+#   recurrentgemma-9b smoke, S = 16 and 32; 0.029 at deepseek-moe-16b smoke,
+#   0.018 at qwen3-moe-235b-a22b smoke.
 GRAD_REL_F32_ATTENTION = 0.05
 # The port's custom backward (the plain backward versions, which read the
 # forward's bf16 output for Dr as the kernel does) against autograd through
@@ -143,8 +152,11 @@ def _port_grads(model, params, batch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("impl", ["pallas_interpret", "xla"])
-@pytest.mark.parametrize("arch,S", ARCH_S)
+@pytest.mark.parametrize(
+    "arch,S,impl",
+    [pytest.param(*p.values, impl, id=f"{p.id}-{impl}") for p in ARCH_S for impl in ("pallas_interpret", "xla")]
+    + [pytest.param(*p.values, "pallas_interpret", id=f"{p.id}-pallas_interpret") for p in MOE_S],
+)
 def test_loss_matches_jax(arch, S, impl):
     jm, jp, tm, tp = _bridged(arch, impl=impl)
     b = _batch(tm.cfg.vocab, S=S)
@@ -155,7 +167,8 @@ def test_loss_matches_jax(arch, S, impl):
     assert abs(float(tl) - float(jl)) < tol
     assert abs(float(taux["ce"]) - float(jaux["ce"])) < tol
     assert abs(float(taux["z_loss"]) - float(jaux["z_loss"])) < tol * 1e-2
-    assert float(taux["lb_loss"]) == float(jaux["lb_loss"]) == 0.0
+    assert float(taux["lb_loss"]) == pytest.approx(float(jaux["lb_loss"]), rel=1e-5)
+    assert (float(jaux["lb_loss"]) > 0) == (arch in MOE)
 
 
 def test_loss_without_mask_is_the_mean_over_all_tokens():
@@ -190,10 +203,27 @@ def test_grads_match_jax_xla_path(arch, S):
     assert max(errs.values()) < GRAD_REL_XLA, max(errs.items(), key=lambda kv: kv[1])
 
 
-@pytest.mark.parametrize("arch,S", ARCH_S)
+@pytest.mark.parametrize("arch,S", KERNEL_PATH_S)
 def test_grads_match_jax_with_f32_attention(arch, S, f32_attention):
     errs = _grad_errors(arch, S)
     assert max(errs.values()) < GRAD_REL_F32_ATTENTION, max(errs.items(), key=lambda kv: kv[1])
+
+
+def test_silu_gradient_is_finite_where_exp_overflows():
+    """jax.nn.silu's gradient, the logistic's derivative: 0 below x = -88,
+    where autograd through x / (1 + exp(-x)) multiplied 0 by exp(-x) = inf
+    and gave NaN (the full-width deepseek-moe-16b train step, whose stacked
+    weights have std 1/sqrt(5), met it); over [-200, 20] within the bf16
+    tolerance of jax.grad's."""
+    from repro_torch.models.modules import ACTIVATIONS
+
+    xs = np.concatenate([[-200.0, -100.0, -89.0], np.linspace(-20, 20, 401)])
+    jx = jnp.asarray(xs, jnp.bfloat16)
+    want = jax.jit(jax.grad(lambda x: jnp.sum(jax.nn.silu(x).astype(jnp.float32))))(jx)
+    x = torch.from_numpy(np.array(jx.astype(jnp.float32))).bfloat16().requires_grad_()
+    ACTIVATIONS["silu"](x).float().sum().backward()
+    assert torch.isfinite(x.grad).all() and not x.grad[:3].any()
+    np.testing.assert_allclose(x.grad.float().numpy(), np.asarray(want, np.float32), rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("arch,S", DENSE_S)
@@ -211,7 +241,7 @@ def test_custom_backward_matches_autograd_through_the_plain_forwards(arch, S, mo
     assert max(errs.values()) < GRAD_REL_CUSTOM_VS_AUTOGRAD, max(errs.items(), key=lambda kv: kv[1])
 
 
-@pytest.mark.parametrize("arch,S", [pytest.param("qwen3-4b", 16, id="qwen3-4b"), *HYBRID_CASES])
+@pytest.mark.parametrize("arch,S", [pytest.param("qwen3-4b", 16, id="qwen3-4b"), *HYBRID_CASES, *MOE_S])
 @pytest.mark.parametrize("remat", ["full", "dots"])
 def test_remat_gives_the_gradients_of_no_remat(remat, arch, S):
     """A checkpoint recomputes the same forward (the kernels' plain versions
@@ -224,6 +254,52 @@ def test_remat_gives_the_gradients_of_no_remat(remat, arch, S):
     _, _, got = _port_grads(Model(dataclasses.replace(cfg, remat=remat), device="cpu"), params, b)
     g, w = _flat(got), _flat(want)
     assert all(np.array_equal(g[k], w[k]) for k in w)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_dots_remat_recomputes_the_expert_bmms_and_saves_the_router_mm(arch):
+    """Remat "dots" is the JAX package's ``dots_with_no_batch_dims_saveable``:
+    the router's product has no batch dim and is saved, the experts'
+    products have one (e) and are recomputed. Counted over ``backward()``
+    against remat "none": "dots" adds each MoE unit's three expert ``bmm``s
+    (at their forward shapes) and no router ``mm``; "full" adds both."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models.moe import _capacity
+    from repro_torch.models.transformer import StackLayout
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+                self.calls[(func.overloadpacket.__name__, tuple(args[0].shape), tuple(args[1].shape))] += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = get_config(arch, smoke=True)
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0), train=True)
+    b = _tb(_batch(cfg.vocab, S=8))  # T = 16 tokens: no backward product takes the router's shapes
+    T, D, E, F = 2 * 8, cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    C = _capacity(T, cfg)
+    router = ("mm", (T, D), (D, E))
+    experts = {("bmm", (E, C, D), (E, D, F)): 2, ("bmm", (E, C, F), (E, F, D)): 1}
+    units = StackLayout(cfg).n_units
+    seen = {}
+    for remat in ("none", "dots", "full"):
+        model = Model(dataclasses.replace(cfg, remat=remat), device="cpu")
+        loss, _ = model.loss(model.grad_leaves(params, _zeros_f32(params)), b)
+        with Products() as products:
+            loss.backward()
+        seen[remat] = products.calls
+    for remat, router_runs in (("dots", 0), ("full", units)):
+        extra = seen[remat] - seen["none"]
+        assert extra[router] == router_runs, (remat, extra)
+        assert all(extra[k] == n * units for k, n in experts.items()), (remat, extra)
+    assert seen["none"][router] == 0
 
 
 def test_stacked_weights_get_one_gradient_buffer():
