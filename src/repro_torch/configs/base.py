@@ -2,10 +2,13 @@
 
 A copy of the JAX package's config module, so the port imports nothing of
 it. Every registered architecture has a full config plus a reduced ``smoke``
-variant (same family, tiny dims) used by CPU tests. The port registers the
-four dense decoders, which all run through the same code, the hybrid
-``recurrentgemma-9b`` (recurrent blocks beside windowed attention) and the
-two MoE decoders ``deepseek-moe-16b`` and ``qwen3-moe-235b-a22b``.
+variant (same family, tiny dims) used by CPU tests. The port registers all
+ten of the JAX package's: the four dense decoders, which all run through the
+same code, the hybrid ``recurrentgemma-9b`` (recurrent blocks beside windowed
+attention), the two MoE decoders ``deepseek-moe-16b`` and
+``qwen3-moe-235b-a22b``, the attention-free ``xlstm-125m`` (sLSTM and mLSTM
+cells), and the two that take embeddings as input, ``qwen2-vl-2b`` (M-RoPE)
+and ``musicgen-medium``.
 """
 
 from __future__ import annotations
@@ -152,9 +155,12 @@ def _ensure_loaded() -> None:
         gemma_2b,
         granite_3_8b,
         llama3_2_3b,
+        musicgen_medium,
+        qwen2_vl_2b,
         qwen3_4b,
         qwen3_moe_235b,
         recurrentgemma_9b,
+        xlstm_125m,
     )
 
     _loaded = True

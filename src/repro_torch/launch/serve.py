@@ -4,10 +4,12 @@ A fixed-size decode batch is kept full from a request queue: finished
 sequences are replaced by queued prompts, whose prefill runs as decode steps
 of the shared batch. All slots decode at one shared position ``pos``, and a
 freed slot's KV rows are reused without a reset, as in the JAX package's
-server (ROADMAP Queue 3).
+server (ROADMAP Queue 3). With ``--profile`` the host-plane sampler and a
+dominance watchdog run beside the loop, as in the JAX package's server: a
+stuck decode loop trips the watchdog's hang rule.
 
-CLI:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b [--full] [--device cuda]
+CLI (the smoke config unless ``--full``; the card unless ``--device cpu``):
+  PYTHONPATH=src python -m repro_torch.launch.serve [--arch gemma-2b] [--full] [--device cuda] [--profile]
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import DominanceDetector, Rule, SamplerConfig, WatchdogLoop, make_sampler
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import Model
 
@@ -150,19 +153,33 @@ def make_requests(vocab: int, n: int, max_new: int, seed: int = 0) -> list[Reque
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="gemma-2b")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--profile", action="store_true", help="run the host-plane sampler and the watchdog")
+    ap.add_argument("--backend", default="thread", choices=("thread", "daemon"),
+                    help="profiler backend (daemon: not ported yet)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=not args.full)
     model = Model(cfg, device=args.device)
     reqs = make_requests(cfg.vocab, args.requests, args.max_new)
+    sampler = make_sampler(SamplerConfig(period_s=0.1, backend=args.backend)) if args.profile else None
+    if sampler:
+        watchdog = WatchdogLoop(sampler, DominanceDetector([Rule(threshold=0.95, consecutive=3, min_window_total=8)]),
+                                interval_s=1.0)
+        sampler.start()
+        watchdog.start()
     server = BatchedServer(model, batch=args.batch, max_len=128)
-    print(json.dumps(server.run(reqs), indent=1))
+    stats = server.run(reqs)
+    if sampler:
+        watchdog.stop()
+        stats["profile_samples"] = sampler.stop().total()
+        stats["anomalies"] = [e.describe() for e in watchdog.detector.events]
+    print(json.dumps(stats, indent=1))
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ beside the host profile) has no counterpart yet (ROADMAP Queue 1 item 9), nor
 its daemon sampler backend (item 7).
 
 CLI (smoke scale by default; the card unless ``--device cpu``):
-  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --steps 30 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train [--arch xlstm-125m] --steps 30 [--device cpu]
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
 
 @dataclass
 class TrainJobConfig:
-    arch: str = "qwen3-4b"
+    arch: str = "xlstm-125m"
     smoke: bool = True
     device: str = "cuda"
     steps: int = 30
@@ -249,7 +249,7 @@ class Trainer:
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="xlstm-125m")
     ap.add_argument("--full", action="store_true", help="full config (default: smoke)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--steps", type=int, default=30)

@@ -1,4 +1,4 @@
-"""Attention: GQA/MQA with RoPE, qk-norm, sliding windows, KV cache.
+"""Attention: GQA/MQA with RoPE or M-RoPE, qk-norm, sliding windows, KV cache.
 
 Prefill always runs the flash-attention kernel through ``ops.flash_attention``
 (its plain version for CPU tensors). Decode is plain PyTorch, as the JAX
@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.kernels import ops
 
-from .modules import ArraySpec, apply_rope, rms_norm, rms_norm_spec
+from .modules import ArraySpec, apply_mrope, apply_rope, project_heads, rms_norm, rms_norm_spec
 
 NEG_INF = -2.0e38
 
@@ -33,25 +33,16 @@ def attention_spec(cfg) -> dict:
     return spec
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matmul; the result is contiguous."""
-    B, S, _ = x.shape
-    d, H, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, H * k)).view(B, S, H, k)
-
-
 def _project_qkv(params, x: torch.Tensor, cfg, positions: torch.Tensor):
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: ROADMAP Queue 1 item 13")
-    q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+    """positions: (B,S), or (B,S,3) with M-RoPE."""
+    q = project_heads(x, params["wq"])
+    k = project_heads(x, params["wk"])
+    v = project_heads(x, params["wv"])
     if cfg.qk_norm:
         q = rms_norm(params["q_norm"], q)
         k = rms_norm(params["k_norm"], k)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    rope = apply_mrope if cfg.mrope else apply_rope
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -88,7 +79,7 @@ def decode_attention(params, x: torch.Tensor, cache: dict, pos: int, cfg, *, win
     """
     B = x.shape[0]
     L = cache["k"].shape[1]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    positions = torch.full((B, 1, 3) if cfg.mrope else (B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(params, x, cfg, positions)
     slot = pos % L if window else min(pos, L - 1)
     k, v = cache["k"], cache["v"]

@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 
 from . import transformer as tfm
 from .modules import (
+    ArraySpec,
     dtype_const,
     embed,
     embedding_spec,
@@ -52,9 +53,13 @@ class Model:
 
     def spec(self) -> dict:
         cfg = self.cfg
-        if cfg.input_mode != "tokens":
-            raise NotImplementedError("embeddings input (vlm/audio) is not ported yet: ROADMAP Queue 1 item 13")
-        spec: dict[str, Any] = {"embed": embedding_spec(cfg.vocab, cfg.d_model)}
+        spec: dict[str, Any] = {}
+        if cfg.input_mode == "tokens":
+            spec["embed"] = embedding_spec(cfg.vocab, cfg.d_model)
+        else:
+            # The modality frontend is a stub, as in the JAX package: inputs
+            # arrive as precomputed frame or patch embeddings.
+            spec["embed_proj"] = {"w": ArraySpec((cfg.d_model, cfg.d_model), ("embed", "embed_out"))}
         spec["layers"] = tfm.stack_spec(cfg)
         spec["final_norm"] = rms_norm_spec(cfg.d_model)
         if not cfg.tied_embeddings:
@@ -112,8 +117,14 @@ class Model:
 
     # -- forward ----------------------------------------------------------------
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        x = embed(params["embed"], tokens).to(torch.bfloat16)
+    def _embed(self, params, batch: dict) -> torch.Tensor:
+        """The bf16 activations of ``batch["tokens"]`` (B,S), or, where the
+        config takes embeddings, of ``batch["embeds"]`` (B,S,D): their bf16
+        product with ``embed_proj``."""
+        if self.cfg.input_mode == "tokens":
+            x = embed(params["embed"], batch["tokens"]).to(torch.bfloat16)
+        else:
+            x = batch["embeds"].to(torch.bfloat16) @ params["embed_proj"]["w"].to(torch.bfloat16)
         if self.cfg.tied_embeddings:
             # gemma convention; JAX rounds the constant to bf16 first
             x = x * dtype_const(math.sqrt(self.cfg.d_model), x.dtype)
@@ -127,13 +138,18 @@ class Model:
         return logits
 
     def forward(self, params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """-> (logits (B,S,V), the MoE load-balance loss summed over the
-        layers (an f32 0 without an MoE))."""
-        x = self._embed(params, batch["tokens"])
+        """batch: {"tokens": (B,S)} or {"embeds": (B,S,D)} as the config's
+        ``input_mode`` says, and optionally "positions", (B,S) or, with
+        M-RoPE, (B,S,3) (temporal, height, width); by default 0..S-1, in each
+        of the three streams with M-RoPE. -> (logits (B,S,V), the MoE
+        load-balance loss summed over the layers (an f32 0 without an MoE))."""
+        x = self._embed(params, batch)
         positions = batch.get("positions")
         if positions is None:
             B, S = x.shape[:2]
             positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+            if self.cfg.mrope:
+                positions = positions[..., None].expand(B, S, 3)
         x, x_sum, lb = tfm.stack_apply(params["layers"], x, self.cfg, positions)
         x = rms_norm(params["final_norm"], x if x_sum is None else x_sum).to(x.dtype)
         return self.logits_fn(params, x), lb
@@ -160,9 +176,10 @@ class Model:
 
     @torch.inference_mode()
     def decode_step(self, params, batch: dict, state: dict, pos: int) -> tuple[torch.Tensor, dict]:
-        """One new token for every sequence. batch: {'tokens': (B,1)}; pos: int.
-        -> (logits (B,V), state), the state's caches updated in place."""
-        x = self._embed(params, batch["tokens"])
+        """One new token for every sequence. batch: {'tokens': (B,1)} or
+        {'embeds': (B,1,D)}; pos: int (all three M-RoPE streams take it).
+        -> (logits (B,V), state), the state updated in place."""
+        x = self._embed(params, batch)
         x, x_sum = tfm.stack_decode(params["layers"], x, state, pos, self.cfg)
         x = rms_norm(params["final_norm"], x if x_sum is None else x_sum).to(x.dtype)
         return self.logits_fn(params, x)[:, 0], state

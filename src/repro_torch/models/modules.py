@@ -87,12 +87,13 @@ def storage_dtype(path: tuple[str, ...], ndim: int, *, train: bool = False) -> t
     values equal what it computes with: stacked weights of 3 or more dims
     (cast before the layer scan), ``lm_head.w`` and the embedding table
     (gathered in f32 and cast to bf16, or cast to the bf16 activations for the
-    tied unembedding). Everything else, the norm scales included, stays f32."""
+    tied unembedding) and ``embed_proj.w`` (the embeddings' projection). Everything
+    else, the norm scales included, stays f32."""
     if train:
         return torch.float32
     if path[:2] == ("layers", "scan") and ndim >= 3:
         return torch.bfloat16
-    if path in (("lm_head", "w"), ("embed", "table")):
+    if path in (("lm_head", "w"), ("embed", "table"), ("embed_proj", "w")):
         return torch.bfloat16
     return torch.float32
 
@@ -162,6 +163,13 @@ def dense(params, x: torch.Tensor, spec: str) -> torch.Tensor:
     return y
 
 
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk", x, w in x's dtype) as one matmul; the result is contiguous."""
+    B, S, _ = x.shape
+    d, H, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, H * k)).view(B, S, H, k)
+
+
 def dtype_const(v: float, dtype: torch.dtype) -> float:
     """``v`` rounded to ``dtype``, as JAX casts a Python constant to the array's dtype."""
     return float(torch.tensor(v, dtype=dtype))
@@ -191,6 +199,30 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return _Silu.apply(x)
 
 
+class _Sigmoid(torch.autograd.Function):
+    """jax.nn.sigmoid. The forward op by op (1 / (1 + exp(-x))), rounding to
+    x's dtype after each op as the compiled JAX package does (torch.sigmoid
+    rounds once and differs in a third of bf16 values). The backward is
+    g (y (1 - y)) from the output y, op by op in y's dtype, as JAX
+    differentiates ``lax.logistic``; autograd through the ops above would
+    multiply 0 by exp(-x) = inf where x < -88."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        y = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return _Sigmoid.apply(x)
+
+
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu(approximate=True) op by op, constants rounded to x's dtype.
     c, a = dtype_const(math.sqrt(2 / math.pi), x.dtype), dtype_const(0.044715, x.dtype)
@@ -214,15 +246,35 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
-    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    angles = positions[..., None].float() * freqs  # (..., S, D/2)
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, D) rotated in f32 by angles (..., S, D/2), pair (i, i + D/2) by angle i."""
     angles = angles[..., None, :]  # head axis
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(
+    x: torch.Tensor, positions: torch.Tensor, theta: float, sections: tuple[int, int, int] | None = None
+) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the D/2 frequencies split into three
+    sections, rotated by the (temporal, height, width) position streams.
+    x: (..., S, H, D); positions: (..., S, 3). Default sections
+    (D/2 - 2 (D/2 // 4), D/2 // 4, D/2 // 4), as the JAX package's."""
+    d2 = x.shape[-1] // 2
+    if sections is None:
+        sections = (d2 - 2 * (d2 // 4), d2 // 4, d2 // 4)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    bounds = [0, sections[0], sections[0] + sections[1], sum(sections)]
+    angles = torch.cat([positions[..., i, None].float() * freqs[bounds[i] : bounds[i + 1]] for i in range(3)], dim=-1)
+    return _rotate(x, angles)
 
 
 # ---------------------------------------------------------------------------

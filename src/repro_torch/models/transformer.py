@@ -2,9 +2,10 @@
 
 The parameter layout is the JAX package's: [prefix | n_units x pattern |
 remainder], with the units' parameters stacked along a leading 'layers' axis.
-The JAX ``lax.scan`` over that axis becomes a Python loop. The port has the
-``attn`` and ``rec`` (Griffin recurrent block) layer kinds, each with a dense
-MLP or an MoE feed-forward; the xLSTM kinds raise.
+The JAX ``lax.scan`` over that axis becomes a Python loop. The port has every
+layer kind of the JAX package: ``attn``, ``rec`` (Griffin recurrent block) and
+the xLSTM cells ``slstm`` and ``mlstm``, each with a dense MLP, an MoE or no
+feed-forward (``d_ff = 0``: the block is the cell's residual add alone).
 
 Under autograd each stacked unit runs as ``cfg.remat`` says, the counterpart
 of the JAX package's ``jax.checkpoint`` around its scan body: ``"none"``
@@ -25,14 +26,10 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from . import attention as attn_mod
 from . import rglru as rec_mod
+from . import xlstm as xlstm_mod
 from .mlp import mlp, mlp_spec
 from .moe import moe, moe_spec
 from .modules import rms_norm, rms_norm_spec, stack_specs
-
-_NOT_PORTED = {
-    "slstm": "sLSTM (xlstm) is not ported yet: ROADMAP Queue 1 item 12",
-    "mlstm": "mLSTM (xlstm) is not ported yet: ROADMAP Queue 1 item 12",
-}
 
 
 def _ffn_kind(cfg, layer_idx: int) -> str:
@@ -49,22 +46,23 @@ def layer_kind(cfg, layer_idx: int) -> str:
     return cfg.pattern[layer_idx % len(cfg.pattern)]
 
 
-def _check_ported(kind: str, ffn: str) -> None:
-    for k in (kind, ffn):
-        if k in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[k])
-    if kind not in ("attn", "rec"):
+_SPECS = {  # layer kind -> its parameters, under the kind's name
+    "attn": attn_mod.attention_spec,
+    "rec": rec_mod.recurrent_block_spec,
+    "slstm": xlstm_mod.slstm_spec,
+    "mlstm": xlstm_mod.mlstm_spec,
+}
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in _SPECS:
         raise ValueError(f"unknown layer kind {kind}")
 
 
 def block_spec(cfg, kind: str, ffn: str) -> dict:
-    _check_ported(kind, ffn)
+    _check_kind(kind)
     d = cfg.d_model
-    spec: dict[str, Any] = {"norm1": rms_norm_spec(d)}
-    if kind == "attn":
-        spec["attn"] = attn_mod.attention_spec(cfg)
-    else:
-        spec["rec"] = rec_mod.recurrent_block_spec(cfg)
+    spec: dict[str, Any] = {"norm1": rms_norm_spec(d), kind: _SPECS[kind](cfg)}
     if ffn == "mlp":
         spec["norm2"] = rms_norm_spec(d)
         spec["mlp"] = mlp_spec(d, cfg.d_ff)
@@ -84,12 +82,16 @@ def block_apply(
     bf16, where the previous block's residual sum reaches this block's norm
     unrounded (see :func:`stack_apply`). Returns (x, x_sum) for the next
     block and the MoE load-balance loss (None without an MoE)."""
-    _check_ported(kind, ffn)
+    _check_kind(kind)
     h = rms_norm(params["norm1"], x if x_sum is None else x_sum).to(x.dtype)
     if kind == "attn":
         y = attn_mod.attention(params["attn"], h, cfg, positions, window=cfg.window)
-    else:
+    elif kind == "rec":
         y = rec_mod.recurrent_block(params["rec"], h, cfg)
+    elif kind == "slstm":
+        y, _ = xlstm_mod.slstm(params["slstm"], h, cfg)
+    else:
+        y, _ = xlstm_mod.mlstm(params["mlstm"], h, cfg)
     return _residual_ffn(params, x, y, cfg, ffn)
 
 
@@ -97,14 +99,19 @@ def block_decode(
     params, x: torch.Tensor, state, pos: int, cfg, kind: str, ffn: str, x_sum: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One residual block, single-token decode, as :func:`block_apply`
-    (-> (x, x_sum)). The layer's state (KV cache, or conv window and h) is
-    updated in place. An MoE routes the B tokens of the step as one batch."""
-    _check_ported(kind, ffn)
+    (-> (x, x_sum)). The layer's state (KV cache; conv window and h; the
+    xLSTM cell's) is updated in place. An MoE routes the B tokens of the step
+    as one batch."""
+    _check_kind(kind)
     h = rms_norm(params["norm1"], x if x_sum is None else x_sum).to(x.dtype)
     if kind == "attn":
         y, _ = attn_mod.decode_attention(params["attn"], h, state, pos, cfg, window=cfg.window)
-    else:
+    elif kind == "rec":
         y, _ = rec_mod.recurrent_block_step(params["rec"], h, state, cfg)
+    elif kind == "slstm":
+        y, _ = xlstm_mod.slstm_step(params["slstm"], h, state, cfg)
+    else:
+        y, _ = xlstm_mod.mlstm_step(params["mlstm"], h, state, cfg)
     return _residual_ffn(params, x, y, cfg, ffn)[:2]
 
 
@@ -301,16 +308,19 @@ def stack_decode(params, x: torch.Tensor, states, pos: int, cfg) -> tuple[torch.
 
 
 def layer_state_init(cfg, kind: str, batch: int, max_len: int, device) -> dict:
+    _check_kind(kind)
     if kind == "attn":
         return attn_mod.init_kv_cache(cfg, batch, max_len, device)
-    return rec_mod.init_recurrent_state(cfg, batch, device)
+    if kind == "rec":
+        return rec_mod.init_recurrent_state(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm_mod.init_slstm_state(cfg, batch, device)
+    return xlstm_mod.init_mlstm_state(cfg, batch, device)
 
 
 def stack_state(cfg, batch: int, max_len: int, device) -> dict:
     """Decode-state tree matching the params layout."""
     lay = StackLayout(cfg)
-    for kind in set(cfg.pattern):
-        _check_ported(kind, "none")
     states: dict[str, Any] = {}
     if lay.prefix:
         states["prefix"] = {

@@ -50,6 +50,10 @@ FLASH_CASES = [
     (2, 192, 192, 4, 2, 256, None),  # D = 256 with Hkv > 1 and B > 1: the dK/dV grid's head groups
     (1, 256, 256, 2, 2, 256, 64),    # D = 256 with Hq = Hkv: no head groups
     (4, 64, 64, 4, 1, 16, 8),        # recurrentgemma smoke: windowed MQA at head dim 16
+    (2, 256, 256, 12, 2, 128, None),  # qwen2-vl: GQA 12 / 2, a group of 6
+    (1, 200, 200, 12, 2, 128, None),
+    (2, 192, 192, 24, 24, 64, None),  # musicgen: MHA, 24 heads at head dim 64
+    (1, 300, 300, 24, 24, 64, None),
 ]
 # Beside the sweep's tolerance, the wgmma kernel's bf16 output stays within one
 # bf16 rounding of the plain version that feeds P as the same two bf16 terms
@@ -139,7 +143,8 @@ def test_flash_kernel_reads_strided_inputs(card):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(4, 128), (2, 7, 256), (1, 1000, 512), (64, 2560), (300, 16), (5, 3000)])
+@pytest.mark.parametrize("shape", [(4, 128), (2, 7, 256), (1, 1000, 512), (64, 2560), (300, 16), (5, 3000),
+                                   (4096, 768), (2, 9, 1536)])
 def test_rmsnorm_kernel_vs_plain(card, shape, dtype):
     g = torch.Generator(device=card).manual_seed(9)
     x = torch.randn(shape, generator=g, device=card).to(TDT[dtype])
@@ -323,7 +328,7 @@ def test_flash_bwd_d256_head_groups_vs_plain(card, splits):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(4, 128), (2, 7, 256), (1, 1000, 512), (64, 2560), (300, 16), (5, 3000),
-                                   (2048, 2560), (2048 * 8, 128)])
+                                   (2048, 2560), (2048 * 8, 128), (4096, 768)])
 def test_rmsnorm_bwd_kernel_vs_plain(card, shape, dtype):
     g = torch.Generator(device=card).manual_seed(15)
     x = torch.randn(shape, generator=g, device=card).to(TDT[dtype])
@@ -554,6 +559,10 @@ SMOKE_FORWARD_LAUNCHES = {
                           "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
                  "flash_attention_bwd_mma": 0,
                  "fused_rmsnorm_bwd": 0, "rglru_scan_bwd": 0},
+    # one (slstm, mlstm, mlstm, mlstm) unit: norm1 and the cell's out_norm a layer
+    "xlstm-125m": {"flash_attention": 0, "flash_attention_wgmma": 0, "fused_rmsnorm": 9, "rglru_scan": 0,
+                   "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
+                   "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 0, "rglru_scan_bwd": 0},
 }
 
 
@@ -574,6 +583,92 @@ def test_smoke_model_kernel_path_vs_plain_path(card, arch):
     want, _ = cpu.forward(tree_map_with_path(lambda _, a: a.cpu(), params), {"tokens": tokens})
     err = float((got.cpu().float() - want.float()).abs().max())
     assert err < 0.1, err
+
+
+# The embeddings-input families at smoke size: 3 attn layers at head dim 8
+# (the FMA flash kernel), two norms a layer plus the final one
+EMBEDS_FORWARD_LAUNCHES = {"flash_attention": 3, "flash_attention_wgmma": 0, "fused_rmsnorm": 7, "rglru_scan": 0,
+                           "rglru_scan_sequential": 0, "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
+                           "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 0, "rglru_scan_bwd": 0}
+
+
+def _image_positions(B: int, S: int):
+    """M-RoPE positions whose three streams differ: 4 text tokens, an image
+    of 1 x 2 x 3 (t, h, w) patches, then text again."""
+    img = torch.tensor([[t, h, w] for t in range(1) for h in range(2) for w in range(3)]) + 4
+    tail = torch.arange(S - 10)[:, None].expand(-1, 3) + int(img.max()) + 1
+    pos = torch.cat([torch.arange(4)[:, None].expand(-1, 3), img, tail]).to(torch.int32)
+    return pos[None].expand(B, S, 3).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-medium"])
+def test_embeds_smoke_model_kernel_path_vs_plain_path(card, arch):
+    """The smoke config from bf16 embeddings (qwen2-vl-2b: at image positions
+    and at the default ones) through the kernels on the card and the plain
+    versions on the CPU, within the 0.1 of the token models above; then
+    eight decode steps from embeddings, card against CPU within the bf16
+    atol (0.02), the norm kernel launched 7 times a step."""
+    cfg = get_config(arch, smoke=True)
+    gpu, cpu = Model(cfg, device=card), Model(cfg, device="cpu")
+    params = gpu.init(torch.Generator(device=card).manual_seed(0))
+    params_cpu = tree_map_with_path(lambda _, a: a.cpu(), params)
+    embeds = torch.randn((2, 32, cfg.d_model), generator=torch.Generator().manual_seed(0)).bfloat16()
+    batches = [{"embeds": embeds}] + ([{"embeds": embeds, "positions": _image_positions(2, 32)}] if cfg.mrope else [])
+    for batch in batches:
+        ops.reset_launch_counts()
+        got, _ = gpu.forward(params, {k: v.to(card) for k, v in batch.items()})
+        assert ops.launch_counts() == EMBEDS_FORWARD_LAUNCHES
+        want, _ = cpu.forward(params_cpu, batch)
+        err = float((got.cpu().float() - want.float()).abs().max())
+        assert err < 0.1, err
+    state, state_cpu = gpu.init_decode_state(2, 16), cpu.init_decode_state(2, 16)
+    ops.reset_launch_counts()
+    for t in range(8):
+        got, state = gpu.decode_step(params, {"embeds": embeds[:, t : t + 1].to(card)}, state, t)
+        want, state_cpu = cpu.decode_step(params_cpu, {"embeds": embeds[:, t : t + 1]}, state_cpu, t)
+        err = float((got.cpu().float() - want.float()).abs().max())
+        assert err < 0.02, (t, err)
+    assert ops.launch_counts() == {**EMBEDS_FORWARD_LAUNCHES, "flash_attention": 0, "fused_rmsnorm": 7 * 8}
+
+
+@pytest.mark.gpu
+def test_xlstm_smoke_server_on_card(card):
+    """xlstm-125m smoke served on the card: the cells step in plain PyTorch,
+    the norm kernel launches twice a layer plus once; reused slots keep the
+    previous occupant's cell states."""
+    cfg = get_config("xlstm-125m", smoke=True)
+    server = BatchedServer(Model(cfg, device=card), batch=3, max_len=64)
+    ops.reset_launch_counts()
+    stats = server.run(make_requests(cfg.vocab, 6, 4))
+    assert stats["requests_done"] == 6
+    assert ops.launch_counts() == {**SMOKE_FORWARD_LAUNCHES["xlstm-125m"],
+                                   "fused_rmsnorm": (2 * cfg.n_layers + 1) * stats["decode_steps"]}
+    assert server.state["scan"]["block1"]["C"].abs().sum() > 0
+
+
+@pytest.mark.gpu
+def test_xlstm_train_step_on_card_has_finite_gradients_over_a_whole_chunk(card):
+    """One mLSTM layer of xlstm-125m at full width, B 1 x S 256 (one chunk
+    of 256), drawn as the stacked unit of 3 is: the masked exponent keeps
+    the gradient finite on the card, where the JAX package's is NaN
+    (tests/test_torch_xlstm.py)."""
+    from repro_torch.models import xlstm
+    from repro_torch.models.modules import init_params, stack_specs
+
+    cfg = get_config("xlstm-125m")
+    stacked = init_params(stack_specs(xlstm.mlstm_spec(cfg), 3), torch.Generator(device=card).manual_seed(0),
+                          train=True)
+    params = tree_map_with_path(
+        lambda _, a: (a[0].to(torch.bfloat16) if a.ndim >= 3 else a[0].clone()).requires_grad_(), stacked)
+    x = torch.randn((1, 256, cfg.d_model), generator=torch.Generator(device=card).manual_seed(1),
+                    device=card).bfloat16().requires_grad_()
+    ops.reset_launch_counts()
+    y, state = xlstm.mlstm(params, x, cfg)
+    y.float().square().sum().backward()
+    assert torch.isfinite(y.float()).all() and torch.isfinite(x.grad.float()).all()
+    assert all(torch.isfinite(p.grad.float()).all() for _, p in _leaves(params))
+    assert ops.launch_counts()["fused_rmsnorm"] == 1 and ops.launch_counts()["fused_rmsnorm_bwd"] == 1
 
 
 @pytest.mark.gpu
@@ -711,7 +806,7 @@ def test_hybrid_smoke_train_step_kernels_vs_plain_on_card(card):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen3-4b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "recurrentgemma-9b", "xlstm-125m"])
 def test_smoke_grads_on_card_vs_cpu_with_plain_attention(card, arch):
     """The loss and each leaf's gradient of the smoke config, the card
     against the CPU, flash attention through its plain f32 version on both

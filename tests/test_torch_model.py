@@ -63,8 +63,13 @@ def _t(a, dtype=torch.bfloat16):
 
 
 def test_registry_lists_the_seven_ported_archs():
-    """The dense slice, the hybrid and the MoE slice: the seven registered archs."""
-    assert list_archs() == sorted(DENSE + HYBRID + MOE)
+    """The dense slice, the hybrid, the MoE slice, the xLSTM and the two
+    embeddings-input families: all ten of the JAX package's archs (seven
+    until the xLSTM and embeddings slice)."""
+    from repro.configs import list_archs as jax_archs
+
+    assert list_archs() == sorted(DENSE + HYBRID + MOE + ["xlstm-125m", "qwen2-vl-2b", "musicgen-medium"])
+    assert list_archs() == jax_archs()
 
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -394,6 +399,10 @@ def test_other_dense_configs_run_forward_and_decode(arch):
 
 
 def test_unported_families_raise():
-    cfg = dataclasses.replace(get_config("qwen3-4b", smoke=True), pattern=("slstm", "attn"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every layer kind of the JAX package is ported; a kind it does not
+    have still raises, as the JAX package's ``block_spec`` does."""
+    cfg = dataclasses.replace(get_config("qwen3-4b", smoke=True), pattern=("ssm", "attn"))
+    with pytest.raises(ValueError, match="unknown layer kind ssm"):
         Model(cfg, device="cpu").spec()
+    with pytest.raises(ValueError, match="unknown layer kind ssm"):
+        Model(cfg, device="cpu").init_decode_state(1, 8)

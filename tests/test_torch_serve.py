@@ -1,6 +1,7 @@
 """The port's batched server on the CPU, against the JAX package's server."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -137,3 +138,30 @@ def test_cli_serves_moe_on_the_cpu(capsys):
     main(["--arch", "deepseek-moe-16b", "--device", "cpu", "--requests", "3", "--batch", "2", "--max-new", "2"])
     out = capsys.readouterr().out
     assert '"requests_done": 3' in out and '"device": "cpu"' in out
+
+
+def test_cli_defaults_to_gemma_2b_as_the_jax_server(capsys, monkeypatch):
+    import repro_torch.launch.serve as serve
+
+    archs = []
+    monkeypatch.setattr(serve, "get_config", lambda arch, smoke: archs.append((arch, smoke)) or get_config(arch,
+                                                                                                           smoke=smoke))
+    main(["--device", "cpu", "--requests", "2", "--batch", "2", "--max-new", "2"])
+    out = capsys.readouterr().out
+    assert archs == [("gemma-2b", True)]
+    assert '"requests_done": 2' in out and "profile_samples" not in out
+
+
+def test_cli_profiles_on_the_thread_backend(capsys):
+    """``--profile``: the host-plane sampler and the dominance watchdog run
+    beside the serving loop (the JAX server's wiring); the stats gain the
+    samples taken and the anomalies the watchdog saw."""
+    main(["--arch", "xlstm-125m", "--device", "cpu", "--requests", "8", "--batch", "2", "--max-new", "8",
+          "--profile"])
+    stats = json.loads(capsys.readouterr().out)
+    assert stats["requests_done"] == 8 and stats["profile_samples"] > 0 and stats["anomalies"] == []
+
+
+def test_cli_daemon_backend_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        main(["--device", "cpu", "--profile", "--backend", "daemon"])

@@ -191,18 +191,28 @@ class TestTrainer:
         assert saved == [1, 2] and len(trainer.anomalies) == 6
         assert CheckpointManager(str(tmp_path / "ckpt")).list_steps() == [1, 2, 3]
 
-    @pytest.mark.parametrize("arch,steps", [("qwen3-4b", 5), ("recurrentgemma-9b", 20), ("deepseek-moe-16b", 20)])
+    @pytest.mark.parametrize("arch,steps", [("qwen3-4b", 5), ("recurrentgemma-9b", 20), ("deepseek-moe-16b", 20),
+                                            ("xlstm-125m", 20)])
     def test_cli_on_the_cpu(self, tmp_path, arch, steps):
         """``python -m repro_torch.launch.train --arch <arch> --device cpu --steps <steps>``.
         The hybrid's smoke model starts at the uniform loss (ln 256, its tied
         embedding's logits are ~0.6 at most) and falls slowly under the CLI's
         warm-up: 5.544 to 5.548 after 5 steps, 5.529 after 20. The MoE smoke
         model's loss (with 1e-2 x its load-balance term) moves by 0.08 from step
-        to step on fresh batches: 5.326 to 5.324 after 10 steps, 5.156 after 20."""
+        to step on fresh batches: 5.326 to 5.324 after 10 steps, 5.156 after 20.
+        xlstm-125m, the CLI's default arch: 5.375 to 5.063 after 20 steps."""
         main(["--arch", arch, "--device", "cpu", "--steps", str(steps), "--out", str(tmp_path), "--no-resume"])
         with open(tmp_path / "metrics.json") as f:
             summary = json.load(f)["summary"]
         assert summary["steps"] == steps and summary["final_loss"] < summary["first_loss"]
+
+    def test_cli_defaults_to_the_jax_trainers_arch(self, tmp_path):
+        """``TrainJobConfig`` and the CLI default to xlstm-125m's smoke config,
+        as ``repro.launch.train`` does."""
+        assert TrainJobConfig().arch == "xlstm-125m"
+        main(["--device", "cpu", "--steps", "2", "--out", str(tmp_path), "--no-resume"])
+        with open(tmp_path / "metrics.json") as f:
+            assert json.load(f)["summary"]["arch"] == "xlstm-125m-smoke"
 
     def test_daemon_backend_is_not_ported(self, tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
