@@ -103,6 +103,18 @@ then the training paths:
               tokens/s, peak GB, loss / grad_norm / lr, launches of every kernel
               per step, each asserted against ``train_launches``), and
               torch.profiler over a fourth step;
+   device_plane -- after each train line, one more step profiled into the
+              device tree (``repro_torch.core.device_tree``, keyed by the JAX
+              package's scope names): the device ms under the forward
+              (``jvp(loss)``), the backward (``transpose(jvp(loss))``), the
+              optimizer and the rest (and the bytes each moves), the idle
+              share, the top components by
+              device ms, the tree's flops against 6 N D, the tree's roofline
+              bound on the H100 against the measured step, and the hand-written
+              kernels the tree holds against ``ops.launch_counts()``; it fails
+              when the tree is empty, when the backward holds no kernel, or
+              when a ``flash_attention`` / ``fused_rmsnorm`` / ``rglru_scan``
+              kernel of the path is missing from either branch;
 9. trainer -- ``Trainer`` at qwen3-4b smoke on the card with the sampler and the
               watchdog on: 3 steps and a checkpoint, a second Trainer that resumes
               to 6, a third that runs 6 in one go; parameters and optimizer state
@@ -124,7 +136,10 @@ then the training paths:
               the CPU: the loss and each leaf's gradient within
               ``GRADS_CARD_VS_CPU`` (the loss within ``GRADS_LOSS_BOUND`` where
               it names the arch), the same pass through the plain versions on
-              the card and the CPU loss's nudge response reported beside them.
+              the card and the CPU loss's nudge response reported beside them;
+              for musicgen-medium (BF16_REDUCTION_PROBE) also the card pass
+              with cuBLAS's reduced-precision bf16 reduction switched the
+              other way, both gaps printed.
 
 Then the card's ``nvidia-smi`` line, the kernels summary (six kernels, each
 launched on the main paths) and, last, ``{"ok": true, "device": {...}}``.
@@ -272,10 +287,20 @@ GRADS_CHECKS = (*TRAIN_CHECKS, "qwen2-vl-2b", "musicgen-medium")
 GRADS_CARD_VS_CPU = dict(loss=1e-4, grad_rel_l2=0.05)
 # musicgen-medium's smoke loss is less well-posed than 1e-4 at these weights
 # and its embeddings batch: a 1e-6 nudge of the norm scales moves the CPU's
-# own loss by up to 1.8e-4, and the card's bf16 GEMMs, which round in
-# another order, perturb it more (measured 3.3e-4 on an H100, its gradients
-# 0.0078 per leaf). grads_check prints the nudge's response beside it.
+# own loss by up to 2.5e-4 (2.465e-4), and the card's bf16 GEMMs, which
+# round in another order, perturb it more: 3.32e-4 card vs CPU on an H100,
+# its gradients 0.0078 per leaf, the kernels against the card's plain path
+# 0.0. cuBLAS's reduced-precision bf16 reduction does not explain it: with
+# torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction True
+# (PyTorch's default) and False the card's loss and gradients were the same
+# to the bit, the gap 3.32e-4 both times (BF16_REDUCTION_PROBE). grads_check
+# prints the nudge's response and both gaps beside it.
 GRADS_LOSS_BOUND = {"musicgen-medium": 1e-3}
+# The archs whose grads_check also runs the card pass with
+# torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction switched
+# the other way, both card-vs-CPU gaps printed: does cuBLAS's bf16 reduction
+# explain musicgen-medium's loss gap? (The JAX package's bf16 dots sum in f32.)
+BF16_REDUCTION_PROBE = ("musicgen-medium",)
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}  # tests/test_kernels.py
 # At the prefill's flash shape a late row's output is ~0.04 (softmax over ~2048
 # random keys), below the bf16 atol: the error must also be small beside the
@@ -332,11 +357,13 @@ def nvidia_smi() -> str:
 def _kernel_events(prof):
     """The profiler's device-side events (kernels, copies), not the host ops
     that launched them, nor the device-side spans of ``record_function``
-    ranges (the MoE's scopes): summing those would count device time twice."""
+    ranges (the model's scopes, named as the host-side ranges of the same
+    profile): summing those would count device time twice."""
     from torch.autograd import DeviceType
 
+    ranges = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False) and e.key not in MOE_SCOPES + XLSTM_SCOPES]
+            and not getattr(e, "is_user_annotation", False) and e.key not in ranges]
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2, sessions: int = 5) -> tuple[float, float, dict]:
@@ -657,10 +684,8 @@ def time_flash(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
     fma = flash.launch_fma(q, k, v, causal=True, window=window)
     fma_err = check_close("flash_attention (fma)", fma, want, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window)
     del got, one_term, fma
-    w = window or S
-    pairs = sum(min(i + 1, w) for i in range(S))  # causal (windowed) (q, k) pairs each (b, head) computes
-    flops = 4 * B * Hq * D * pairs
-    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)  # q, o + k, v in bf16
+    # two S x T x D products a head over the causal (windowed) pairs; q, o + k, v in bf16
+    flops, nbytes = ops.flash_work(q, k, True, window)
     bms, by = bound_ms(nbytes, flops, "bfloat16")
     if window is None:
         library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
@@ -707,7 +732,7 @@ def time_rglru(torch, ops, ref, dev, shapes: list[tuple[int, int, int]]) -> list
         err = check_close("rglru_scan", ops.rglru_scan(a, b), want, B=B, S=S, W=W)
         seq_err = check_close("rglru_scan (sequential)", rgk.launch_sequential(a, b), want, B=B, S=S, W=W)
         del want
-        nbytes = 3 * B * S * W * a.element_size()  # a, b read, h written
+        nbytes = ops.rglru_work(a)[1]  # a, b read, h written
         bms, by = bound_ms(nbytes, 2 * B * S * W, "float32")  # one FMA per element
         cluster = rgk.cluster_size(S)
         rows.append({
@@ -747,7 +772,7 @@ def time_rglru_bwd(torch, ops, ref, dev, shapes: list[tuple[int, int, int]]) -> 
         err = max(check_close(f"rglru_scan_bwd {n}", x, w, B=B, S=S, W=W)
                   for n, x, w in zip(("da", "db"), got, ref.rglru_bwd_ref(a, h, dh)))
         del got
-        nbytes = 5 * B * S * W * a.element_size()  # a, h, dh read, da, db written
+        nbytes = ops.rglru_work(a, backward=True)[1]  # a, h, dh read, da, db written
         bms, by = bound_ms(nbytes, 3 * B * S * W, "float32")  # one FMA and one multiply per element
         cluster = rgk.cluster_size(S)
         rows.append({
@@ -770,7 +795,7 @@ def time_rmsnorm(torch, F, ops, ref, dev, rows: int, D: int, dtype) -> dict:
     w = (1.0 + s).to(dtype)
     err = check_close("fused_rmsnorm", ops.fused_rmsnorm(x, s), ref.rmsnorm_ref(x, s), rows=rows, D=D)
     name = str(dtype).removeprefix("torch.")
-    nbytes = 2 * rows * D * x.element_size() + 4 * D  # x read, y written, scale read
+    nbytes = ops.rmsnorm_work(x)[1]  # x read, y written, scale read
     bms, by = bound_ms(nbytes, 4 * rows * D, "float32")  # x*x, sum, *rsqrt, *(1+scale) in f32
     return {
         "shape": f"{rows}x{D} {name}",
@@ -967,9 +992,8 @@ def time_flash_bwd(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dict:
         checks[pair] = {n: flash_grad_close(f"flash_attention_bwd ({pair}) {n}", x, w.transpose(1, 2), B=B, S=S)
                         for n, x, w in zip(("dq", "dk", "dv"), grads, want)}
     del got, want
-    pairs = S * (S + 1) // 2
-    flops = 2.5 * 4 * B * Hq * D * pairs
-    nbytes = 2 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D)  # q, o, do read, dq written; k, v read, dk, dv written
+    # 2.5 x the forward's products; q, o, do read, dq written; k, v read, dk, dv written
+    flops, nbytes = ops.flash_work(q, k, True, None, backward=True)
     bms, by = bound_ms(nbytes, flops, "bfloat16")
     leaves = [a.detach().requires_grad_() for a in t[:3]]
     lo = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
@@ -1035,9 +1059,7 @@ def time_flash_bwd_windowed(torch, F, ops, ref, dev, cfg, B: int, S: int) -> dic
         checks[pair] = {n: flash_grad_close(f"flash_attention_bwd ({pair}) {n}", x, w.transpose(1, 2), B=B, S=S, D=D)
                         for n, x, w in zip(("dq", "dk", "dv"), grads, want)}
     del got, want
-    pairs = sum(min(i + 1, window) for i in range(S))
-    flops = 2.5 * 4 * B * Hq * D * pairs
-    nbytes = 2 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D)  # q, o, do read, dq written; k, v read, dk, dv written
+    flops, nbytes = ops.flash_work(q, k, True, window, backward=True)
     bms, by = bound_ms(nbytes, flops, "bfloat16")
     i = torch.arange(S, device=dev)
     mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
@@ -1073,7 +1095,7 @@ def time_rmsnorm_bwd(torch, F, ops, ref, dev, rows: int, D: int, dtype) -> dict:
     err = max(grad_close("fused_rmsnorm_bwd dx", dx, want_dx, rows=rows, D=D),
               grad_close("fused_rmsnorm_bwd dscale", ds, want_ds, rows=rows, D=D))
     name = str(dtype).removeprefix("torch.")
-    nbytes = 3 * rows * D * x.element_size() + 8 * D  # x, dy read, dx written; scale read, dscale written
+    nbytes = ops.rmsnorm_work(x, dy)[1]  # x, dy read, dx written; scale read, dscale written
     bms, by = bound_ms(nbytes, 10 * rows * D, "float32")  # ~10 f32 operations an element
     xl = x.detach().requires_grad_()
     wl = (1.0 + s).to(dtype).requires_grad_()
@@ -1169,7 +1191,7 @@ def train_phase(torch, get_config, ops, dev, spec: dict) -> dict:
     opt = adamw_init(params)
     step = make_train_step(model, cosine_schedule(3e-4, warmup_steps=1, total_steps=100), AdamWConfig())
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=0))
-    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()} for i in range(n + 2)]
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()} for i in range(n + 3)]
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1206,10 +1228,86 @@ def train_phase(torch, get_config, ops, dev, spec: dict) -> dict:
         emit("train", **out)
         raise AssertionError(f"train {cfg.name}: finite {finite}, launches per step {per_step}, expected {want}")
     out["profile"] = profile_step(torch, lambda: step(params, opt, batches[n + 1]))
+    emit("train", **out)
+    device_plane(torch, ops, dev, cfg, spec, lambda: step(params, opt, batches[n + 2]), mean_ms)
     del params, opt, step, batches
     torch.cuda.empty_cache()
-    emit("train", **out)
     return counts
+
+
+# The hand-written kernels the device plane must find in a train step's tree,
+# by the layer kinds that launch them: forward under jvp(loss), backward under
+# transpose(jvp(loss)) (where a checkpoint's recompute launches forwards too).
+DEVICE_PLANE_KERNELS = {"attn": "flash_attention", "rec": "rglru_scan"}
+DEVICE_PLANE_ATTEMPTS = 3  # profiles of one more step, where the profiler dropped a kernel's records
+
+
+def device_plane(torch, ops, dev, cfg, spec: dict, run_step, timed_ms: float) -> dict:
+    """The ``device_plane`` line of one train setup: ``run_step`` (one more
+    train step, after the timed ones) profiled into the device tree, read as
+    ``repro_torch.benchmarks.fig08_11_breakdown`` reads it. Fails (after
+    DEVICE_PLANE_ATTEMPTS profiles) if the tree is empty, the backward holds
+    no kernel, or a hand-written kernel of the path holds none in either
+    branch; the launches the tree's ``kernel:`` nodes count must equal
+    ``ops.launch_counts()`` for the step."""
+    from repro_torch.benchmarks.fig08_11_breakdown import FORWARD, BACKWARD, component_shares, step_split
+    from repro_torch.core.device_tree import UNATTRIBUTED, build_device_tree, profiling
+    from repro_torch.core.roofline import H100, report_from_tree
+    from repro_torch.models import Model
+
+    families = ["fused_rmsnorm"] + sorted({DEVICE_PLANE_KERNELS[k] for k in cfg.pattern if k in DEVICE_PLANE_KERNELS})
+    B, S = spec["B"], spec["S"]
+    for attempt in range(1, DEVICE_PLANE_ATTEMPTS + 1):
+        ops.reset_launch_counts()
+        with profiling(dev) as prof:
+            t0 = time.perf_counter()
+            run_step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        tree = build_device_tree(prof)
+        del prof
+        branch = {side: tree.zoom(lambda n, s=side: n == s) for side in (FORWARD, BACKWARD)}
+        found = {f"{side}/{fam}": branch[side].flatten("kernels").get(f"kernel:{fam}{sfx}", 0.0)
+                 for side, sfx in ((FORWARD, ""), (BACKWARD, "_bwd")) for fam in families}
+        missing = [k for k, v in found.items() if not v]
+        if tree.total("device_ms") > 0 and branch[BACKWARD].total("kernels") > 0 and not missing:
+            break
+    flat_ops, flat_kernels = tree.flatten("ops"), tree.flatten("kernels")
+    kernels = {key: {"launches": counts[key], "in_tree": flat_ops.get(f"kernel:{key}", 0.0),
+                     "device_kernels": flat_kernels.get(f"kernel:{key}", 0.0)}
+               for key in ("flash_attention", "flash_attention_bwd", "fused_rmsnorm", "fused_rmsnorm_bwd",
+                           "rglru_scan", "rglru_scan_bwd")}
+    device_ms = tree.total("device_ms")
+    model_flops = 6.0 * Model(cfg, device="meta").n_active_params * B * S
+    report = report_from_tree(arch=cfg.name, shape=f"train {B}x{S}", device_tree=tree, measured_step_s=timed_ms / 1e3,
+                              model_flops_global=model_flops, hw=H100)
+    top = [("/".join(p).removeprefix("train_step/fwd_bwd/"), share * device_ms)
+           for p, share in tree.hot_paths("device_ms", k=10, self_only=True)]
+    out = {
+        "arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": S, "remat": cfg.remat, "attempts": attempt,
+        "profiled_wall_ms": wall_ms, "timed_step_ms": timed_ms, "device_ms": device_ms,
+        "split_ms": step_split(tree), "split_bytes": step_split(tree, "bytes"),
+        "idle_share_profiled": 1 - device_ms / wall_ms,
+        "idle_share_timed": 1 - device_ms / timed_ms,
+        "unattributed_device_ms": tree.flatten("device_ms").get(UNATTRIBUTED, 0.0),
+        "components_device_share": component_shares(tree, "device_ms"),
+        "components_flops_share": component_shares(tree, "flops"),
+        "top_device_ms": top,
+        "tree_flops": tree.total("flops"), "model_flops_6nd": model_flops,
+        "tree_flops_over_6nd": tree.total("flops") / model_flops,
+        "tree_bytes": tree.total("bytes"), "call_sites": tree.node_count(),
+        "roofline": {"t_compute_ms": report.t_compute * 1e3, "t_memory_ms": report.t_memory * 1e3,
+                     "bound_ms": report.t_step * 1e3, "dominant": report.dominant,
+                     "bound_over_timed_step": report.bound_share, "spec": H100.name},
+        "kernels": kernels, "kernel_nodes": found,
+        "profiler_dropped_records": any(k["device_kernels"] < k["in_tree"] for k in kernels.values()),
+    }
+    emit("device_plane", **out)
+    bad_counts = {k: v for k, v in kernels.items() if v["in_tree"] != v["launches"]}
+    if not device_ms or not branch[BACKWARD].total("kernels") or missing or bad_counts:
+        raise AssertionError(f"device plane of {cfg.name}: device ms {device_ms}, kernels missing {missing}, "
+                             f"launch counts apart {bad_counts}")
+    return out
 
 
 def profile_step(torch, fn) -> dict:
@@ -1372,15 +1470,24 @@ def grads_check(torch, get_config, ops, dev, arch: str) -> dict:
     params_cpu = at_unstacked_std(Model(cfg, device="cpu").init(torch.Generator().manual_seed(0), train=True))
     batch = smoke_batch(torch, cfg)
     runs, routes = {}, {}
-    for name, device, plain in (("card", dev, ("flash_attention",)), ("card_plain", dev, ()),
-                                ("cpu", torch.device("cpu"), ("flash_attention",))):
+    matmul = torch.backends.cuda.matmul
+    as_run = matmul.allow_bf16_reduced_precision_reduction
+    passes = [("card", dev, ("flash_attention",)), ("card_plain", dev, ()),
+              ("cpu", torch.device("cpu"), ("flash_attention",))]
+    if arch in BF16_REDUCTION_PROBE:
+        passes.append(("card_bf16_reduction_flipped", dev, ("flash_attention",)))
+    for name, device, plain in passes:
         model = Model(cfg, device=device)
         p = tree_map_with_path(lambda _, x: x.to(device, copy=True), params_cpu)
         grads = tree_map_with_path(lambda _, x: torch.zeros_like(x, dtype=torch.float32), p)
         ops.reset_launch_counts()
-        with ops.plain_versions(*plain), recording_moe() as routes[name]:
-            loss, _ = model.loss(model.grad_leaves(p, grads), on(batch, device))
-            loss.backward()
+        matmul.allow_bf16_reduced_precision_reduction = (not as_run) if name.endswith("_flipped") else as_run
+        try:
+            with ops.plain_versions(*plain), recording_moe() as routes[name]:
+                loss, _ = model.loss(model.grad_leaves(p, grads), on(batch, device))
+                loss.backward()
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = as_run
         runs[name] = (float(loss.detach()), grads, ops.launch_counts())
     with torch.no_grad():
         nudged = [float(Model(cfg, device="cpu").loss(tree_map_with_path(
@@ -1406,6 +1513,13 @@ def grads_check(torch, get_config, ops, dev, arch: str) -> dict:
            "bounds": {**GRADS_CARD_VS_CPU, "loss": loss_bound}}
     if routes["card"]:  # MoE: the first token routed otherwise on the two devices (None: no route flip)
         res["moe_first_route_flip"] = first_flip(routes["card"], routes["cpu"])
+    if "card_bf16_reduction_flipped" in runs:  # the card-vs-CPU gap with cuBLAS's bf16 reduction on and off
+        lf, gf, _ = runs["card_bf16_reduction_flipped"]
+        gaps = {as_run: (lc, errs), not as_run: (lf, rel(gf, gw))}
+        res["bf16_reduced_precision_reduction"] = {
+            "as_run": as_run,
+            **{str(flag).lower(): {"loss_card": loss, "loss_diff": abs(loss - lw), **worst_of(e)}
+               for flag, (loss, e) in gaps.items()}}
     emit("grads_check", **res)
     want = {**train_launches(cfg, ("fma", "fma")), "flash_attention": 0, "flash_attention_bwd": 0}
     if not (counts == want and res["loss_diff"] < loss_bound
@@ -1949,8 +2063,11 @@ def profile_phase(torch, model, params, batch: dict, step_in: dict) -> dict:
     return out
 
 
-MOE_SCOPES = ("moe/router", "moe/dispatch", "moe/experts", "moe/combine", "moe/shared_experts", "moe/aux_loss")
-XLSTM_SCOPES = ("slstm/time_loop", "mlstm/chunks")
+# the MoE's scopes inside ``moe`` (``router`` holds ``top_k``), and the xLSTM
+# cells' loops (the sLSTM's time loop, the mLSTM's chunks), by the JAX
+# package's scope names: no other module enters a range of these names
+MOE_SCOPES = ("router", "dispatch", "experts", "combine", "shared_experts", "aux_loss")
+XLSTM_SCOPES = ("time_scan", "chunk_scan")
 
 
 def range_times(prof, names) -> dict:
@@ -1970,9 +2087,10 @@ def range_times(prof, names) -> dict:
 
 def moe_scopes(prof, busy_ms: float) -> dict:
     """Device ms of the kernels launched inside each of the MoE module's
-    ``record_function`` ranges, and each one's share of the device busy time.
-    Empty without MoE. In a train step the backward's kernels lie outside the
-    ranges; a checkpoint's recompute lies inside them."""
+    scopes, and each one's share of the device busy time. Empty without MoE.
+    In a train step the backward's kernels lie outside the ranges (the
+    ``device_plane`` line attributes them); a checkpoint's recompute lies
+    inside them."""
     times = range_times(prof, MOE_SCOPES)
     if not times:
         return {}
@@ -1982,11 +2100,12 @@ def moe_scopes(prof, busy_ms: float) -> dict:
 
 
 def xlstm_scopes(prof, busy_ms: float, wall_ms: float) -> dict:
-    """The xLSTM cells' loops (``slstm/time_loop``, ``mlstm/chunks``): the
-    device ms of their kernels and its share of the device busy time, the
-    host ms they span and its share of the wall. Empty without xLSTM. In a
-    train step the backward's kernels lie outside the ranges; a
-    checkpoint's recompute lies inside them."""
+    """The xLSTM cells' loops (``time_scan``, the sLSTM's; ``chunk_scan``,
+    the mLSTM's): the device ms of their kernels and its share of the device
+    busy time, the host ms they span and its share of the wall. Empty without
+    xLSTM. In a train step the backward's kernels lie outside the ranges (the
+    ``device_plane`` line attributes them); a checkpoint's recompute lies
+    inside them."""
     times = range_times(prof, XLSTM_SCOPES)
     return {"xlstm_scopes": {k: {"device_ms": d, "device_share": d / busy_ms if busy_ms else "not measured",
                                  "host_ms": h, "wall_share": h / wall_ms, "ranges": n}

@@ -18,6 +18,15 @@ hand-written backward kernel for a CUDA tensor, the plain backward in
 statistics ``lse`` for the backward where the backward reads them (the plain
 version, and the wgmma backward pair); the scan's keeps a and its output h.
 
+Each public wrapper runs under the range its JAX counterpart's
+``jax.named_scope`` names (``flash_attention``, ``fused_rmsnorm``,
+``rglru_scan``; ``core/scope.py``, entered only while a profiler records),
+and each kernel launch is marked with the work the kernel does
+(``flash_work``, ``rmsnorm_work``, ``rglru_work``: the counts that
+``chip_smoke.py`` bounds each kernel by), so the device tree of a profiled
+step sees the hand-written kernels' work and device time under their
+callers.
+
 ``plain_versions`` is for checks that hold the kernels to their plain
 versions on the card: inside it the named kernels take their plain versions
 (forward and backward) whatever the device, and count no launch. The model's
@@ -29,6 +38,8 @@ from __future__ import annotations
 from contextlib import contextmanager
 
 import torch
+
+from repro_torch.core.scope import kernel_launch, scope
 
 from . import flash_attention as _flash
 from . import fused_rmsnorm as _rmsnorm
@@ -104,6 +115,48 @@ def reset_launch_counts() -> None:
     RGLRU_SCAN_BWD_LAUNCHES = 0
 
 
+def causal_pairs(S: int, T: int, causal: bool, window: int | None) -> int:
+    """The (query, key) pairs each (batch, head) of attention computes:
+    query i sees keys ``max(0, i - window + 1) .. i`` when causal, all T
+    keys otherwise."""
+    if not causal:
+        return S * T
+    w = min(window or T, T)
+    full = min(w, S)  # queries 0 .. full-1 see i + 1 keys, the rest w
+    return full * (full + 1) // 2 + (S - full) * w
+
+
+def flash_work(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int | None, *,
+               backward: bool = False) -> tuple[float, float]:
+    """-> (flops, bytes) of one flash-attention launch: two S x T x D
+    products a head over the pairs the mask keeps (the backward: five, 2.5 x
+    the forward's, as it recomputes the scores), q, k, v read and o written
+    (the backward: q, o, do, k, v read, dq, dk, dv written)."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    flops = 4.0 * B * Hq * D * causal_pairs(S, T, causal, window)
+    per = 4 if backward else 2
+    nbytes = q.element_size() * per * (B * S * Hq * D + B * T * Hkv * D)
+    return (2.5 * flops if backward else flops), float(nbytes)
+
+
+def rmsnorm_work(x: torch.Tensor, dy: torch.Tensor | None = None) -> tuple[float, float]:
+    """-> (0, bytes) of one RMSNorm launch: x read and y written, the f32
+    scale read; with ``dy``, of the backward: x and dy read, dx written,
+    scale read and dscale written. Its arithmetic is no dot: the tree's
+    flops stay 0."""
+    D = x.shape[-1]
+    if dy is not None:
+        return 0.0, float(x.numel() * (2 * x.element_size() + dy.element_size()) + 8 * D)
+    return 0.0, float(2 * x.numel() * x.element_size() + 4 * D)
+
+
+def rglru_work(a: torch.Tensor, *, backward: bool = False) -> tuple[float, float]:
+    """-> (0, bytes) of one scan launch: a and b read, h written (the
+    backward: a, h, dh read, da, db written)."""
+    return 0.0, float((5 if backward else 3) * a.numel() * a.element_size())
+
+
 def _device_type(*tensors: torch.Tensor) -> str:
     devs = {t.device for t in tensors}
     if len(devs) != 1:
@@ -128,6 +181,11 @@ def flash_attention(
     caller that runs ``flash_attention_bwd`` itself: it raises where autograd
     records the call, whose output would carry no gradient on the card. On
     the card only the wgmma kernel writes them."""
+    with scope("flash_attention"):
+        return _flash_attention(q, k, v, causal, window, return_lse)
+
+
+def _flash_attention(q, k, v, causal: bool, window: int | None, return_lse: bool):
     _device_type(q, k, v)
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"expected q (B,S,Hq,D) and k, v (B,T,Hkv,D); got {q.shape}, {k.shape}, {v.shape}")
@@ -175,7 +233,8 @@ def _flash_fwd(q, k, v, causal: bool, window: int | None, with_lse: bool = False
     global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_WGMMA_LAUNCHES
     B, S, Hq, _ = q.shape
     lse = _flash.new_lse(B, Hq, S, q.device) if with_lse else None
-    o = _flash.launch(q, k, v, causal=causal, window=window, lse=lse)
+    with kernel_launch("flash_attention", lambda: flash_work(q, k, causal, window)):
+        o = _flash.launch(q, k, v, causal=causal, window=window, lse=lse)
     FLASH_ATTENTION_LAUNCHES += 1
     FLASH_ATTENTION_WGMMA_LAUNCHES += _wgmma(q)
     return (o, lse) if with_lse else o
@@ -218,6 +277,11 @@ def flash_attention_bwd(
     row statistics ``lse`` that ``flash_attention(..., return_lse=True)``
     gives. The plain backward recomputes them when ``lse`` is None; the wgmma
     pair (bf16 at D 16/64/128/256 on the card) needs them."""
+    with scope("flash_attention"):
+        return _flash_attention_bwd(q, k, v, o, do, causal, window, lse)
+
+
+def _flash_attention_bwd(q, k, v, o, do, causal: bool, window: int | None, lse):
     _device_type(q, k, v, o, do)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} must match q "
@@ -238,7 +302,8 @@ def flash_attention_bwd(
         raise ValueError("the wgmma backward reads the forward's row statistics: pass lse "
                          "(flash_attention(..., return_lse=True) gives them)")
     global FLASH_ATTENTION_BWD_LAUNCHES, FLASH_ATTENTION_BWD_WGMMA_LAUNCHES
-    grads = _flash.launch_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    with kernel_launch("flash_attention_bwd", lambda: flash_work(q, k, causal, window, backward=True)):
+        grads = _flash.launch_bwd(q, k, v, o, do, lse, causal=causal, window=window)
     FLASH_ATTENTION_BWD_LAUNCHES += 1
     FLASH_ATTENTION_BWD_WGMMA_LAUNCHES += wgmma
     return grads
@@ -246,6 +311,11 @@ def flash_attention_bwd(
 
 def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis; x (..., D) in f32 or bf16, scale (D,) f32."""
+    with scope("fused_rmsnorm"):
+        return _fused_rmsnorm(x, scale, eps)
+
+
+def _fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     _device_type(x, scale)
     D = x.shape[-1]
     if scale.shape != (D,):
@@ -265,7 +335,8 @@ def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tens
     if _plain("fused_rmsnorm", x):
         return ref.rmsnorm_ref(x, scale, eps=eps)
     global FUSED_RMSNORM_LAUNCHES
-    y = _rmsnorm.launch(x.view(-1, x.shape[-1]), scale, eps)
+    with kernel_launch("fused_rmsnorm", lambda: rmsnorm_work(x)):
+        y = _rmsnorm.launch(x.view(-1, x.shape[-1]), scale, eps)
     FUSED_RMSNORM_LAUNCHES += 1
     return y.view(x.shape)
 
@@ -289,6 +360,11 @@ def fused_rmsnorm_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The gradient of :func:`fused_rmsnorm` -> (dx in x's dtype and shape,
     dscale f32). dy has x's shape, in x's dtype or f32."""
+    with scope("fused_rmsnorm"):
+        return _fused_rmsnorm_bwd(x, scale, dy, eps)
+
+
+def _fused_rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: float):
     _device_type(x, scale, dy)
     D = x.shape[-1]
     if dy.shape != x.shape or dy.dtype not in (x.dtype, torch.float32):
@@ -299,7 +375,8 @@ def fused_rmsnorm_bwd(
     if _plain("fused_rmsnorm", x):
         return ref.rmsnorm_bwd_ref(x, scale, dy, eps=eps)
     global FUSED_RMSNORM_BWD_LAUNCHES
-    dx, dscale = _rmsnorm.launch_bwd(x.view(-1, D), scale, dy.view(-1, D), eps)
+    with kernel_launch("fused_rmsnorm_bwd", lambda: rmsnorm_work(x, dy)):
+        dx, dscale = _rmsnorm.launch_bwd(x.view(-1, D), scale, dy.view(-1, D), eps)
     FUSED_RMSNORM_BWD_LAUNCHES += 1
     return dx.view(x.shape), dscale
 
@@ -307,6 +384,11 @@ def fused_rmsnorm_bwd(
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t * h_{t-1} + b_t`` along S with ``h_{-1} = 0``; a, b (B, S, W)
     contiguous, one dtype, f32 or bf16. -> h (B, S, W) in a's dtype."""
+    with scope("rglru_scan"):
+        return _rglru_scan(a, b)
+
+
+def _rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _device_type(a, b)
     if a.ndim != 3 or a.shape != b.shape:
         raise ValueError(f"expected a and b of one (B, S, W) shape; got {tuple(a.shape)}, {tuple(b.shape)}")
@@ -323,7 +405,8 @@ def _rglru_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if _plain("rglru_scan", a):
         return ref.rglru_ref(a, b)
     global RGLRU_SCAN_LAUNCHES
-    h = _rglru.launch(a, b)
+    with kernel_launch("rglru_scan", lambda: rglru_work(a)):
+        h = _rglru.launch(a, b)
     RGLRU_SCAN_LAUNCHES += 1
     return h
 
@@ -345,6 +428,11 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor) -> tuple[
     """The gradient of :func:`rglru_scan` -> (da, db) in a's dtype, from a,
     the scan's output h and h's gradient dh: (B, S, W) of one dtype, f32 or
     bf16, a and h contiguous (checked as there)."""
+    with scope("rglru_scan"):
+        return _rglru_scan_bwd(a, h, dh)
+
+
+def _rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     _device_type(a, h, dh)
     if a.ndim != 3 or h.shape != a.shape or dh.shape != a.shape:
         raise ValueError(f"expected a, h and dh of one (B, S, W) shape; got {tuple(a.shape)}, {tuple(h.shape)}, "
@@ -357,6 +445,7 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor) -> tuple[
     if _plain("rglru_scan", a):
         return ref.rglru_bwd_ref(a, h, dh)
     global RGLRU_SCAN_BWD_LAUNCHES
-    grads = _rglru.launch_bwd(a, h, dh)
+    with kernel_launch("rglru_scan_bwd", lambda: rglru_work(a, backward=True)):
+        grads = _rglru.launch_bwd(a, h, dh)
     RGLRU_SCAN_BWD_LAUNCHES += 1
     return grads

@@ -1,5 +1,6 @@
 """Step-function builders shared by the trainer, the server and the tests
-(the counterpart of ``repro.launch.steps``)."""
+(the counterpart of ``repro.launch.steps``), under its scopes
+(``train_step``, ``fwd_bwd``, ``serve_step``, ``eval_step``)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ from collections.abc import Callable
 
 import torch
 
+from repro_torch.core.scope import scope
 from repro_torch.models import Model
 from repro_torch.models.modules import tree_leaves, tree_map_with_path
 from repro_torch.optim import AdamWConfig, adamw_update
@@ -37,6 +39,10 @@ def make_train_step(
     grads = None
 
     def train_step(params, opt_state, batch):
+        with scope("train_step"):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         nonlocal grads
         if grads is None:
             grads = _zeros_f32(params)
@@ -47,11 +53,12 @@ def make_train_step(
         if B % grad_accum:
             raise ValueError(f"batch of {B} does not split into {grad_accum} microbatches")
         loss = None
-        for i in range(grad_accum):
-            micro = {k: v[i * B // grad_accum : (i + 1) * B // grad_accum] for k, v in batch.items()}
-            mloss, aux = model.loss(leaves, micro)
-            mloss.backward()
-            loss = mloss.detach() if loss is None else loss + mloss.detach()
+        with scope("fwd_bwd"):
+            for i in range(grad_accum):
+                micro = {k: v[i * B // grad_accum : (i + 1) * B // grad_accum] for k, v in batch.items()}
+                mloss, aux = model.loss(leaves, micro)
+                mloss.backward()
+                loss = mloss.detach() if loss is None else loss + mloss.detach()
         if grad_accum > 1:
             torch._foreach_div_([g for _, g in tree_leaves(grads)], grad_accum)
             loss = loss / grad_accum
@@ -67,8 +74,9 @@ def make_eval_step(model: Model):
 
     @torch.no_grad()
     def eval_step(params, batch):
-        loss, aux = model.loss(params, batch)
-        return {"loss": loss, **aux}
+        with scope("eval_step"):
+            loss, aux = model.loss(params, batch)
+            return {"loss": loss, **aux}
 
     return eval_step
 
@@ -77,7 +85,8 @@ def make_serve_step(model: Model):
     """-> serve_step(params, batch, state, pos) -> (greedy next tokens (B,) int32, state)."""
 
     def serve_step(params, batch, state, pos):
-        logits, new_state = model.decode_step(params, batch, state, pos)
-        return torch.argmax(logits, dim=-1).to(torch.int32), new_state
+        with scope("serve_step"):
+            logits, new_state = model.decode_step(params, batch, state, pos)
+            return torch.argmax(logits, dim=-1).to(torch.int32), new_state
 
     return serve_step

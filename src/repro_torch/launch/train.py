@@ -17,9 +17,15 @@ Wires every subsystem together the way a production job would:
   data position, step);
 * heartbeat file per step, the launcher's process-level hang detector.
 
-The JAX driver's device-plane dump (an HLO cost tree of the compiled step
-beside the host profile) has no counterpart yet (ROADMAP Queue 1 item 9), nor
-its daemon sampler backend (item 7).
+* **device plane**: with ``profile`` on, one step of the run, the second
+  (the first warm one), runs under ``torch.profiler`` and its call tree
+  (``core/device_tree.py``) lands as ``device_tree.json`` beside the host
+  profile. The JAX trainer costs the compiled step without running it; the
+  port profiles a step the job runs anyway, so no step is added and the
+  step's result is kept.
+
+The JAX trainer's daemon sampler backend has no counterpart yet (ROADMAP
+Queue 1 item 7).
 
 CLI (smoke scale by default; the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train [--arch xlstm-125m] --steps 30 [--device cpu]
@@ -34,6 +40,7 @@ import queue
 import tempfile
 import threading
 import time
+from contextlib import ExitStack
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,6 +49,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import DominanceDetector, Rule, SamplerConfig, WatchdogLoop, make_sampler, write_report
+from repro_torch.core.device_tree import build_device_tree, profiling, save_device_tree
 from repro_torch.data import DataConfig, Pipeline, SyntheticLM
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import Model
@@ -123,6 +131,7 @@ class Trainer:
         self._in_step = False
         self._data_pos = 0  # batches consumed by the steps counted in self.step
         self._emergency_step: int | None = None  # the last step given an emergency checkpoint
+        self._device_tree_dumped = False
 
     # -- fault-tolerance hooks ---------------------------------------------------
 
@@ -163,6 +172,42 @@ class Trainer:
         with open(self._heartbeat_path, "w") as f:
             f.write(f"{self.step} {time.time()}")
 
+    def _step_with_device_tree(self, batch: dict):
+        """One train step under ``torch.profiler``, its device tree written
+        beside the host profile (``_dump_device_tree``). The step itself is
+        the one the loop runs; a profiler that cannot start costs nothing but
+        the tree."""
+        self._device_tree_dumped = True
+        with ExitStack() as stack:
+            try:
+                prof = stack.enter_context(profiling(self.device))
+            except Exception as e:  # noqa: BLE001 - the device plane must never cost the run
+                print(f"[train] device-tree dump skipped: {e}")
+                prof = None
+            out = self._train_step(self.params, self.opt_state, batch)
+        if prof is not None:
+            self._dump_device_tree(prof)
+        return out
+
+    def _dump_device_tree(self, prof) -> None:
+        """Drop the device-plane artifact beside the host profile: the call
+        tree of the profiled step, by the JAX package's scope paths
+        (``device_tree.json``, its schema), in ``out_dir`` and, where set, in
+        ``$REPRO_PROFILERD_OUT``, the directory a profiling daemon reads.
+        Best-effort: the device plane must never cost the training run."""
+        try:
+            tree = build_device_tree(prof)
+            dests = [os.path.join(self.job.out_dir, "device_tree.json")]
+            env_out = os.environ.get("REPRO_PROFILERD_OUT")
+            if env_out:
+                dests.append(os.path.join(env_out, "device_tree.json"))
+            for p in dests:
+                os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
+                save_device_tree(tree, p, meta={"arch": self.cfg.name, "source": "train"})
+            print(f"[train] device plane: {dests[0]} ({tree.node_count()} call sites)")
+        except Exception as e:  # noqa: BLE001 - any failure here is non-fatal
+            print(f"[train] device-tree dump skipped: {e}")
+
     def _state_tree(self) -> dict:
         return {
             "params": self.params,
@@ -201,13 +246,20 @@ class Trainer:
         if self.watchdog:
             self.watchdog.start()
         t0 = time.time()
+        first = self.step
         try:
             while self.step < self.job.steps:
                 host_batch = next(self.data)  # a stall here is between steps
                 with self._step_lock:
                     self._in_step = True
                 batch = {k: torch.from_numpy(v).to(self.device) for k, v in host_batch.items()}
-                self.params, self.opt_state, metrics = self._train_step(self.params, self.opt_state, batch)
+                # the device plane profiles the run's second step, the first
+                # warm one, or its only step
+                if self.job.profile and not self._device_tree_dumped and (
+                        self.step == first + 1 or self.step + 1 == self.job.steps):
+                    self.params, self.opt_state, metrics = self._step_with_device_tree(batch)
+                else:
+                    self.params, self.opt_state, metrics = self._train_step(self.params, self.opt_state, batch)
                 self.step += 1
                 self._data_pos = self.data.next_step
                 self._touch_heartbeat()

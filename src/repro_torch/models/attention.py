@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from repro_torch.core.scope import scope as _scope
 from repro_torch.kernels import ops
 
 from .modules import ArraySpec, apply_mrope, apply_rope, project_heads, rms_norm, rms_norm_spec
@@ -35,27 +36,34 @@ def attention_spec(cfg) -> dict:
 
 def _project_qkv(params, x: torch.Tensor, cfg, positions: torch.Tensor):
     """positions: (B,S), or (B,S,3) with M-RoPE."""
-    q = project_heads(x, params["wq"])
-    k = project_heads(x, params["wk"])
-    v = project_heads(x, params["wv"])
+    with _scope("qkv_proj"):
+        q = project_heads(x, params["wq"])
+        k = project_heads(x, params["wk"])
+        v = project_heads(x, params["wv"])
     if cfg.qk_norm:
-        q = rms_norm(params["q_norm"], q)
-        k = rms_norm(params["k_norm"], k)
+        q = rms_norm(params["q_norm"], q, scope="q_norm")
+        k = rms_norm(params["k_norm"], k, scope="k_norm")
     rope = apply_mrope if cfg.mrope else apply_rope
-    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+    with _scope("rope"):
+        return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matmul."""
     B, S, H, k = o.shape
-    return o.reshape(B, S, H * k) @ wo.to(o.dtype).reshape(H * k, -1)
+    with _scope("out_proj"):
+        return o.reshape(B, S, H * k) @ wo.to(o.dtype).reshape(H * k, -1)
 
 
-def attention(params, x: torch.Tensor, cfg, positions: torch.Tensor, *, window: int | None = None) -> torch.Tensor:
-    """Prefill self-attention. x: (B,S,D) -> (B,S,D)."""
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    o = ops.flash_attention(q, k, v, causal=True, window=window)
-    return _out_proj(o, params["wo"])
+def attention(params, x: torch.Tensor, cfg, positions: torch.Tensor, *, window: int | None = None,
+              scope: str = "attention") -> torch.Tensor:
+    """Prefill self-attention. x: (B,S,D) -> (B,S,D). The scores and the PV
+    product run in the flash kernel, under its wrapper's ``flash_attention``
+    range, where the JAX package's xla path has ``scores`` and ``pv``."""
+    with _scope(scope):
+        q, k, v = _project_qkv(params, x, cfg, positions)
+        o = ops.flash_attention(q, k, v, causal=True, window=window)
+        return _out_proj(o, params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -70,34 +78,43 @@ def init_kv_cache(cfg, batch: int, max_len: int, device, dtype=torch.bfloat16) -
     return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_attention(params, x: torch.Tensor, cache: dict, pos: int, cfg, *, window: int | None = None):
+def decode_attention(params, x: torch.Tensor, cache: dict, pos: int, cfg, *, window: int | None = None,
+                     scope: str = "attention"):
     """One-token decode. x: (B,1,D); pos: current position.
 
     Returns (y, cache). The cache is updated in place (the JAX package
     donates it instead); it ring-buffers over the window for windowed
     attention and is max_len long for full attention.
     """
+    with _scope(scope):
+        return _decode_attention(params, x, cache, pos, cfg, window)
+
+
+def _decode_attention(params, x: torch.Tensor, cache: dict, pos: int, cfg, window: int | None):
     B = x.shape[0]
     L = cache["k"].shape[1]
     positions = torch.full((B, 1, 3) if cfg.mrope else (B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(params, x, cfg, positions)
     slot = pos % L if window else min(pos, L - 1)
     k, v = cache["k"], cache["v"]
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
+    with _scope("cache_update"):
+        k[:, slot] = k_new[:, 0].to(k.dtype)
+        v[:, slot] = v_new[:, 0].to(v.dtype)
     Hq, D = q.shape[2], q.shape[3]
     Hkv = k.shape[2]
     qg = q.reshape(B, Hkv, Hq // Hkv, D)
-    s = torch.einsum("bkgd,btkd->bkgt", qg, k.to(q.dtype)).float()
-    s *= 1.0 / math.sqrt(D)
-    t_idx = torch.arange(L, device=x.device)
-    if window:
-        # Ring buffer: valid slots are the last `window` positions.
-        age = torch.remainder(pos - t_idx, L)
-        valid = (age >= 0) & (age < min(pos + 1, L))
-    else:
-        valid = t_idx <= pos
-    s = s.masked_fill(~valid, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.einsum("bkgt,btkd->bkgd", p, v.to(q.dtype)).reshape(B, 1, Hq, D)
+    with _scope("scores"):
+        s = torch.einsum("bkgd,btkd->bkgt", qg, k.to(q.dtype)).float()
+        s *= 1.0 / math.sqrt(D)
+        t_idx = torch.arange(L, device=x.device)
+        if window:
+            # Ring buffer: valid slots are the last `window` positions.
+            age = torch.remainder(pos - t_idx, L)
+            valid = (age >= 0) & (age < min(pos + 1, L))
+        else:
+            valid = t_idx <= pos
+        s = s.masked_fill(~valid, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+    with _scope("pv"):
+        o = torch.einsum("bkgt,btkd->bkgd", p, v.to(q.dtype)).reshape(B, 1, Hq, D)
     return _out_proj(o, params["wo"]), cache

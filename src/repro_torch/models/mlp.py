@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.scope import scope as _scope
+
 from .modules import ACTIVATIONS, ArraySpec
 
 
@@ -17,12 +19,17 @@ def mlp_spec(d_model: int, d_ff: int, *, gated: bool = True) -> dict:
     return spec
 
 
-def mlp(params, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+def mlp(params, x: torch.Tensor, *, act: str = "silu", scope: str = "mlp") -> torch.Tensor:
     """x: (..., d_model) -> (..., d_model). Gated when 'wg' is present."""
-    f = ACTIVATIONS[act]
-    h = x @ params["wi"].to(x.dtype)
-    if "wg" in params:
-        h = f(x @ params["wg"].to(x.dtype)) * h
-    else:
-        h = f(h)
-    return h @ params["wo"].to(x.dtype)
+    with _scope(scope):
+        f = ACTIVATIONS[act]
+        with _scope("up_proj"):
+            h = x @ params["wi"].to(x.dtype)
+        if "wg" in params:
+            with _scope("gate_proj"):
+                g = x @ params["wg"].to(x.dtype)
+            h = f(g) * h
+        else:
+            h = f(h)
+        with _scope("down_proj"):
+            return h @ params["wo"].to(x.dtype)

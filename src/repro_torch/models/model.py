@@ -7,7 +7,9 @@ norm and the prefill attention run the hand-written kernels (and, under
 autograd, their hand-written backward kernels), on the CPU their plain
 versions. ``forward`` and ``loss`` follow the caller's autograd mode: the
 trainer differentiates them, the server and ``chip_smoke.py``'s prefill run
-them under ``torch.inference_mode()``.
+them under ``torch.inference_mode()``. ``forward``, ``loss`` and
+``decode_step`` run under the JAX package's scopes ``model``, ``loss`` and
+``decode`` (``core/scope.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.scope import scope
 
 from . import transformer as tfm
 from .modules import (
@@ -143,6 +146,10 @@ class Model:
         M-RoPE, (B,S,3) (temporal, height, width); by default 0..S-1, in each
         of the three streams with M-RoPE. -> (logits (B,S,V), the MoE
         load-balance loss summed over the layers (an f32 0 without an MoE))."""
+        with scope("model"):
+            return self._forward(params, batch)
+
+    def _forward(self, params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         x = self._embed(params, batch)
         positions = batch.get("positions")
         if positions is None:
@@ -151,7 +158,7 @@ class Model:
             if self.cfg.mrope:
                 positions = positions[..., None].expand(B, S, 3)
         x, x_sum, lb = tfm.stack_apply(params["layers"], x, self.cfg, positions)
-        x = rms_norm(params["final_norm"], x if x_sum is None else x_sum).to(x.dtype)
+        x = rms_norm(params["final_norm"], x if x_sum is None else x_sum, scope="final_norm").to(x.dtype)
         return self.logits_fn(params, x), lb
 
     def loss(self, params, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -159,6 +166,10 @@ class Model:
         the JAX package's ``Model.loss``: log-softmax in f32, the mean over
         ``loss_mask`` (all ones when absent) with its sum floored at 1.
         -> (total, {"ce", "z_loss", "lb_loss"}), all 0-d f32 tensors."""
+        with scope("loss"):
+            return self._loss(params, batch)
+
+    def _loss(self, params, batch: dict) -> tuple[torch.Tensor, dict]:
         logits, lb = self.forward(params, batch)
         logits = logits.float()
         nll = -torch.log_softmax(logits, dim=-1).gather(-1, batch["labels"].long()[..., None])[..., 0]
@@ -179,7 +190,8 @@ class Model:
         """One new token for every sequence. batch: {'tokens': (B,1)} or
         {'embeds': (B,1,D)}; pos: int (all three M-RoPE streams take it).
         -> (logits (B,V), state), the state updated in place."""
-        x = self._embed(params, batch)
-        x, x_sum = tfm.stack_decode(params["layers"], x, state, pos, self.cfg)
-        x = rms_norm(params["final_norm"], x if x_sum is None else x_sum).to(x.dtype)
-        return self.logits_fn(params, x)[:, 0], state
+        with scope("decode"):
+            x = self._embed(params, batch)
+            x, x_sum = tfm.stack_decode(params["layers"], x, state, pos, self.cfg)
+            x = rms_norm(params["final_norm"], x if x_sum is None else x_sum, scope="final_norm").to(x.dtype)
+            return self.logits_fn(params, x)[:, 0], state

@@ -4,7 +4,9 @@ Models are plain functions over a params tree (nested dicts of tensors) with
 the JAX package's keys, shapes and einsum layouts, so weights pass between
 the two packages 1:1 (``repro_torch.params``). Each parameter is declared by
 an :class:`ArraySpec`; logical axis names are kept for the later sharding
-slice.
+slice. Module bodies run under the JAX package's ``named_scope`` names
+(``core/scope.py``: a profiler range, entered only while one records), so the
+device tree of a profiled step is keyed as the JAX package's.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.scope import scope as _scope
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -145,10 +148,11 @@ def stack_specs(spec_tree, n: int, axis_name: str = "layers"):
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(params, x: torch.Tensor, *, eps: float = 1e-6, scope: str = "rms_norm") -> torch.Tensor:
     """RMSNorm over the last axis through the fused kernel (its plain version
     on the CPU). x must be contiguous in its last axis."""
-    return ops.fused_rmsnorm(x, params["scale"], eps=eps)
+    with _scope(scope):
+        return ops.fused_rmsnorm(x, params["scale"], eps=eps)
 
 
 def rms_norm_spec(dim: int, logical: str = "embed") -> dict:
@@ -286,19 +290,22 @@ def embedding_spec(vocab: int, d_model: int) -> dict:
     return {"table": ArraySpec((vocab, d_model), ("vocab", "embed"), torch.float32, "embed", 0.02)}
 
 
-def embed(params, tokens: torch.Tensor) -> torch.Tensor:
+def embed(params, tokens: torch.Tensor, *, scope: str = "embed") -> torch.Tensor:
     # F.embedding, not indexing: on the card its backward sums repeated tokens
     # in a fixed order, where indexing's accumulates with atomics.
-    return F.embedding(tokens, params["table"])
+    with _scope(scope):
+        return F.embedding(tokens, params["table"])
 
 
-def unembed(params, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["table"].to(x.dtype).T
+def unembed(params, x: torch.Tensor, *, scope: str = "lm_head") -> torch.Tensor:
+    with _scope(scope):
+        return x @ params["table"].to(x.dtype).T
 
 
 def lm_head_spec(vocab: int, d_model: int) -> dict:
     return {"w": ArraySpec((d_model, vocab), ("embed", "vocab"), torch.float32, "normal")}
 
 
-def lm_head(params, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["w"].to(x.dtype)
+def lm_head(params, x: torch.Tensor, *, scope: str = "lm_head") -> torch.Tensor:
+    with _scope(scope):
+        return x @ params["w"].to(x.dtype)

@@ -12,9 +12,9 @@ gating (softmax -> top-k -> renorm), and dispatch with a static capacity:
 4. one batched product per projection runs all experts, (E,C,D) x (E,D,F);
 5. each token adds its K outputs, scaled by its gate weights.
 
-Each step runs under a ``torch.profiler.record_function`` range named after
-the JAX package's scope (``moe/router``, ``moe/dispatch``, ``moe/experts``,
-``moe/combine``, ``moe/shared_experts``, ``moe/aux_loss``), so a profile
+Each step runs under the JAX package's scopes (``core/scope.py``): ``moe``
+around the whole, and inside it ``router`` (with ``top_k``), ``dispatch``,
+``experts``, ``combine``, ``shared_experts`` and ``aux_loss``, so a profile
 gives each its device time.
 
 The JAX package has no Pallas kernel here; neither has the port. The expert
@@ -35,7 +35,8 @@ order, ascending expert id, each add rounded to bf16: so does the port.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
+
+from repro_torch.core.scope import scope as _scope
 
 from .mlp import mlp, mlp_spec
 from .modules import ACTIVATIONS, ArraySpec, dtype_const
@@ -66,10 +67,12 @@ def route(params, xt: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor, to
     f32 activations against a router the scan stores in bf16. The top k are
     the first K of a stable descending sort: among equal probabilities the
     lower expert id comes first, as ``jax.lax.top_k`` gives them."""
-    probs = torch.softmax(xt.float() @ params["router"]["w"].float(), dim=-1)
-    top = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_w, gate_ids = top.values[:, : cfg.top_k], top.indices[:, : cfg.top_k]
-    return probs, gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9), gate_ids
+    with _scope("router"):
+        probs = torch.softmax(xt.float() @ params["router"]["w"].float(), dim=-1)
+        with _scope("top_k"):
+            top = torch.sort(probs, dim=-1, descending=True, stable=True)
+            gate_w, gate_ids = top.values[:, : cfg.top_k], top.indices[:, : cfg.top_k]
+            return probs, gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9), gate_ids
 
 
 def _add_in_order(contrib: torch.Tensor) -> torch.Tensor:
@@ -82,9 +85,14 @@ def _add_in_order(contrib: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def moe(params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
+def moe(params, x: torch.Tensor, cfg, *, scope: str = "moe") -> tuple[torch.Tensor, dict]:
     """x: (B, S, D) -> (B, S, D), aux {"lb_loss", "dropped_frac",
     "expert_frac"} as the JAX package's ``moe`` returns them."""
+    with _scope(scope):
+        return _moe(params, x, cfg)
+
+
+def _moe(params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
@@ -92,10 +100,9 @@ def moe(params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
     dev = x.device
     f = ACTIVATIONS[cfg.act]
     xt = x.reshape(T, D)
-    with record_function("moe/router"):
-        probs, gate_w, gate_ids = route(params, xt, cfg)
+    probs, gate_w, gate_ids = route(params, xt, cfg)
 
-    with record_function("moe/dispatch"):
+    with _scope("dispatch"):
         # slots (t, k) flattened as t*K + k, sorted by expert id (stable)
         flat_ids = gate_ids.reshape(-1)
         order = torch.sort(flat_ids, stable=True).indices  # sorted position -> flat slot
@@ -115,12 +122,12 @@ def moe(params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
         buf = xt[:, None, :].expand(T, K, D)[src // K, src % K]
         buf = buf.masked_fill(~filled[..., None], 0)
 
-    with record_function("moe/experts"):
+    with _scope("experts"):
         h = torch.bmm(buf, params["wi"].to(x.dtype))
         g = torch.bmm(buf, params["wg"].to(x.dtype))
         y_e = torch.bmm(f(g) * h, params["wo"].to(x.dtype)).reshape(E * C, D)
 
-    with record_function("moe/combine"):
+    with _scope("combine"):
         # each token's K slots in ascending expert id (the JAX scatter's order:
         # the sorted slots), gathered back through the inverse of ``order``
         inverse = torch.empty_like(order)
@@ -133,10 +140,9 @@ def moe(params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
         gathered = y_e[slot.clamp_max(E * C - 1)].masked_fill(~kept[..., None], 0)  # (T, K, D)
         y = _add_in_order(gathered * w[..., None])
     if cfg.n_shared_experts:
-        with record_function("moe/shared_experts"):
-            y = y + mlp(params["shared"], xt, act=cfg.act)
+        y = y + mlp(params["shared"], xt, act=cfg.act, scope="shared_experts")
 
-    with record_function("moe/aux_loss"):
+    with _scope("aux_loss"):
         # Switch-style load balancing: E * sum_e fraction_e * prob_e; the
         # fractions come from counts and carry no gradient. Compiled, the JAX
         # package divides by T*K as a product with its f32 reciprocal, and

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.scope import scope as _scope
 from repro_torch.kernels import ops
 
 from .modules import ACTIVATIONS, ArraySpec
@@ -59,35 +60,39 @@ def _gates(params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
     The products are f32 by f32 (``allow_tf32`` off, PyTorch's default for
     matmuls), as the JAX package multiplies f32 activations by the weights."""
-    xf = x.float()
-    r = torch.sigmoid(xf @ params["wa"].float() + params["ba"])
-    i = torch.sigmoid(xf @ params["wx"].float() + params["bx"])
-    log_a = -_C * F.softplus(params["lam"]) * r  # <= 0
-    a = torch.exp(log_a)
-    # sqrt(1-a^2) in a numerically safe form
-    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
-    return a, beta * (i * xf)
+    with _scope("gates"):
+        xf = x.float()
+        r = torch.sigmoid(xf @ params["wa"].float() + params["ba"])
+        i = torch.sigmoid(xf @ params["wx"].float() + params["bx"])
+        log_a = -_C * F.softplus(params["lam"]) * r  # <= 0
+        a = torch.exp(log_a)
+        # sqrt(1-a^2) in a numerically safe form
+        beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+        return a, beta * (i * xf)
 
 
-def rglru(params, x: torch.Tensor, *, h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+def rglru(params, x: torch.Tensor, *, h0: torch.Tensor | None = None,
+          scope: str = "rg_lru") -> tuple[torch.Tensor, torch.Tensor]:
     """RG-LRU over the sequence through the scan kernel. x: (B,S,W) ->
     (h in x's dtype, final state (B,W) f32). ``h0`` is folded into the first
     step's input, as the JAX package's XLA branch does."""
-    a, b = _gates(params, x)
-    if h0 is not None:
-        b[:, 0] += a[:, 0] * h0.float()
-    h = ops.rglru_scan(a, b)
-    return h.to(x.dtype), h[:, -1]
+    with _scope(scope):
+        a, b = _gates(params, x)
+        if h0 is not None:
+            b[:, 0] += a[:, 0] * h0.float()
+        h = ops.rglru_scan(a, b)
+        return h.to(x.dtype), h[:, -1]
 
 
 def rglru_step(params, x_t: torch.Tensor, h_prev: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode step. x_t: (B,1,W); h_prev: (B,W) -> (h (B,1,W) in x_t's dtype, h (B,W) f32)."""
-    a, b = _gates(params, x_t)
-    h = a[:, 0] * h_prev.float() + b[:, 0]
-    return h[:, None].to(x_t.dtype), h
+    with _scope("rg_lru"):
+        a, b = _gates(params, x_t)
+        h = a[:, 0] * h_prev.float() + b[:, 0]
+        return h[:, None].to(x_t.dtype), h
 
 
-def causal_conv1d(params, x: torch.Tensor) -> torch.Tensor:
+def causal_conv1d(params, x: torch.Tensor, *, scope: str = "conv1d") -> torch.Tensor:
     """Depthwise causal conv plus bias, width W_c, as the gates read it in the
     JAX package compiled. x: (B,S,W) -> f32 (B,S,W). The shifted
     multiply-adds are rounded op by op in x's dtype (not ``F.conv1d``: cuDNN
@@ -97,30 +102,36 @@ def causal_conv1d(params, x: torch.Tensor) -> torch.Tensor:
     output. At the initial zero bias the two agree; after one train step a
     bias add rounded to bf16 moves the smoke model's block output by ~1 %
     (std-1 gate weights drive some r to ~1e-9, where beta is ill-conditioned)."""
-    w = params["conv_w"].to(x.dtype)  # (Wc, W)
-    Wc, S = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, Wc - 1, 0))
-    y = sum(pad[:, i : i + S] * w[i] for i in range(Wc))
-    return y.float() + params["conv_b"].to(x.dtype).float()
+    with _scope(scope):
+        w = params["conv_w"].to(x.dtype)  # (Wc, W)
+        Wc, S = w.shape[0], x.shape[1]
+        pad = F.pad(x, (0, 0, Wc - 1, 0))
+        y = sum(pad[:, i : i + S] * w[i] for i in range(Wc))
+        return y.float() + params["conv_b"].to(x.dtype).float()
 
 
 def causal_conv1d_step(params, x_t: torch.Tensor, conv_state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode: conv_state holds the last Wc-1 inputs. x_t: (B,1,W) -> (y f32
     (B,1,W), new conv state). The products are summed in f32 and rounded to
     x_t's dtype, the bias added in f32, as :func:`causal_conv1d` adds it."""
-    w = params["conv_w"].to(x_t.dtype)
-    window = torch.cat([conv_state, x_t], dim=1)  # (B, Wc, W)
-    y = (window.float() * w.float()).sum(dim=1).to(x_t.dtype)[:, None]
-    return y.float() + params["conv_b"].to(x_t.dtype).float(), window[:, 1:]
+    with _scope("conv1d"):
+        w = params["conv_w"].to(x_t.dtype)
+        window = torch.cat([conv_state, x_t], dim=1)  # (B, Wc, W)
+        y = (window.float() * w.float()).sum(dim=1).to(x_t.dtype)[:, None]
+        return y.float() + params["conv_b"].to(x_t.dtype).float(), window[:, 1:]
 
 
-def recurrent_block(params, x: torch.Tensor, cfg) -> torch.Tensor:
+def recurrent_block(params, x: torch.Tensor, cfg, *, scope: str = "recurrent_block") -> torch.Tensor:
     """Full Griffin temporal-mixing block (prefill). x: (B,S,D)."""
-    xb = x @ params["in_x"]["w"].to(x.dtype)
-    gb = x @ params["in_gate"]["w"].to(x.dtype)
-    h, _ = rglru(params["lru"], causal_conv1d(params, xb))
-    y = h.to(x.dtype) * ACTIVATIONS["gelu"](gb)
-    return y @ params["out"]["w"].to(x.dtype)
+    with _scope(scope):
+        with _scope("in_proj"):
+            xb = x @ params["in_x"]["w"].to(x.dtype)
+            gb = x @ params["in_gate"]["w"].to(x.dtype)
+        h, _ = rglru(params["lru"], causal_conv1d(params, xb))
+        with _scope("gate"):
+            y = h.to(x.dtype) * ACTIVATIONS["gelu"](gb)
+        with _scope("out_proj"):
+            return y @ params["out"]["w"].to(x.dtype)
 
 
 def init_recurrent_state(cfg, batch: int, device) -> dict:
@@ -133,16 +144,21 @@ def init_recurrent_state(cfg, batch: int, device) -> dict:
     }
 
 
-def recurrent_block_step(params, x_t: torch.Tensor, state: dict, cfg) -> tuple[torch.Tensor, dict]:
+def recurrent_block_step(params, x_t: torch.Tensor, state: dict, cfg, *,
+                         scope: str = "recurrent_block") -> tuple[torch.Tensor, dict]:
     """Decode step, O(1) in sequence length. x_t: (B,1,D). Returns (y, state);
     the state's ``conv`` and ``h`` are overwritten in place (the JAX package
     returns new arrays instead)."""
-    xb = x_t @ params["in_x"]["w"].to(x_t.dtype)
-    gb = x_t @ params["in_gate"]["w"].to(x_t.dtype)
-    xc, conv = causal_conv1d_step(params, xb, state["conv"])
-    h_seq, h = rglru_step(params["lru"], xc, state["h"])
-    y = h_seq.to(x_t.dtype) * ACTIVATIONS["gelu"](gb)
-    out = y @ params["out"]["w"].to(x_t.dtype)
-    state["conv"].copy_(conv)
-    state["h"].copy_(h)
-    return out, state
+    with _scope(scope):
+        with _scope("in_proj"):
+            xb = x_t @ params["in_x"]["w"].to(x_t.dtype)
+            gb = x_t @ params["in_gate"]["w"].to(x_t.dtype)
+        xc, conv = causal_conv1d_step(params, xb, state["conv"])
+        h_seq, h = rglru_step(params["lru"], xc, state["h"])
+        with _scope("gate"):
+            y = h_seq.to(x_t.dtype) * ACTIVATIONS["gelu"](gb)
+        with _scope("out_proj"):
+            out = y @ params["out"]["w"].to(x_t.dtype)
+        state["conv"].copy_(conv)
+        state["h"].copy_(h)
+        return out, state

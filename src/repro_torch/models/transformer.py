@@ -14,6 +14,12 @@ recomputes the rest in the backward pass, ``"dots"`` stores the outputs of
 the matrix products (``aten.mm``: the counterpart of
 ``dots_with_no_batch_dims_saveable``: the router's product is saved, the
 experts' batched products, ``aten.bmm``, are not) and recomputes the rest.
+
+Scopes are the JAX package's: ``layer{i}`` for a prefix or remainder layer,
+``layers`` around the stacked units and ``unit_block{j}_{kind}`` /
+``block{j}`` for each block of a unit; a checkpointed unit runs under
+``checkpoint``, the name the JAX package's remat gives its backward
+(``core/device_tree.py`` drops it from the forward, as the JAX tree has it).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import Any
 
 import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
+
+from repro_torch.core.scope import scope as _scope
 
 from . import attention as attn_mod
 from . import rglru as rec_mod
@@ -76,43 +84,47 @@ def block_spec(cfg, kind: str, ffn: str) -> dict:
 
 
 def block_apply(
-    params, x: torch.Tensor, cfg, kind: str, ffn: str, positions: torch.Tensor, x_sum: torch.Tensor | None = None
+    params, x: torch.Tensor, cfg, kind: str, ffn: str, positions: torch.Tensor, x_sum: torch.Tensor | None = None,
+    *, scope: str = "block",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """One residual block (prefill). ``x_sum`` is x before its rounding to
     bf16, where the previous block's residual sum reaches this block's norm
     unrounded (see :func:`stack_apply`). Returns (x, x_sum) for the next
     block and the MoE load-balance loss (None without an MoE)."""
     _check_kind(kind)
-    h = rms_norm(params["norm1"], x if x_sum is None else x_sum).to(x.dtype)
-    if kind == "attn":
-        y = attn_mod.attention(params["attn"], h, cfg, positions, window=cfg.window)
-    elif kind == "rec":
-        y = rec_mod.recurrent_block(params["rec"], h, cfg)
-    elif kind == "slstm":
-        y, _ = xlstm_mod.slstm(params["slstm"], h, cfg)
-    else:
-        y, _ = xlstm_mod.mlstm(params["mlstm"], h, cfg)
-    return _residual_ffn(params, x, y, cfg, ffn)
+    with _scope(scope):
+        h = rms_norm(params["norm1"], x if x_sum is None else x_sum, scope="pre_norm").to(x.dtype)
+        if kind == "attn":
+            y = attn_mod.attention(params["attn"], h, cfg, positions, window=cfg.window)
+        elif kind == "rec":
+            y = rec_mod.recurrent_block(params["rec"], h, cfg)
+        elif kind == "slstm":
+            y, _ = xlstm_mod.slstm(params["slstm"], h, cfg)
+        else:
+            y, _ = xlstm_mod.mlstm(params["mlstm"], h, cfg)
+        return _residual_ffn(params, x, y, cfg, ffn)
 
 
 def block_decode(
-    params, x: torch.Tensor, state, pos: int, cfg, kind: str, ffn: str, x_sum: torch.Tensor | None = None
+    params, x: torch.Tensor, state, pos: int, cfg, kind: str, ffn: str, x_sum: torch.Tensor | None = None,
+    *, scope: str = "block",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One residual block, single-token decode, as :func:`block_apply`
     (-> (x, x_sum)). The layer's state (KV cache; conv window and h; the
     xLSTM cell's) is updated in place. An MoE routes the B tokens of the step
     as one batch."""
     _check_kind(kind)
-    h = rms_norm(params["norm1"], x if x_sum is None else x_sum).to(x.dtype)
-    if kind == "attn":
-        y, _ = attn_mod.decode_attention(params["attn"], h, state, pos, cfg, window=cfg.window)
-    elif kind == "rec":
-        y, _ = rec_mod.recurrent_block_step(params["rec"], h, state, cfg)
-    elif kind == "slstm":
-        y, _ = xlstm_mod.slstm_step(params["slstm"], h, state, cfg)
-    else:
-        y, _ = xlstm_mod.mlstm_step(params["mlstm"], h, state, cfg)
-    return _residual_ffn(params, x, y, cfg, ffn)[:2]
+    with _scope(scope):
+        h = rms_norm(params["norm1"], x if x_sum is None else x_sum, scope="pre_norm").to(x.dtype)
+        if kind == "attn":
+            y, _ = attn_mod.decode_attention(params["attn"], h, state, pos, cfg, window=cfg.window)
+        elif kind == "rec":
+            y, _ = rec_mod.recurrent_block_step(params["rec"], h, state, cfg)
+        elif kind == "slstm":
+            y, _ = xlstm_mod.slstm_step(params["slstm"], h, state, cfg)
+        else:
+            y, _ = xlstm_mod.mlstm_step(params["mlstm"], h, state, cfg)
+        return _residual_ffn(params, x, y, cfg, ffn)[:2]
 
 
 def _residual_ffn(
@@ -130,9 +142,9 @@ def _residual_ffn(
     x = s.to(x.dtype)
     lb = None
     if ffn in ("mlp", "dense_mlp"):
-        y = mlp(params["mlp"], rms_norm(params["norm2"], s).to(x.dtype), act=cfg.act)
+        y = mlp(params["mlp"], rms_norm(params["norm2"], s, scope="pre_mlp_norm").to(x.dtype), act=cfg.act)
     elif ffn == "moe":
-        y, aux = moe(params["moe"], rms_norm(params["norm2"], s).to(x.dtype), cfg)
+        y, aux = moe(params["moe"], rms_norm(params["norm2"], s, scope="pre_moe_norm").to(x.dtype), cfg)
         lb = aux["lb_loss"]
     else:
         return x, s, lb
@@ -215,8 +227,9 @@ def _unit_apply(scan_params, u: int, x: torch.Tensor, cfg, positions: torch.Tens
     unit_params = _unit(scan_params, u)
     x_sum, lb = None, None
     for j, kind in enumerate(lay.unit_kinds):
-        x, x_sum, block_lb = block_apply(unit_params[f"block{j}"], x, cfg, kind,
-                                         _ffn_kind(cfg, cfg.first_dense + j), positions, x_sum)
+        with _scope(f"unit_block{j}_{kind}"):
+            x, x_sum, block_lb = block_apply(unit_params[f"block{j}"], x, cfg, kind,
+                                             _ffn_kind(cfg, cfg.first_dense + j), positions, x_sum, scope=f"block{j}")
         lb = _add_lb(lb, block_lb)
     return x, x_sum, lb
 
@@ -265,17 +278,22 @@ def stack_apply(
     x_sum, lb = None, None
     for i in lay.prefix:
         x, x_sum, block_lb = block_apply(params["prefix"][f"layer{i}"], x, cfg, layer_kind(cfg, i),
-                                         _ffn_kind(cfg, i), positions, x_sum)
+                                         _ffn_kind(cfg, i), positions, x_sum, scope=f"layer{i}")
         lb = _add_lb(lb, block_lb)
-    run_unit = (_remat(cfg.remat) if torch.is_grad_enabled() else None) or _unit_apply
-    for u in range(lay.n_units):
-        x, x_sum, unit_lb = run_unit(params["scan"], u, x, cfg, positions)
-        lb = _add_lb(lb, unit_lb)
+    remat = _remat(cfg.remat) if torch.is_grad_enabled() else None
+    with _scope("layers"):
+        for u in range(lay.n_units):
+            if remat is None:
+                x, x_sum, unit_lb = _unit_apply(params["scan"], u, x, cfg, positions)
+            else:
+                with _scope("checkpoint"):
+                    x, x_sum, unit_lb = remat(params["scan"], u, x, cfg, positions)
+            lb = _add_lb(lb, unit_lb)
     if lay.n_units:
         x_sum = None
     for i in lay.remainder:
         x, x_sum, block_lb = block_apply(params["remainder"][f"layer{i}"], x, cfg, layer_kind(cfg, i),
-                                         _ffn_kind(cfg, i), positions, x_sum)
+                                         _ffn_kind(cfg, i), positions, x_sum, scope=f"layer{i}")
         lb = _add_lb(lb, block_lb)
     return x, x_sum, torch.zeros((), device=x.device) if lb is None else lb
 
@@ -289,21 +307,23 @@ def stack_decode(params, x: torch.Tensor, states, pos: int, cfg) -> tuple[torch.
     for i in lay.prefix:
         key = f"layer{i}"
         x, x_sum = block_decode(params["prefix"][key], x, states["prefix"][key], pos, cfg, layer_kind(cfg, i),
-                                _ffn_kind(cfg, i), x_sum)
-    for u in range(lay.n_units):
-        unit_params = _unit(params["scan"], u)
-        x_sum = None
-        for j, kind in enumerate(lay.unit_kinds):
-            key = f"block{j}"
-            unit_state = {name: t[u] for name, t in states["scan"][key].items()}  # views into the stacked state
-            x, x_sum = block_decode(unit_params[key], x, unit_state, pos, cfg, kind,
-                                    _ffn_kind(cfg, cfg.first_dense + j), x_sum)
+                                _ffn_kind(cfg, i), x_sum, scope=key)
+    with _scope("layers"):
+        for u in range(lay.n_units):
+            unit_params = _unit(params["scan"], u)
+            x_sum = None
+            for j, kind in enumerate(lay.unit_kinds):
+                key = f"block{j}"
+                unit_state = {name: t[u] for name, t in states["scan"][key].items()}  # views into the stacked state
+                with _scope(f"unit_block{j}_{kind}"):
+                    x, x_sum = block_decode(unit_params[key], x, unit_state, pos, cfg, kind,
+                                            _ffn_kind(cfg, cfg.first_dense + j), x_sum, scope=key)
     if lay.n_units:
         x_sum = None
     for i in lay.remainder:
         key = f"layer{i}"
         x, x_sum = block_decode(params["remainder"][key], x, states["remainder"][key], pos, cfg, layer_kind(cfg, i),
-                                _ffn_kind(cfg, i), x_sum)
+                                _ffn_kind(cfg, i), x_sum, scope=key)
     return x, x_sum
 
 

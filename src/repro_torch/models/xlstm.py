@@ -15,10 +15,12 @@ exponents run in f32, with log-sigmoid forget gates (log f <= 0) and the
 input-gate exponent capped at ``_ICAP``. Decode is the O(1) recurrence above.
 
 sLSTM feeds h back into its gates, so it runs step by step: a Python loop
-over time (JAX: ``lax.scan``), each step a handful of small launches. The
-two loops run under ``torch.profiler.record_function`` ranges,
-``slstm/time_loop`` and ``mlstm/chunks``, so a profile can say what they
-cost.
+over time (JAX: ``lax.scan``), each step a handful of small launches. Both
+cells run under the JAX package's scopes (``core/scope.py``): ``slstm`` with
+``in_proj``, ``time_scan`` (the loop) and ``out``; ``mlstm`` with
+``qkv_proj``, ``chunk_scan`` (the loop; each chunk's ``intra``, ``inter``,
+``normalize`` and ``state_update``) and ``out``, so a profile can say what
+the loops cost.
 
 Rounding follows the JAX package compiled: the projections in the bf16
 activation dtype, the gate products and both cells' recurrences in f32 on
@@ -36,8 +38,9 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.scope import scope as _scope
 
 from .modules import ArraySpec, dtype_const, project_heads, rms_norm, rms_norm_spec, sigmoid
 
@@ -83,38 +86,50 @@ def _mlstm_chunk(C, n, q, k, v, li, lf):
     # where E_ij may overflow exp: mask before exp, so its gradient is 0 there
     E = cumf[:, :, None] - cumf[:, None, :] + li[:, None, :]  # (B,L,L,H)
     above = ~torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
-    w = torch.exp(E.masked_fill(above[None, :, :, None], -math.inf))
-    s = torch.einsum("blhk,bmhk->blmh", q, k) * w
-    num_intra = torch.einsum("blmh,bmhk->blhk", s, v)
-    den_vec = torch.einsum("blmh,bmhk->blhk", w, k)
-    den_intra = torch.einsum("blhk,blhk->blh", q, den_vec)
-    decay = torch.exp(cumf)
-    num_inter = torch.einsum("blhk,bhkv->blhv", q, C) * decay[..., None]
-    den_inter = torch.einsum("blhk,bhk->blh", q, n) * decay
-    den = torch.abs(den_intra + den_inter)
-    h = (num_intra + num_inter) / torch.clamp(den, min=1.0)[..., None]
-    decay_end = torch.exp(cumf[:, -1])  # (B,H)
-    wj = torch.exp(cumf[:, -1:] - cumf + li)  # (B,L,H), exponents <= _ICAP
-    C_new = decay_end[..., None, None] * C + torch.einsum("blhk,blhv->bhkv", wj[..., None] * k, v)
-    n_new = decay_end[..., None] * n + torch.einsum("blh,blhk->bhk", wj, k)
+    with _scope("intra"):
+        w = torch.exp(E.masked_fill(above[None, :, :, None], -math.inf))
+        s = torch.einsum("blhk,bmhk->blmh", q, k) * w
+        num_intra = torch.einsum("blmh,bmhk->blhk", s, v)
+        den_vec = torch.einsum("blmh,bmhk->blhk", w, k)
+        den_intra = torch.einsum("blhk,blhk->blh", q, den_vec)
+    with _scope("inter"):
+        decay = torch.exp(cumf)
+        num_inter = torch.einsum("blhk,bhkv->blhv", q, C) * decay[..., None]
+        den_inter = torch.einsum("blhk,bhk->blh", q, n) * decay
+    with _scope("normalize"):
+        den = torch.abs(den_intra + den_inter)
+        h = (num_intra + num_inter) / torch.clamp(den, min=1.0)[..., None]
+    with _scope("state_update"):
+        decay_end = torch.exp(cumf[:, -1])  # (B,H)
+        wj = torch.exp(cumf[:, -1:] - cumf + li)  # (B,L,H), exponents <= _ICAP
+        C_new = decay_end[..., None, None] * C + torch.einsum("blhk,blhv->bhkv", wj[..., None] * k, v)
+        n_new = decay_end[..., None] * n + torch.einsum("blh,blhk->bhk", wj, k)
     return C_new, n_new, h
 
 
-def mlstm(params, x: torch.Tensor, cfg, *, state: dict | None = None) -> tuple[torch.Tensor, dict]:
+def mlstm(params, x: torch.Tensor, cfg, *, state: dict | None = None,
+          scope: str = "mlstm") -> tuple[torch.Tensor, dict]:
     """Chunkwise-parallel mLSTM. x: (B,S,D) -> (y (B,S,D), {"C", "n"} f32).
 
-    Where autograd records, each chunk runs under ``torch.utils.checkpoint``,
-    as the JAX package checkpoints its chunk body: the (B,L,L,H) intra-chunk
-    weights are recomputed in the backward pass, not saved once per chunk."""
+    Where autograd records, each chunk runs under ``torch.utils.checkpoint``
+    (and the ``checkpoint`` scope), as the JAX package checkpoints its chunk
+    body: the (B,L,L,H) intra-chunk weights are recomputed in the backward
+    pass, not saved once per chunk."""
+    with _scope(scope):
+        return _mlstm(params, x, cfg, state)
+
+
+def _mlstm(params, x: torch.Tensor, cfg, state: dict | None) -> tuple[torch.Tensor, dict]:
     B, S, D = x.shape
     H = cfg.n_heads
     hd = D // H
     L = min(cfg.chunk, S)
     assert S % L == 0, f"seq {S} must be divisible by chunk {L}"
-    # JAX multiplies the bf16 product by the scale rounded to bf16
-    q = project_heads(x, params["wq"]) * dtype_const(1.0 / math.sqrt(hd), x.dtype)
-    k = project_heads(x, params["wk"])
-    v = project_heads(x, params["wv"])
+    with _scope("qkv_proj"):
+        # JAX multiplies the bf16 product by the scale rounded to bf16
+        q = project_heads(x, params["wq"]) * dtype_const(1.0 / math.sqrt(hd), x.dtype)
+        k = project_heads(x, params["wk"])
+        v = project_heads(x, params["wv"])
     log_i, log_f = _mlstm_gates(params, x)
     if state is None:
         C = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
@@ -123,21 +138,31 @@ def mlstm(params, x: torch.Tensor, cfg, *, state: dict | None = None) -> tuple[t
         C, n = state["C"], state["n"]
     records = torch.is_grad_enabled()
     hs = []
-    with record_function("mlstm/chunks"):
+    with _scope("chunk_scan"):
         for c in range(S // L):
             t = slice(c * L, (c + 1) * L)
             args = (C, n, q[:, t].float(), k[:, t].float(), v[:, t].float(), log_i[:, t], log_f[:, t])
-            C, n, h = checkpoint(_mlstm_chunk, *args, use_reentrant=False) if records else _mlstm_chunk(*args)
+            if records:
+                with _scope("checkpoint"):
+                    C, n, h = checkpoint(_mlstm_chunk, *args, use_reentrant=False)
+            else:
+                C, n, h = _mlstm_chunk(*args)
             hs.append(h)
     h = torch.cat(hs, dim=1).reshape(B, S, D).to(x.dtype)
-    og = sigmoid(x @ params["wo_gate"].to(x.dtype))
-    h = rms_norm(params["out_norm"], h) * og
-    return h @ params["wo"].to(x.dtype), {"C": C, "n": n}
+    with _scope("out"):
+        og = sigmoid(x @ params["wo_gate"].to(x.dtype))
+        h = rms_norm(params["out_norm"], h, scope="out_norm") * og
+        return h @ params["wo"].to(x.dtype), {"C": C, "n": n}
 
 
-def mlstm_step(params, x_t: torch.Tensor, state: dict, cfg) -> tuple[torch.Tensor, dict]:
+def mlstm_step(params, x_t: torch.Tensor, state: dict, cfg, *, scope: str = "mlstm") -> tuple[torch.Tensor, dict]:
     """O(1) decode step. x_t: (B,1,D) -> (y, state); the state's C and n are
     overwritten in place (the JAX package returns new arrays instead)."""
+    with _scope(scope):
+        return _mlstm_step(params, x_t, state, cfg)
+
+
+def _mlstm_step(params, x_t: torch.Tensor, state: dict, cfg) -> tuple[torch.Tensor, dict]:
     B, _, D = x_t.shape
     H = cfg.n_heads
     scale = 1.0 / math.sqrt(D // H)  # an f32 product here, as in JAX's step
@@ -152,7 +177,7 @@ def mlstm_step(params, x_t: torch.Tensor, state: dict, cfg) -> tuple[torch.Tenso
     den = torch.abs(torch.einsum("bhk,bhk->bh", n, q))
     h = (num / torch.clamp(den, min=1.0)[..., None]).reshape(B, 1, D).to(x_t.dtype)
     og = sigmoid(x_t @ params["wo_gate"].to(x_t.dtype))
-    h = rms_norm(params["out_norm"], h) * og
+    h = rms_norm(params["out_norm"], h, scope="out_norm") * og
     state["C"].copy_(C)
     state["n"].copy_(n)
     return h @ params["wo"].to(x_t.dtype), state
@@ -185,15 +210,22 @@ def slstm_spec(cfg) -> dict:
     }
 
 
-def slstm(params, x: torch.Tensor, cfg, *, state: dict | None = None) -> tuple[torch.Tensor, dict]:
+def slstm(params, x: torch.Tensor, cfg, *, state: dict | None = None,
+          scope: str = "slstm") -> tuple[torch.Tensor, dict]:
     """Sequential sLSTM over time. x: (B,S,D) -> (y (B,S,D), {"h", "c", "n",
     "m"} f32 (B,H,hd)). The stabilizer ``m`` keeps both exponents <= 0; the
     input gate is capped at ``_ICAP`` inside the ``max`` and the ``exp``, as
     in the JAX package. A new state is returned; ``state`` is not written."""
+    with _scope(scope):
+        return _slstm(params, x, cfg, state)
+
+
+def _slstm(params, x: torch.Tensor, cfg, state: dict | None) -> tuple[torch.Tensor, dict]:
     B, S, D = x.shape
     H = cfg.n_heads
     hd = D // H
-    gx = (x.float() @ params["wx"].float().reshape(D, 4 * H * hd)).view(B, S, 4, H, hd)
+    with _scope("in_proj"):
+        gx = (x.float() @ params["wx"].float().reshape(D, 4 * H * hd)).view(B, S, 4, H, hd)
     if state is None:
         state = init_slstm_state(cfg, B, x.device)
     h, c, n, m = state["h"], state["c"], state["n"], state["m"]
@@ -203,7 +235,7 @@ def slstm(params, x: torch.Tensor, cfg, *, state: dict | None = None) -> tuple[t
     r = params["r"].permute(1, 2, 0, 3).reshape(H, hd, 4 * hd)
     b = params["b"]
     hs = []
-    with record_function("slstm/time_loop"):
+    with _scope("time_scan"):
         for t in range(S):
             rec = torch.bmm(h.transpose(0, 1), r.float()).view(H, B, 4, hd).permute(1, 2, 0, 3) + b.float()
             g = gx[:, t] + rec  # (B,4,H,hd)
@@ -219,14 +251,15 @@ def slstm(params, x: torch.Tensor, cfg, *, state: dict | None = None) -> tuple[t
             m = m_new
             hs.append(h)
     y = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
-    y = rms_norm(params["out_norm"], y)
-    return y @ params["wo"].to(x.dtype), {"h": h, "c": c, "n": n, "m": m}
+    with _scope("out"):
+        y = rms_norm(params["out_norm"], y, scope="out_norm")
+        return y @ params["wo"].to(x.dtype), {"h": h, "c": c, "n": n, "m": m}
 
 
-def slstm_step(params, x_t: torch.Tensor, state: dict, cfg) -> tuple[torch.Tensor, dict]:
+def slstm_step(params, x_t: torch.Tensor, state: dict, cfg, *, scope: str = "slstm") -> tuple[torch.Tensor, dict]:
     """Decode step: :func:`slstm` at S = 1, its new state copied into
     ``state`` in place."""
-    y, new = slstm(params, x_t, cfg, state=state)
+    y, new = slstm(params, x_t, cfg, state=state, scope=scope)
     for name, t in new.items():
         state[name].copy_(t)
     return y, state

@@ -15,6 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core.scope import scope
 from repro_torch.models.modules import tree_leaves, tree_map_with_path
 
 
@@ -57,7 +58,13 @@ def adamw_update(grads, opt_state: dict, params, *, lr: float | torch.Tensor, cf
     """One AdamW step, in place: the leaves of ``params`` and the state's m
     and v are overwritten, the step advanced, and each gradient leaf used as
     scratch (its values are lost). -> (params, opt_state, {"grad_norm",
-    "clip_scale"}), the same objects, metrics as 0-d device tensors."""
+    "clip_scale"}), the same objects, metrics as 0-d device tensors. Runs
+    under the JAX package's ``optimizer`` scope."""
+    with scope("optimizer"):
+        return _adamw_update(grads, opt_state, params, lr, cfg)
+
+
+def _adamw_update(grads, opt_state: dict, params, lr, cfg: AdamWConfig):
     flat_p, flat_g = _leaves(params), _leaves(grads)
     flat_m, flat_v = _leaves(opt_state["m"]), _leaves(opt_state["v"])
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):

@@ -1023,3 +1023,64 @@ def test_moe_smoke_train_step_on_card(card, monkeypatch):
     assert card_run[3] == {"flash_attention": 3, "flash_attention_wgmma": 0, "fused_rmsnorm": 7, "rglru_scan": 0,
                            "rglru_scan_sequential": 0, "flash_attention_bwd": 3, "flash_attention_bwd_wgmma": 0,
                            "flash_attention_bwd_mma": 0, "fused_rmsnorm_bwd": 7, "rglru_scan_bwd": 0}
+
+
+def _device_plane_step(card, arch: str, remat: str | None = None):
+    """One qwen3-4b smoke train step (B 2 x S 32) on the card after a warm-up
+    step, profiled -> (its device tree, the profile)."""
+    from repro_torch.benchmarks.fig08_11_breakdown import train_batch
+    from repro_torch.core.device_tree import build_device_tree, profiling
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+
+    cfg = get_config(arch, smoke=True)
+    if remat:
+        cfg = dataclasses.replace(cfg, remat=remat)
+    model = Model(cfg, device=card)
+    params = model.init(train=True)
+    opt = adamw_init(params)
+    step = make_train_step(model, cosine_schedule(1e-3), AdamWConfig())
+    step(params, opt, train_batch(cfg, 2, 32, card))
+    with profiling(card) as prof:
+        step(params, opt, train_batch(cfg, 2, 32, card, seed=1))
+    return build_device_tree(prof), prof
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [None, "full"])
+def test_device_tree_has_the_flash_backward_under_the_backward_branch(card, remat):
+    """The backward's kernels, launched by the autograd engine outside the
+    forward's ranges, land under ``transpose(jvp(loss))/.../flash_attention``:
+    the wgmma backward pair, and the forward kernel where the checkpoint
+    reruns it."""
+    tree, _ = _device_plane_step(card, "qwen3-4b", remat)
+    bwd = tree.zoom(lambda n: n == "transpose(jvp(loss))")
+    flash = bwd.zoom(lambda n: n == "flash_attention")
+    assert flash.flatten("kernels").get("kernel:flash_attention_bwd", 0) > 0
+    assert flash.total("device_ms") > 0
+    assert bwd.flatten("kernels").get("kernel:fused_rmsnorm_bwd", 0) > 0
+    fwd = tree.zoom(lambda n: n == "jvp(loss)")
+    assert fwd.flatten("kernels").get("kernel:flash_attention", 0) > 0
+    assert "kernel:flash_attention_bwd" not in fwd.flatten("kernels")
+    if remat:
+        remat_part = bwd.zoom(lambda n: n == "rematted_computation")
+        assert remat_part.flatten("kernels").get("kernel:flash_attention", 0) > 0
+
+
+@pytest.mark.gpu
+def test_device_tree_counts_each_kernel_once(card):
+    """The tree's device ms is the sum of the step's kernel self times, as
+    ``key_averages`` gives them without the ranges' device-side spans: no
+    kernel counted twice through nested ranges, none lost; every node's own
+    device ms sums to the root's."""
+    from torch.autograd import DeviceType
+
+    tree, prof = _device_plane_step(card, "qwen3-4b")
+    ranges = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False) and e.key not in ranges]
+    want_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    assert tree.total("device_ms") == pytest.approx(want_ms, rel=1e-6)
+    assert tree.total("kernels") == sum(e.count for e in kernels)
+    own = sum(n.self_metrics.get("device_ms", 0.0) for _, n in tree.root.walk())
+    assert own == pytest.approx(tree.total("device_ms"), rel=1e-9)

@@ -1,7 +1,9 @@
 """The port's Trainer and its substrate on the CPU: tests/test_train_serve.py's
 TestTrainer cases on ``--device cpu``, tests/test_substrate.py's TestData and
 TestCheckpoint cases against the port's copies (plus the bf16 round trip and
-the data the JAX package's pipeline makes), the CLI, and the host plane."""
+the data the JAX package's pipeline makes), the CLI, the host plane, and the
+device plane the trainer writes (``device_tree.json``) with the gated scopes
+that key it."""
 
 import json
 import os
@@ -19,7 +21,8 @@ except ImportError:  # keep property tests running where hypothesis is absent
     from _hypothesis_fallback import strategies as st
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.core import AnomalyEvent, Rule, SamplerConfig, make_sampler
+from repro_torch.core import AnomalyEvent, Rule, SamplerConfig, load_device_tree, make_sampler
+from repro_torch.core import scope as scope_module
 from repro_torch.data import DataConfig, Pipeline, SyntheticLM
 from repro_torch.launch import steps as steps_module
 from repro_torch.launch.train import Trainer, TrainJobConfig, main
@@ -61,6 +64,47 @@ class TestTrainer:
         assert os.path.exists(tmp_path / "heartbeat")
         # host-plane profile written (the always-on toolchain)
         assert os.path.exists(tmp_path / "host_profile.html")
+
+    def test_profile_writes_a_loadable_device_tree(self, tmp_path, monkeypatch):
+        """With ``profile`` on, the run's second step is profiled and its tree
+        written to out_dir and to ``$REPRO_PROFILERD_OUT``, in the JAX
+        package's schema with its meta; with it off, nothing is written."""
+        daemon_dir = tmp_path / "daemon"
+        monkeypatch.setenv("REPRO_PROFILERD_OUT", str(daemon_dir))
+        Trainer(job(tmp_path / "on", steps=3)).run()
+        for path in (tmp_path / "on" / "device_tree.json", daemon_dir / "device_tree.json"):
+            with open(path) as f:
+                doc = json.load(f)
+            assert doc["schema"] == "repro-device-tree/v1"
+            assert doc["meta"] == {"arch": "qwen3-4b-smoke", "source": "train"}
+            tree = load_device_tree(str(path))
+            assert tree.total("flops") > 0 and tree.total("bytes") > 0
+            assert set(tree.root.children["train_step"].children) >= {"fwd_bwd", "optimizer"}
+            assert set(tree.root.children["train_step"].children["fwd_bwd"].children) >= {
+                "jvp(loss)", "transpose(jvp(loss))"}
+        monkeypatch.delenv("REPRO_PROFILERD_OUT")
+        Trainer(job(tmp_path / "off", steps=3, profile=False)).run()
+        assert not (tmp_path / "off" / "device_tree.json").exists()
+
+    def test_a_one_step_run_profiles_its_step(self, tmp_path):
+        Trainer(job(tmp_path, steps=1)).run()
+        assert load_device_tree(str(tmp_path / "device_tree.json")).total("flops") > 0
+
+    @pytest.mark.parametrize("arch", ["qwen3-4b", "xlstm-125m"])
+    def test_the_profiled_step_is_a_step_of_the_run(self, tmp_path, arch):
+        """The device-plane dump adds no step and keeps the profiled step's
+        result: a job with it and one without reach the same parameters,
+        optimizer state and data position, bit for bit, and the same losses."""
+        a, b = tmp_path / "a", tmp_path / "b"
+        ta = Trainer(job(a, arch=arch, steps=4, ckpt_every=100, profile=True))
+        ta.run()
+        tb = Trainer(job(b, arch=arch, steps=4, ckpt_every=100, profile=False))
+        tb.run()
+        assert (a / "device_tree.json").exists() and not (b / "device_tree.json").exists()
+        assert ta.step == tb.step == 4 and ta.data.next_step == tb.data.next_step == 4
+        for (pa, x), (pb, y) in zip(_flat(ta._state_tree()), _flat(tb._state_tree())):
+            assert pa == pb and np.array_equal(np.asarray(x), np.asarray(y)), pa
+        assert [m["loss"] for m in ta.metrics_log] == [m["loss"] for m in tb.metrics_log]
 
     def test_checkpoint_resume_exact(self, tmp_path):
         t1 = Trainer(job(tmp_path, steps=6))
@@ -360,3 +404,31 @@ def test_sampler_records_this_thread():
     tree = sampler.stop()
     assert tree.total() >= 1
     assert any("test_sampler_records_this_thread" in "/".join(p) for p in tree.shares())
+
+
+def test_scope_enters_no_range_while_no_profiler_records(monkeypatch):
+    """``scope`` is the counterpart of ``jax.named_scope``: a profiler range
+    only while a profiler records, else a shared no-op context; a model's
+    forward enters none without a profiler and one per scope site under one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    entered = []
+    real = scope_module.record_function
+    monkeypatch.setattr(scope_module, "record_function", lambda name: entered.append(name) or real(name))
+    assert not scope_module.recording()
+    assert scope_module.scope("a") is scope_module.scope("b")
+    model = Model(get_config("qwen3-4b", smoke=True), device="cpu")
+    params = model.init()
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    with torch.no_grad():
+        model.forward(params, {"tokens": tokens})
+    assert entered == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert scope_module.recording()
+        with torch.no_grad():
+            model.forward(params, {"tokens": tokens})
+    assert {"model", "layers", "attention", "qkv_proj", "flash_attention", "mlp", "up_proj", "fused_rmsnorm",
+            "final_norm", "lm_head", "embed"} <= set(entered)
