@@ -119,6 +119,21 @@ then the training paths:
               watchdog on: 3 steps and a checkpoint, a second Trainer that resumes
               to 6, a third that runs 6 in one go; parameters and optimizer state
               equal to the bit; heartbeat, metrics.json and host_profile.html;
+   profilerd -- the out-of-process profiling daemon (``profilerd_phase``):
+              ``python -m repro_torch.profilerd attach`` as its own process,
+              then the train CLI at full width (its own job: xlstm-125m, B 8 x
+              S 64, 4 steps) with ``--backend daemon --spool``: both exit 0,
+              status.json done with 0 dropped batches, tree.json's total its
+              ``n_stacks``, the last sealed epoch equal to tree.json and
+              annotated on the H100 from the trainer's device_tree.json
+              (DEVICE_TREE_LOADED), the main thread holding the train step's
+              and the sLSTM loop's frames, no torch or CUDA library mapped in
+              the daemon (its /proc/<pid>/maps read while it runs), every stall
+              resolved; the sLSTM share of the main thread's samples beside its
+              share of the device tree's ms, the roots and their shares, bytes
+              a stack, drain lag; then the serve CLI at qwen3-4b, full, with a
+              daemon it spawns, and the train command on the thread backend
+              (walls printed, unbounded); ~120 s;
 10. train_check -- one train step at the smoke config of qwen3-4b,
               recurrentgemma-9b, deepseek-moe-16b and xlstm-125m through the kernels on the
               card, and the same step through the plain versions on the card and
@@ -159,6 +174,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -1380,6 +1396,196 @@ def trainer_phase(torch, ops, dev) -> dict:
     return counts
 
 
+# The profilerd phase: the train CLI's own job (xlstm-125m at its B 8 x S 64)
+# at full width, profiled by an attached daemon; the serve CLI at qwen3-4b
+# with a daemon it spawns; the train CLI again on the thread backend.
+PROFILERD_TRAIN = ("--full", "--steps", "4", "--no-resume")
+PROFILERD_SERVE = ("--arch", "qwen3-4b", "--full", "--profile", "--backend", "daemon")
+PROFILERD_TIMEOUT_S = 600
+# Libraries the daemon must never map: it imports no torch and touches no card.
+DAEMON_FORBIDDEN_LIBS = ("libtorch", "libc10", "libcuda", "libcudart")
+
+
+def cli_json(stdout: str) -> dict:
+    """The JSON object a train or serve CLI prints last (indented: it starts
+    on a line of its own)."""
+    i = stdout.rfind("\n{\n")
+    return json.loads(stdout[i + 1:] if i >= 0 else stdout)
+
+
+def mapped_files(pid: int) -> set[str]:
+    """The files mapped into process ``pid`` (empty once it has exited)."""
+    try:
+        text = Path(f"/proc/{pid}/maps").read_text()
+    except OSError:
+        return set()
+    return {fields[-1] for fields in (line.split() for line in text.splitlines()) if len(fields) >= 6}
+
+
+def outer_sum(node, name: str, metric: str) -> float:
+    """``metric`` summed over the outermost nodes called ``name`` under ``node``."""
+    if node.name == name:
+        return node.metrics.get(metric, 0.0)
+    return sum(outer_sum(c, name, metric) for c in node.children.values())
+
+
+def run_cli(args: list[str], env: dict, log: Path) -> tuple[int, dict, str]:
+    """``python -m <args>`` to its end: (exit code, the JSON it printed last
+    or {}, its standard output); its standard error goes to ``log``."""
+    with open(log, "w") as err:
+        proc = subprocess.run([sys.executable, "-m", *args], env=env, stdout=subprocess.PIPE, stderr=err,
+                              text=True, timeout=PROFILERD_TIMEOUT_S)
+    try:
+        return proc.returncode, cli_json(proc.stdout), proc.stdout
+    except ValueError:
+        return proc.returncode, {}, proc.stdout
+
+
+def profilerd_phase() -> dict:
+    """The out-of-process profiling daemon on the card: (a) ``python -m
+    repro_torch.profilerd attach`` started first as its own process, then the
+    train CLI at full width (xlstm-125m, B 8 x S 64, 4 steps) with
+    ``--backend daemon --spool``; the daemon's ``/proc/<pid>/maps`` read while
+    it runs; (b) the serve CLI at qwen3-4b, full, with a daemon it spawns;
+    (c) the train command on the thread backend, its wall and tokens/s beside
+    (a)'s, unbounded. Fails unless both processes of (a) exit 0, status.json
+    reads done with 0 dropped batches, tree.json's total equals ``n_stacks``,
+    the last sealed epoch's samples equal tree.json's and carry the H100
+    roofline annotation, events.jsonl holds DEVICE_TREE_LOADED, the main
+    thread holds the train step's frames and the sLSTM loop's, no torch or
+    CUDA library is mapped in the daemon, every stall is followed by a resume
+    or the BYE, no Python ``backward`` frame of the port sits under the main
+    thread, and (b) exits 0 with samples and a daemon that finished.
+    -> the kernel launches of the three runs (their CLIs' ``kernel_launches``)."""
+    from repro_torch.core.calltree import CallTree
+    from repro_torch.core.device_tree import load_device_tree
+    from repro_torch.core.snapshot import TimelineReader
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    launches: dict[str, int] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        spool, train_out = tmp / "train.spool", tmp / "train"
+        d = Path(f"{spool}.d")  # the DaemonBackend's default: the trainer reads the daemon's tree back
+        attach = ["repro_torch.profilerd", "attach", "--spool", str(spool), "--out", str(d),
+                  "--device-tree", str(train_out / "device_tree.json"), "--epoch", "1",
+                  "--max-seconds", str(PROFILERD_TIMEOUT_S)]
+        train = ["repro_torch.launch.train", *PROFILERD_TRAIN, "--backend", "daemon", "--spool", str(spool),
+                 "--out", str(train_out)]
+        t0, wall0 = time.perf_counter(), time.time()
+        mapped: set[str] = set()
+        maps_reads = 0
+        backlog = []  # the daemon's drain lag: bytes in the spool not yet drained, at each poll
+        with open(tmp / "daemon.log", "w") as dlog, open(tmp / "train.out", "w") as tlog, \
+                open(tmp / "train.err", "w") as terr:
+            daemon = subprocess.Popen([sys.executable, "-m", *attach], env=env, stdout=dlog,
+                                      stderr=subprocess.STDOUT)
+            trainer = subprocess.Popen([sys.executable, "-m", *train], env=env, stdout=tlog, stderr=terr)
+            try:
+                while trainer.poll() is None:
+                    if time.perf_counter() - t0 > PROFILERD_TIMEOUT_S:
+                        raise AssertionError("profilerd: the train CLI did not finish in time")
+                    files = mapped_files(daemon.pid)
+                    maps_reads += bool(files)
+                    mapped |= files
+                    with contextlib.suppress(OSError, ValueError):
+                        backlog += [t["backlog_bytes"] for t in
+                                    json.loads((d / "status.json").read_text())["targets"].values()]
+                    time.sleep(0.5)
+                daemon_rc = daemon.wait(timeout=120)
+            finally:
+                for proc in (trainer, daemon):
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+        train_s = time.perf_counter() - t0
+        train_rc = trainer.returncode
+        try:
+            summary = cli_json((tmp / "train.out").read_text())
+        except ValueError:
+            summary = {}
+        status = json.loads((d / "status.json").read_text())
+        tree = CallTree.from_json((d / "tree.json").read_text())
+        events_path = d / "events.jsonl"
+        events = [json.loads(x) for x in events_path.read_text().splitlines() if x.strip()] \
+            if events_path.exists() else []
+        last = TimelineReader(str(d / "timeline")).last()
+        sealed = last[1] if last is not None else CallTree()
+        device = load_device_tree(str(train_out / "device_tree.json"))
+
+        def samples(t) -> dict:
+            return {p: n.metrics["samples"] for p, n in t.root.walk() if n.metrics.get("samples")}
+
+        main = tree.root.children.get("thread::MainThread")
+        main_names = {n.name for _, n in main.walk()} if main is not None else set()
+        main_total = main.metrics.get("samples", 0.0) if main is not None else 0.0
+        stall_events = [{"kind": e["kind"], "at_s": round(e["wall_time"] - wall0, 1)} for e in events
+                        if e["kind"] in ("TARGET_STALLED", "TARGET_RESUMED")]
+        unresolved_stall = bool(stall_events) and stall_events[-1]["kind"] == "TARGET_STALLED" and not status["done"]
+        forbidden = sorted({Path(f).name for f in mapped if any(k in Path(f).name for k in DAEMON_FORBIDDEN_LIBS)})
+        backward = {name: outer_sum(node, "repro::backward", "samples") for name, node in tree.root.children.items()}
+        (target,) = status["targets"].values()
+        a = {
+            "train_rc": train_rc, "daemon_rc": daemon_rc, "seconds": round(train_s, 1),
+            "wall_s": summary.get("wall_s"), "tokens_per_s": summary.get("tokens_per_s"),
+            "profile_daemon": summary.get("profile_daemon"),
+            "status": {k: status.get(k) for k in ("done", "n_stacks", "n_ticks", "dropped_batches", "wire_version",
+                                                   "device_plane", "unknown_stack_refs", "ingest", "timeline")},
+            "bytes_per_stack": target["drained_bytes"] / max(status["n_stacks"], 1),
+            "max_backlog_bytes": max(backlog, default=None), "backlog_polls": len(backlog),
+            "tree_total": tree.total(), "sealed_epoch": last[0].epoch if last is not None else None,
+            "sealed_annotated": any(k.startswith("hlo_") or k == "roofline_occupancy"
+                                    for _, n in sealed.root.walk() for k in n.metrics),
+            "device_tree_loaded": any(e["kind"] == "DEVICE_TREE_LOADED" for e in events),
+            "event_kinds": sorted({e["kind"] for e in events}), "stalls": stall_events,
+            "roots": {name: round(node.metrics.get("samples", 0.0) / max(tree.total(), 1.0), 4)
+                      for name, node in sorted(tree.root.children.items())},
+            "backward_samples_by_root": backward,
+            "slstm_share_of_main_samples": outer_sum(main, "repro::_slstm", "samples") / max(main_total, 1.0)
+            if main is not None else None,
+            "slstm_share_of_device_ms": outer_sum(device.root, "slstm", "device_ms")
+            / max(device.total("device_ms"), 1e-9),
+            "daemon_maps_reads": maps_reads, "daemon_mapped_files": len(mapped), "daemon_forbidden_libs": forbidden,
+        }
+        checks_a = {
+            "exit_codes": train_rc == 0 and daemon_rc == 0,
+            "done_no_drops": bool(status["done"]) and status["dropped_batches"] == 0,
+            "tree_total_is_n_stacks": tree.total() == status["n_stacks"] > 0,
+            "last_epoch_is_tree": last is not None and samples(sealed) == samples(tree),
+            "device_tree_loaded": a["device_tree_loaded"], "epochs_annotated": a["sealed_annotated"],
+            "main_thread_frames": {"repro::train_step", "repro::_slstm"} <= main_names,
+            "no_torch_or_cuda_in_daemon": maps_reads > 0 and not forbidden,
+            "stalls_resolved": not unresolved_stall,
+            "no_backward_frames_under_main": backward.get("thread::MainThread", 0.0) == 0.0,
+        }
+        for name, n in summary.get("kernel_launches", {}).items():
+            launches[name] = launches.get(name, 0) + n
+
+        # (b) the serve CLI, its daemon spawned by the server
+        rc, stats, _ = run_cli(["repro_torch.launch.serve", *PROFILERD_SERVE], env, tmp / "serve.err")
+        pd = stats.get("profile_daemon") or {}
+        b = {"rc": rc, "profile_samples": stats.get("profile_samples"), "requests_done": stats.get("requests_done"),
+             "steps_per_s": stats.get("steps_per_s"), "profile_daemon": pd}
+        checks_b = {"serve": rc == 0 and (stats.get("profile_samples") or 0) > 0 and pd.get("exit_code") == 0
+                    and bool(pd.get("done"))}
+        for name, n in stats.get("kernel_launches", {}).items():
+            launches[name] = launches.get(name, 0) + n
+
+        # (c) the same train command on the thread backend (no bound: host walls spread)
+        rc, thread_summary, _ = run_cli(["repro_torch.launch.train", *PROFILERD_TRAIN, "--backend", "thread",
+                                         "--out", str(tmp / "thread")], env, tmp / "thread.err")
+        c = {"rc": rc, "wall_s": thread_summary.get("wall_s"), "tokens_per_s": thread_summary.get("tokens_per_s")}
+        for name, n in thread_summary.get("kernel_launches", {}).items():
+            launches[name] = launches.get(name, 0) + n
+        checks = {**checks_a, **checks_b, "thread_run": rc == 0}
+        emit("profilerd", train_daemon=a, serve_daemon=b, train_thread=c, checks=checks, launches=launches)
+        if not all(checks.values()):
+            for name in ("daemon.log", "train.err", "serve.err", "thread.err"):
+                print(f"--- {name} (last 3000 bytes) ---\n{(tmp / name).read_text()[-3000:]}", file=sys.stderr)
+            raise AssertionError(f"profilerd: checks failed: {sorted(k for k, v in checks.items() if not v)}")
+    return launches
+
+
 def smoke_batch(torch, cfg) -> dict:
     """A smoke config's train batch on the CPU: 4 x 64 ``SyntheticLM``
     tokens and labels (seed 0); where the config takes embeddings, bf16
@@ -1702,7 +1908,8 @@ def main() -> int:
                 lambda: train_phase(torch, get_config, ops, dev, TRAIN_HYBRID),
                 lambda: train_phase(torch, get_config, ops, dev, TRAIN_MOE),
                 lambda: train_phase(torch, get_config, ops, dev, TRAIN_XLSTM),
-                lambda: trainer_phase(torch, ops, dev)):
+                lambda: trainer_phase(torch, ops, dev),
+                lambda: profilerd_phase()):
         for name, n in run().items():
             launches[name] += n
         torch.cuda.empty_cache()

@@ -67,6 +67,11 @@ forward.
 kernel's own count of flops and bytes (``ops.flash_work`` and its siblings).
 On the CPU the wrappers run their plain versions, whose aten ops are counted
 as any others.
+
+**Imports.** torch is imported inside the functions that build a tree, so
+that :func:`load_device_tree` and :func:`save_device_tree` cost none: the
+profiling daemon loads this artifact in a process that must map neither
+torch nor CUDA.
 """
 
 from __future__ import annotations
@@ -78,10 +83,7 @@ from collections.abc import Callable, Iterator
 from contextlib import contextmanager
 from typing import Any
 
-import torch
-
 from .calltree import CallNode, CallTree
-from .scope import KERNEL_PREFIX, parse_kernel_launch
 
 DEVICE_TREE_SCHEMA = "repro-device-tree/v1"
 
@@ -207,6 +209,8 @@ class _Kernels:
     def __init__(self, events: list, cpu: list, range_names: set[str]):
         from torch.autograd import DeviceType
 
+        from .scope import KERNEL_PREFIX
+
         device = [e for e in events if e.device_type == DeviceType.CUDA and not _is_range(e)
                   and e.name not in range_names and not e.name.startswith(KERNEL_PREFIX)]
         self.total_us = sum(_duration(e) for e in device)
@@ -282,6 +286,8 @@ def _records_autograd(e) -> bool:
 def build_device_tree(prof) -> CallTree:
     """The device-plane tree of a finished ``torch.profiler.profile``."""
     from torch.autograd import DeviceType
+
+    from .scope import KERNEL_PREFIX, parse_kernel_launch
 
     events = list(prof.events())
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
@@ -371,6 +377,7 @@ def profiling(device: str | torch.device) -> Iterator:
     """Within: ``torch.profiler`` records what :func:`build_device_tree`
     reads (shapes, flops, memory; on a CUDA device the card's kernels, the
     block entered and left synchronised). Yields the profile."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.device(device).type == "cuda"

@@ -1,6 +1,6 @@
-"""Standalone HTML/JSON report of a call tree (a copy of ``render_html`` and
-``write_report`` from ``repro.core.report``): nested ``<details>`` elements
-with share bars, plus the raw JSON tree.
+"""Standalone HTML/JSON report of a call tree (a copy of ``render_html``,
+``write_report`` and ``name_shares`` from ``repro.core.report``): nested
+``<details>`` elements with share bars, plus the raw JSON tree.
 """
 
 from __future__ import annotations
@@ -82,3 +82,24 @@ def write_report(tree: CallTree, out_dir: str, name: str, metric: str = SAMPLES)
     with open(paths["json"], "w") as f:
         f.write(tree.to_json(indent=1))
     return paths
+
+
+def name_shares(tree: CallTree, metric: str = SAMPLES, self_only: bool = True) -> dict[str, float]:
+    """Per-function-name share vector, normalized to sum to 1.
+
+    ``self_only=True`` (default for regression checks) attributes each sample
+    to the function it *ended* in, which is the sharp signal: an injected hot
+    loop shows up as its own self-share, not smeared over its whole ancestry.
+    """
+    out: dict[str, float] = {}
+    for _path, node in tree.root.walk():
+        if node is tree.root:
+            continue
+        src = node.self_metrics if self_only else node.metrics
+        v = src.get(metric, 0.0)
+        if v:
+            out[node.name] = out.get(node.name, 0.0) + v
+    total = sum(out.values())
+    if total <= 0:
+        return {}
+    return {k: v / total for k, v in out.items()}

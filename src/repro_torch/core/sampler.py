@@ -1,17 +1,24 @@
-"""Sampling profiler, thread backend (a copy of ``repro.core.sampler``): the
-host plane the trainer runs for the whole job.
+"""Sampling profiler backends (a copy of ``repro.core.sampler``): the host
+plane the trainer and the server run for the whole job. Two backends,
+selected by :attr:`SamplerConfig.backend` and built by :func:`make_sampler`:
 
-:class:`StackSampler` is a dedicated in-process helper thread that every
-``period`` seconds snapshots **every** Python thread's stack via
-``sys._current_frames()``, resolves "symbols" from code objects, classifies
-each frame by origin (``repro``/``torch``/``numpy``/``py``; the port's own
-frames count as ``repro``, as the JAX package's do), merges each sample into
-a :class:`~repro_torch.core.calltree.CallTree` on the fly, records a
-``(t, depth)`` timeline, and optionally samples ``/proc/self`` cpu/rss.
+* ``"thread"`` — :class:`StackSampler`, a dedicated in-process helper thread
+  that every ``period`` seconds snapshots **every** Python thread's stack via
+  ``sys._current_frames()``, resolves "symbols" from code objects, classifies
+  each frame by origin (``repro``/``torch``/``numpy``/``py``; the port's own
+  frames count as ``repro``, as the JAX package's do), merges each sample
+  into a :class:`~repro_torch.core.calltree.CallTree` on the fly, records a
+  ``(t, depth)`` timeline, and optionally samples ``/proc/self`` cpu/rss.
 
-The JAX package's second backend, ``"daemon"`` (a raw-frame publisher drained
-by the out-of-process ``repro.profilerd``), is not ported yet:
-:func:`make_sampler` raises for it (ROADMAP Queue 1 item 7).
+* ``"daemon"`` — :class:`repro_torch.profilerd.agent.DaemonBackend`: the
+  target only publishes **raw, unresolved** frame records into an mmap ring
+  spool; a separate process (``python -m repro_torch.profilerd``), which
+  imports no torch, resolves, classifies, merges, runs the detectors and
+  publishes status and reports.
+
+Symbol resolution and origin-collapse (:func:`frame_symbol`,
+:func:`collapse_stack`) are shared by both backends, so they produce
+identical trees from identical frames.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import threading
 import time
 from dataclasses import dataclass
 from collections.abc import Sequence
+from typing import Protocol, runtime_checkable
 
 from .calltree import CallTree
 
@@ -32,6 +40,14 @@ DEFAULT_PERIOD_S = 0.5
 # (thread, stack)); pathological stack diversity degrades to the uncached
 # path instead of growing target memory without bound.
 PATH_CACHE_CAP = 1 << 16
+
+# Environment seam (the JAX package's names, so one launcher drives either
+# package): when set, jobs built through make_sampler publish to this spool
+# for an external `python -m repro_torch.profilerd` to drain.
+ENV_SPOOL = "REPRO_PROFILERD_SPOOL"
+ENV_PERIOD = "REPRO_PROFILERD_PERIOD"
+# Where the external daemon publishes this target's artifacts.
+ENV_OUT = "REPRO_PROFILERD_OUT"
 
 
 def classify_frame(filename: str) -> str:
@@ -52,10 +68,10 @@ def frame_symbol(frame) -> str:
 
 
 # Threads whose names carry this prefix are profiler infrastructure (helper,
-# watchdog) and are excluded from the capture. The prefix is deliberately
-# narrower than the ``repro-`` convention: workload threads like
-# ``repro-data-prefetch`` and ``repro-ckpt-writer`` are part of the program
-# under observation and must stay visible in profiles.
+# watchdog, agent) and are excluded from every backend's capture. The prefix
+# is deliberately narrower than the ``repro-`` convention: workload threads
+# like ``repro-data-prefetch`` and ``repro-ckpt-writer`` are part of the
+# program under observation and must stay visible in profiles.
 PROFILER_THREAD_PREFIX = "repro-prof"
 
 
@@ -64,7 +80,7 @@ def is_profiler_thread(name: str) -> bool:
 
 
 def open_psutil_process():
-    """The optional /proc rusage handle the sampler reads, or None."""
+    """The optional /proc rusage handle both backends sample, or None."""
     try:
         import psutil
 
@@ -99,19 +115,80 @@ class SamplerConfig:
     collapse_origins: tuple[str, ...] = ()
     record_timeline: bool = True
     record_rusage: bool = True
-    # "thread": in-process helper thread (StackSampler), the only one ported.
+    # -- backend seam ------------------------------------------------------
+    # "thread": in-process helper thread (StackSampler).
+    # "daemon": raw-frame publisher + out-of-process repro_torch.profilerd.
     backend: str = "thread"
+    # Daemon backend: spool file the agent publishes to (default: a temp path).
+    spool_path: str | None = None
+    spool_bytes: int = 4 << 20
+    # Daemon backend: wire protocol the agent emits (2 = stack-interned
+    # STACKDEF/SAMPLE2 records, 1 = per-frame SAMPLE records).
+    wire_version: int = 2
+    # Daemon backend: where the daemon publishes status/tree/report files
+    # (default: "<spool_path>.d").
+    daemon_out: str | None = None
+    # None -> auto: spawn `python -m repro_torch.profilerd` iff no explicit
+    # spool path was given (an explicit spool means an external daemon
+    # attaches).
+    spawn_daemon: bool | None = None
+    # Daemon backend: regional aggregator URL for the spawned daemon's
+    # `attach --push`, which raises until push.py is ported (ROADMAP Queue 1
+    # item 18).
+    push_url: str | None = None
+    push_node: str | None = None
 
 
-def make_sampler(config: SamplerConfig | None = None) -> "StackSampler":
-    """Construct the backend selected by ``config.backend``."""
+@runtime_checkable
+class SamplerBackend(Protocol):
+    """What the train and serve loops and the watchdog require of a backend."""
+
+    def start(self) -> "SamplerBackend": ...
+
+    def stop(self) -> CallTree: ...
+
+    def snapshot(self) -> CallTree: ...
+
+    def sample_now(self) -> None: ...
+
+    def depth_trace(self) -> list[tuple[float, int]]: ...
+
+
+def make_sampler(config: SamplerConfig | None = None) -> SamplerBackend:
+    """Construct the backend selected by ``config.backend``.
+
+    The ``REPRO_PROFILERD_SPOOL`` environment variable overrides the choice to
+    the daemon backend with an externally-managed daemon: a supervisor
+    attaches one profilerd per process without the job's own config knowing.
+    """
     config = config or SamplerConfig()
+    env_spool = os.environ.pop(ENV_SPOOL, None)
+    if env_spool:
+        from dataclasses import replace
+
+        # The override is consumed (popped), not just read: a spool belongs to
+        # exactly one publisher, and grandchild processes inheriting the
+        # variable would recreate the file out from under the daemon's mmap.
+        # REPRO_PROFILERD_OUT is popped too, as the JAX package does, so a
+        # trainer that reads it later finds it gone (ROADMAP Queue 3).
+        period = config.period_s
+        env_period = os.environ.pop(ENV_PERIOD, None)
+        if env_period:
+            try:
+                period = float(env_period)
+            except ValueError:
+                pass
+        env_out = os.environ.pop(ENV_OUT, None)
+        config = replace(
+            config, backend="daemon", spool_path=env_spool, spawn_daemon=False,
+            period_s=period, daemon_out=env_out or config.daemon_out,
+        )
     if config.backend == "thread":
         return StackSampler(config)
     if config.backend == "daemon":
-        raise NotImplementedError(
-            "the daemon sampler backend (repro.profilerd) is not ported yet: ROADMAP Queue 1 item 7"
-        )
+        from repro_torch.profilerd.agent import DaemonBackend
+
+        return DaemonBackend(config)
     raise ValueError(f"unknown sampler backend {config.backend!r} (expected 'thread' or 'daemon')")
 
 

@@ -6,10 +6,13 @@ of the shared batch. All slots decode at one shared position ``pos``, and a
 freed slot's KV rows are reused without a reset, as in the JAX package's
 server (ROADMAP Queue 3). With ``--profile`` the host-plane sampler and a
 dominance watchdog run beside the loop, as in the JAX package's server: a
-stuck decode loop trips the watchdog's hang rule.
+stuck decode loop trips the watchdog's hang rule. ``--backend daemon`` puts
+the sampling in a separate process (``repro_torch.profilerd``): spawned by the
+server, or, with ``--spool``, attached from another shell.
 
 CLI (the smoke config unless ``--full``; the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.serve [--arch gemma-2b] [--full] [--device cuda] [--profile]
+  PYTHONPATH=src python -m repro_torch.launch.serve --profile --backend daemon [--spool /tmp/serve.spool]
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import DominanceDetector, Rule, SamplerConfig, WatchdogLoop, make_sampler
+from repro_torch.kernels import ops
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import Model
+from repro_torch.profilerd.agent import DaemonBackend
 
 
 @dataclass
@@ -161,24 +166,34 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--profile", action="store_true", help="run the host-plane sampler and the watchdog")
     ap.add_argument("--backend", default="thread", choices=("thread", "daemon"),
-                    help="profiler backend (daemon: not ported yet)")
+                    help="profiler backend (daemon = out-of-process repro_torch.profilerd)")
+    ap.add_argument("--spool", default=None,
+                    help="daemon backend: spool path for an externally-attached profilerd")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=not args.full)
     model = Model(cfg, device=args.device)
     reqs = make_requests(cfg.vocab, args.requests, args.max_new)
-    sampler = make_sampler(SamplerConfig(period_s=0.1, backend=args.backend)) if args.profile else None
+    sampler = (
+        make_sampler(SamplerConfig(period_s=0.1, backend=args.backend, spool_path=args.spool))
+        if args.profile
+        else None
+    )
     if sampler:
         watchdog = WatchdogLoop(sampler, DominanceDetector([Rule(threshold=0.95, consecutive=3, min_window_total=8)]),
                                 interval_s=1.0)
         sampler.start()
         watchdog.start()
     server = BatchedServer(model, batch=args.batch, max_len=128)
+    launches0 = ops.launch_counts()
     stats = server.run(reqs)
+    stats["kernel_launches"] = {k: n - launches0[k] for k, n in ops.launch_counts().items()}
     if sampler:
         watchdog.stop()
         stats["profile_samples"] = sampler.stop().total()
         stats["anomalies"] = [e.describe() for e in watchdog.detector.events]
+        if isinstance(sampler, DaemonBackend):
+            stats["profile_daemon"] = sampler.summary()
     print(json.dumps(stats, indent=1))
 
 

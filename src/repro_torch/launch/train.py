@@ -6,7 +6,10 @@ Wires every subsystem together the way a production job would:
 * data pipeline (prefetch thread) -> train step (``launch/steps.py``: the
   loss, autograd through the hand-written backward kernels, in-place AdamW);
 * **host-plane sampler** running for the whole job (zero instrumentation of
-  the step function);
+  the step function): the in-process ``thread`` backend, or the ``daemon``
+  backend, whose agent publishes raw frames to a spool that a separate
+  process (``python -m repro_torch.profilerd``, no torch) drains; the run's
+  summary then reports the daemon (``profile_daemon``);
 * **watchdog**: dominance detector over sampler windows; an anomaly triggers
   warn -> emergency checkpoint, taken at once on the watchdog's thread when
   the training thread is between steps (waiting for data, say), else by the
@@ -24,11 +27,11 @@ Wires every subsystem together the way a production job would:
   port profiles a step the job runs anyway, so no step is added and the
   step's result is kept.
 
-The JAX trainer's daemon sampler backend has no counterpart yet (ROADMAP
-Queue 1 item 7).
-
 CLI (smoke scale by default; the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train [--arch xlstm-125m] --steps 30 [--device cpu]
+  # profiled by an attached daemon (start it first, from another shell):
+  PYTHONPATH=src python -m repro_torch.profilerd attach --spool /tmp/t.spool
+  PYTHONPATH=src python -m repro_torch.launch.train --backend daemon --spool /tmp/t.spool
 """
 
 from __future__ import annotations
@@ -51,9 +54,11 @@ from repro_torch.configs import get_config
 from repro_torch.core import DominanceDetector, Rule, SamplerConfig, WatchdogLoop, make_sampler, write_report
 from repro_torch.core.device_tree import build_device_tree, profiling, save_device_tree
 from repro_torch.data import DataConfig, Pipeline, SyntheticLM
+from repro_torch.kernels import ops
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import Model
 from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+from repro_torch.profilerd.agent import DaemonBackend
 
 
 @dataclass
@@ -71,8 +76,13 @@ class TrainJobConfig:
     out_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_train")
     ckpt_every: int = 20
     profile: bool = True
-    # "thread" = in-process StackSampler, the only backend ported
+    # "thread" = in-process StackSampler; "daemon" = raw-frame agent + external
+    # repro_torch.profilerd process (see src/repro_torch/profilerd/).
     profile_backend: str = "thread"
+    # Daemon backend: explicit spool path means an external
+    # `python -m repro_torch.profilerd attach --spool ...` drains it; when None
+    # a daemon subprocess is spawned automatically.
+    spool_path: str | None = None
     sample_period_s: float = 0.2
     watchdog_threshold: float = 0.95
     # Extra detector rules appended to the defaults (e.g. a pattern-scoped
@@ -106,7 +116,9 @@ class Trainer:
 
         # -- profiling plane (always on) ---------------------------------------
         self.sampler = (
-            make_sampler(SamplerConfig(period_s=job.sample_period_s, backend=job.profile_backend))
+            make_sampler(
+                SamplerConfig(period_s=job.sample_period_s, backend=job.profile_backend, spool_path=job.spool_path)
+            )
             if job.profile
             else None
         )
@@ -246,6 +258,7 @@ class Trainer:
         if self.watchdog:
             self.watchdog.start()
         t0 = time.time()
+        launches0 = ops.launch_counts()
         first = self.step
         try:
             while self.step < self.job.steps:
@@ -290,9 +303,13 @@ class Trainer:
             "final_loss": self.metrics_log[-1]["loss"] if self.metrics_log else None,
             "first_loss": self.metrics_log[0]["loss"] if self.metrics_log else None,
             "anomalies": [e.describe() for e in self.anomalies],
+            # the hand-written kernels' launches in this run, by wrapper
+            "kernel_launches": {k: n - launches0[k] for k, n in ops.launch_counts().items()},
         }
         with open(os.path.join(self.job.out_dir, "metrics.json"), "w") as f:
             json.dump({"summary": summary, "steps": self.metrics_log}, f, indent=1)
+        if isinstance(self.sampler, DaemonBackend):
+            summary["profile_daemon"] = self.sampler.summary()
         if host_tree is not None and host_tree.total() > 0:
             write_report(host_tree, self.job.out_dir, "host_profile")
             summary["host_profile"] = os.path.join(self.job.out_dir, "host_profile.html")
@@ -311,6 +328,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--out", default=TrainJobConfig.out_dir)
     ap.add_argument("--no-resume", action="store_true")
+    ap.add_argument("--backend", default="thread", choices=("thread", "daemon"),
+                    help="profiler backend (daemon = out-of-process repro_torch.profilerd)")
+    ap.add_argument("--spool", default=None,
+                    help="daemon backend: spool path for an externally-attached profilerd")
     args = ap.parse_args(argv)
     job = TrainJobConfig(
         arch=args.arch,
@@ -323,6 +344,8 @@ def main(argv: list[str] | None = None) -> None:
         grad_accum=args.grad_accum,
         out_dir=args.out,
         resume=not args.no_resume,
+        profile_backend=args.backend,
+        spool_path=args.spool,
     )
     summary = Trainer(job).run()
     print(json.dumps(summary, indent=1))

@@ -1084,3 +1084,29 @@ def test_device_tree_counts_each_kernel_once(card):
     assert tree.total("kernels") == sum(e.count for e in kernels)
     own = sum(n.self_metrics.get("device_ms", 0.0) for _, n in tree.root.walk())
     assert own == pytest.approx(tree.total("device_ms"), rel=1e-9)
+
+
+@pytest.mark.gpu
+def test_smoke_trainer_under_the_daemon_backend_on_card(card, tmp_path):
+    """The Trainer at qwen3-4b smoke on the card, profiled by a daemon it
+    spawns after the model is on the card: the daemon exits 0 and done, its
+    tree's total is its status's ``n_stacks``, the host report is written and
+    the run launched the kernels it names in its summary."""
+    import json
+    import os
+
+    from repro_torch.core import CallTree
+    from repro_torch.launch.train import Trainer, TrainJobConfig
+
+    job = TrainJobConfig(arch="qwen3-4b", device="cuda", steps=3, global_batch=4, seq_len=64,
+                         out_dir=str(tmp_path), profile_backend="daemon", sample_period_s=0.05)
+    summary = Trainer(job).run()
+    daemon = summary["profile_daemon"]
+    assert daemon["spawned"] and daemon["exit_code"] == 0 and daemon["done"]
+    with open(os.path.join(daemon["out_dir"], "status.json")) as f:
+        status = json.load(f)
+    with open(os.path.join(daemon["out_dir"], "tree.json")) as f:
+        tree = CallTree.from_json(f.read())
+    assert status["n_stacks"] > 0 and tree.total() == status["n_stacks"]
+    assert os.path.exists(summary["host_profile"])
+    assert summary["kernel_launches"]["flash_attention"] > 0 and summary["kernel_launches"]["fused_rmsnorm_bwd"] > 0

@@ -44,3 +44,26 @@ def test_importing_every_port_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize(
+    "run",
+    [
+        "import repro_torch.profilerd.daemon",
+        "import repro_torch.profilerd, repro_torch.profilerd.agent, repro_torch.profilerd.profiles; "
+        "import repro_torch.core.device_tree, repro_torch.core.planes, repro_torch.core.snapshot",
+        "import runpy; sys.argv = ['profilerd', 'attach', '--help']\n"
+        "try: runpy.run_module('repro_torch.profilerd', run_name='__main__')\n"
+        "except SystemExit as e: assert e.code == 0, e.code",
+    ],
+    ids=["import-daemon", "import-daemon-side", "attach-help"],
+)
+def test_the_profiling_daemon_loads_no_torch(run):
+    """The daemon process (its modules, the agent's, the device tree's loader
+    and ``python -m repro_torch.profilerd attach --help``) loads no torch in a
+    fresh interpreter, so it maps neither torch nor CUDA."""
+    code = f"import sys\n{run}\nprint(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'repro')))\n"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -259,8 +259,19 @@ class TestTrainer:
             assert json.load(f)["summary"]["arch"] == "xlstm-125m-smoke"
 
     def test_daemon_backend_is_not_ported(self, tmp_path):
+        """The daemon backend is ported (the Trainer builds the agent's
+        backend, which spawns ``repro_torch.profilerd``); what is still to
+        port is the daemon's push plane, which raises."""
+        from repro_torch.profilerd.agent import DaemonBackend
+        from repro_torch.profilerd.daemon import DaemonConfig, ProfilerDaemon
+
+        trainer = Trainer(job(tmp_path, profile_backend="daemon"))
+        try:
+            assert isinstance(trainer.sampler, DaemonBackend) and trainer.sampler.spawn_daemon
+        finally:
+            trainer.data.close()
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(job(tmp_path, profile_backend="daemon"))
+            ProfilerDaemon(DaemonConfig(spool_path=str(tmp_path / "s.spool"), push_url="http://127.0.0.1:9/"))
 
 
 class TestData:
