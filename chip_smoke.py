@@ -131,9 +131,24 @@ then the training paths:
               the daemon (its /proc/<pid>/maps read while it runs), every stall
               resolved; the sLSTM share of the main thread's samples beside its
               share of the device tree's ms, the roots and their shares, bytes
-              a stack, drain lag; then the serve CLI at qwen3-4b, full, with a
-              daemon it spawns, and the train command on the thread backend
-              (walls printed, unbounded); ~120 s;
+              a stack, drain lag; the daemon's live query plane (``--serve 0``)
+              polled while the job runs, then ``profilerd serve`` over its out
+              dir (the device plane with the RMSNorm kernel's leaves, the
+              merged plane, a folded tree that re-parses to tree.json's),
+              ``export`` as folded, speedscope and html, ``check`` against
+              itself; then the serve CLI at qwen3-4b, full, with a daemon it
+              spawns; ~80 s;
+   launcher -- the port's ``Launcher`` over xlstm-125m at full width (a
+              ``TrainJobConfig`` with a checkpoint every 2 steps, B 8 x S 64, 4
+              steps), one shared daemon, the in-process aggregator, the merged
+              profile served: attempt 0 stopped (SIGSTOP) after a complete
+              checkpoint, killed on its stale heartbeat, attempt 1 resumed from
+              that step to the last; one daemon with no torch or CUDA mapped,
+              both attempts in the merged tree (its total their sum), the
+              served endpoints and ``top --once`` answering, no file-copy
+              fallback, the RMSNorm kernel and its backward in both attempts;
+              prints the heartbeats, the time to recover, push bytes, the
+              rendezvous collect's ms and the stall events (``launcher_phase``);
 10. train_check -- one train step at the smoke config of qwen3-4b,
               recurrentgemma-9b, deepseek-moe-16b and xlstm-125m through the kernels on the
               card, and the same step through the plain versions on the card and
@@ -1398,7 +1413,7 @@ def trainer_phase(torch, ops, dev) -> dict:
 
 # The profilerd phase: the train CLI's own job (xlstm-125m at its B 8 x S 64)
 # at full width, profiled by an attached daemon; the serve CLI at qwen3-4b
-# with a daemon it spawns; the train CLI again on the thread backend.
+# with a daemon it spawns.
 PROFILERD_TRAIN = ("--full", "--steps", "4", "--no-resume")
 PROFILERD_SERVE = ("--arch", "qwen3-4b", "--full", "--profile", "--backend", "daemon")
 PROFILERD_TIMEOUT_S = 600
@@ -1441,22 +1456,121 @@ def run_cli(args: list[str], env: dict, log: Path) -> tuple[int, dict, str]:
         return proc.returncode, {}, proc.stdout
 
 
+def http_get(url: str, timeout: float = 10.0) -> tuple[int, str, float]:
+    """One GET: (status, body, ms); an HTTP error gives its code and body."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            code, body = resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read().decode("utf-8", errors="replace")
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def served_url(log: Path, marker: str) -> str | None:
+    """The first ``http://host:port`` on a line of a profilerd process's log
+    that holds ``marker``."""
+    import re
+
+    with contextlib.suppress(OSError):
+        for line in log.read_text().splitlines():
+            m = re.search(r"http://[\w.\-]+:\d+", line) if marker in line else None
+            if m:
+                return m.group(0)
+    return None
+
+
+def ms_summary(times: list[float]) -> dict:
+    return {"n": len(times), "median_ms": sorted(times)[len(times) // 2] if times else None,
+            "max_ms": max(times, default=None)}
+
+
+def profilerd_cli(args: list[str], env: dict) -> int:
+    """``python -m repro_torch.profilerd <args>`` to its end: its exit code."""
+    return subprocess.run([sys.executable, "-m", "repro_torch.profilerd", *args], env=env,
+                          stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL, timeout=120).returncode
+
+
+def offline_queries(d: Path, env: dict, tmp: Path, tree) -> tuple[dict, dict]:
+    """After the daemon of (a) ended: ``python -m repro_torch.profilerd serve``
+    over its out dir (the live server stops with its daemon), the device and
+    merged planes and the folded tree fetched from it; then ``export`` as
+    folded, speedscope and html, and ``check`` of the profile against itself.
+    -> (numbers, checks)."""
+    from repro_torch.core.calltree import CallTree
+    from repro_torch.core.export import from_folded
+
+    with open(tmp / "serve.log", "w") as log:
+        server = subprocess.Popen([sys.executable, "-m", "repro_torch.profilerd", "serve", "--profile", str(d),
+                                   "--port", "0"], env={**env, "PYTHONUNBUFFERED": "1"}, stdout=log,
+                                  stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        while (url := served_url(tmp / "serve.log", "serving ")) is None:
+            if server.poll() is not None or time.perf_counter() - t0 > 60:
+                raise AssertionError(f"profilerd serve did not start: {(tmp / 'serve.log').read_text()[-2000:]}")
+            time.sleep(0.1)
+        got = {q: http_get(url + q) for q in ("/tree?fmt=folded", "/tree?plane=device&fmt=folded",
+                                              "/tree?plane=device&fmt=json", "/tree?plane=merged&fmt=folded",
+                                              "/tree?plane=merged&fmt=json")}
+    finally:
+        server.terminate()
+        server.wait(timeout=30)
+    folded = got["/tree?fmt=folded"]
+    reparsed = from_folded(folded[1]) if folded[0] == 200 else None
+    device = CallTree.from_json(got["/tree?plane=device&fmt=json"][1]) \
+        if got["/tree?plane=device&fmt=json"][0] == 200 else CallTree()
+    # the kernels' leaves (their flops folded by the device plane's default
+    # metric can round to nothing beside the products'), with their launches
+    kernel_leaves: dict[str, float] = {}
+    for _, n in device.root.walk():
+        if n.name.startswith("kernel:"):
+            kernel_leaves[n.name] = kernel_leaves.get(n.name, 0.0) + n.metrics.get("kernels", n.metrics.get("ops", 0.0))
+    exports = {}
+    for fmt in ("folded", "speedscope", "html"):
+        out = tmp / f"export.{fmt}"
+        rc = profilerd_cli(["export", str(d), "--fmt", fmt, "--out", str(out)], env)
+        exports[fmt] = {"rc": rc, "bytes": out.stat().st_size if out.exists() else 0}
+    check_rc = profilerd_cli(["check", str(d), "--baseline", str(d)], env)
+
+    def samples(t) -> dict:
+        return {p: n.metrics["samples"] for p, n in t.root.walk() if n.metrics.get("samples")}
+
+    numbers = {"offline": {q: {"code": c, "ms": ms, "bytes": len(b)} for q, (c, b, ms) in got.items()},
+               "device_plane_kernel_leaves": kernel_leaves, "exports": exports, "check_rc": check_rc}
+    checks = {
+        "served_device_and_merged": all(got[q][0] == 200 for q in got),
+        "device_plane_holds_rmsnorm": {"kernel:fused_rmsnorm", "kernel:fused_rmsnorm_bwd"} <= set(kernel_leaves),
+        "folded_reparses_to_tree_json": reparsed is not None and samples(reparsed) == samples(tree),
+        "exports": all(e["rc"] == 0 and e["bytes"] > 0 for e in exports.values()),
+        "check_against_itself": check_rc == 0,
+    }
+    return numbers, checks
+
+
 def profilerd_phase() -> dict:
     """The out-of-process profiling daemon on the card: (a) ``python -m
     repro_torch.profilerd attach`` started first as its own process, then the
     train CLI at full width (xlstm-125m, B 8 x S 64, 4 steps) with
-    ``--backend daemon --spool``; the daemon's ``/proc/<pid>/maps`` read while
-    it runs; (b) the serve CLI at qwen3-4b, full, with a daemon it spawns;
-    (c) the train command on the thread backend, its wall and tokens/s beside
-    (a)'s, unbounded. Fails unless both processes of (a) exit 0, status.json
+    ``--backend daemon --spool``; the daemon's ``/proc/<pid>/maps`` read and
+    its live query plane (``--serve 0``) polled (``/status``,
+    ``/tree?fmt=folded``) while it runs; after it, ``profilerd serve`` over
+    the out dir, ``export`` and ``check`` (``offline_queries``); (b) the
+    serve CLI at qwen3-4b, full, with a daemon it spawns. Fails unless both processes of (a) exit 0, status.json
     reads done with 0 dropped batches, tree.json's total equals ``n_stacks``,
     the last sealed epoch's samples equal tree.json's and carry the H100
     roofline annotation, events.jsonl holds DEVICE_TREE_LOADED, the main
     thread holds the train step's frames and the sLSTM loop's, no torch or
     CUDA library is mapped in the daemon, every stall is followed by a resume
     or the BYE, no Python ``backward`` frame of the port sits under the main
-    thread, and (b) exits 0 with samples and a daemon that finished.
-    -> the kernel launches of the three runs (their CLIs' ``kernel_launches``)."""
+    thread, the live server answered both queries, the offline server the
+    device plane (with the RMSNorm kernel's leaves) and the merged plane, its
+    folded tree re-parses to tree.json's, the exports and the self-check exit
+    0, and (b) exits 0 with samples and a daemon that finished.
+    -> the kernel launches of the two runs (their CLIs' ``kernel_launches``)."""
     from repro_torch.core.calltree import CallTree
     from repro_torch.core.device_tree import load_device_tree
     from repro_torch.core.snapshot import TimelineReader
@@ -1469,13 +1583,15 @@ def profilerd_phase() -> dict:
         d = Path(f"{spool}.d")  # the DaemonBackend's default: the trainer reads the daemon's tree back
         attach = ["repro_torch.profilerd", "attach", "--spool", str(spool), "--out", str(d),
                   "--device-tree", str(train_out / "device_tree.json"), "--epoch", "1",
-                  "--max-seconds", str(PROFILERD_TIMEOUT_S)]
+                  "--max-seconds", str(PROFILERD_TIMEOUT_S), "--serve", "0"]
         train = ["repro_torch.launch.train", *PROFILERD_TRAIN, "--backend", "daemon", "--spool", str(spool),
                  "--out", str(train_out)]
         t0, wall0 = time.perf_counter(), time.time()
         mapped: set[str] = set()
         maps_reads = 0
         backlog = []  # the daemon's drain lag: bytes in the spool not yet drained, at each poll
+        live = {"/status": [], "/tree?fmt=folded": []}  # the live query plane: (code, ms) a poll
+        live_url = None
         with open(tmp / "daemon.log", "w") as dlog, open(tmp / "train.out", "w") as tlog, \
                 open(tmp / "train.err", "w") as terr:
             daemon = subprocess.Popen([sys.executable, "-m", *attach], env=env, stdout=dlog,
@@ -1491,6 +1607,12 @@ def profilerd_phase() -> dict:
                     with contextlib.suppress(OSError, ValueError):
                         backlog += [t["backlog_bytes"] for t in
                                     json.loads((d / "status.json").read_text())["targets"].values()]
+                    live_url = live_url or served_url(tmp / "daemon.log", "live query plane: ")
+                    if live_url is not None:
+                        for q, polls in live.items():
+                            with contextlib.suppress(OSError):
+                                code, _, ms = http_get(live_url + q, timeout=5.0)
+                                polls.append((code, ms))
                     time.sleep(0.5)
                 daemon_rc = daemon.wait(timeout=120)
             finally:
@@ -1546,6 +1668,9 @@ def profilerd_phase() -> dict:
             "slstm_share_of_device_ms": outer_sum(device.root, "slstm", "device_ms")
             / max(device.total("device_ms"), 1e-9),
             "daemon_maps_reads": maps_reads, "daemon_mapped_files": len(mapped), "daemon_forbidden_libs": forbidden,
+            "live_server": {"url_seen": live_url is not None,
+                            **{q: {"ok": sum(c == 200 for c, _ in polls), **ms_summary([ms for _, ms in polls])}
+                               for q, polls in live.items()}},
         }
         checks_a = {
             "exit_codes": train_rc == 0 and daemon_rc == 0,
@@ -1557,7 +1682,11 @@ def profilerd_phase() -> dict:
             "no_torch_or_cuda_in_daemon": maps_reads > 0 and not forbidden,
             "stalls_resolved": not unresolved_stall,
             "no_backward_frames_under_main": backward.get("thread::MainThread", 0.0) == 0.0,
+            "live_server_answered": all(polls and all(c == 200 for c, _ in polls) for polls in live.values()),
         }
+        served, served_checks = offline_queries(d, env, tmp, tree)
+        a["served"] = served
+        checks_a.update(served_checks)
         for name, n in summary.get("kernel_launches", {}).items():
             launches[name] = launches.get(name, 0) + n
 
@@ -1570,19 +1699,296 @@ def profilerd_phase() -> dict:
                     and bool(pd.get("done"))}
         for name, n in stats.get("kernel_launches", {}).items():
             launches[name] = launches.get(name, 0) + n
-
-        # (c) the same train command on the thread backend (no bound: host walls spread)
-        rc, thread_summary, _ = run_cli(["repro_torch.launch.train", *PROFILERD_TRAIN, "--backend", "thread",
-                                         "--out", str(tmp / "thread")], env, tmp / "thread.err")
-        c = {"rc": rc, "wall_s": thread_summary.get("wall_s"), "tokens_per_s": thread_summary.get("tokens_per_s")}
-        for name, n in thread_summary.get("kernel_launches", {}).items():
-            launches[name] = launches.get(name, 0) + n
-        checks = {**checks_a, **checks_b, "thread_run": rc == 0}
-        emit("profilerd", train_daemon=a, serve_daemon=b, train_thread=c, checks=checks, launches=launches)
+        checks = {**checks_a, **checks_b}
+        emit("profilerd", train_daemon=a, serve_daemon=b, checks=checks, launches=launches)
         if not all(checks.values()):
-            for name in ("daemon.log", "train.err", "serve.err", "thread.err"):
+            for name in ("daemon.log", "train.err", "serve.err", "serve.log"):
                 print(f"--- {name} (last 3000 bytes) ---\n{(tmp / name).read_text()[-3000:]}", file=sys.stderr)
             raise AssertionError(f"profilerd: checks failed: {sorted(k for k, v in checks.items() if not v)}")
+    return launches
+
+
+# The launcher phase: the port's Launcher over the JAX train CLI's default
+# job, xlstm-125m at full width (B 8 x S 64, as the profilerd phase's train
+# CLI), built from a TrainJobConfig because the train CLI has no flag for the
+# checkpoint interval: a checkpoint every 2 steps, 4 steps (attempt 1 runs
+# steps 3 and 4: the second of them is the one it profiles).
+LAUNCHER_JOB = dict(arch="xlstm-125m", smoke=False, device="cuda", steps=4, global_batch=8, seq_len=64,
+                    ckpt_every=2, seed=0)
+# Over the trainer's cold start on the card and its longest step (the second
+# of each attempt runs under torch.profiler and builds the device tree), with
+# a margin; the phase prints both. Measured with a timeout of 150 s on "NVIDIA
+# H100 80GB HBM3, 700.00 W": first heartbeat 16.1 s (attempt 0) and 21.3 s
+# (attempt 1, which also reads the checkpoint back), longest gap 23.7 and
+# 25.9 s. Attempt 1 inherits attempt 0's stale heartbeat, so its first one
+# must come within the timeout too.
+LAUNCHER_HANG_TIMEOUT_S = 60.0
+LAUNCHER_PHASE_TIMEOUT_S = 600
+# The launcher's job: the port's Trainer, each heartbeat also writing the
+# process's kernel launches so far (a killed attempt writes no summary), and
+# the summary of the attempt that finishes, with the card's free memory
+# before the model was built (what the killed attempt's SIGKILL gave back).
+LAUNCHER_DRIVER = """
+import json, os, sys
+sys.path.insert(0, {src!r})
+import torch
+from repro_torch.kernels import ops
+from repro_torch.launch.train import Trainer, TrainJobConfig
+free_before_model = torch.cuda.mem_get_info() if torch.cuda.is_available() else None
+trainer = Trainer(TrainJobConfig(**{job!r}))
+touch, pid = trainer._touch_heartbeat, os.getpid()
+def heartbeat():
+    with open(os.path.join({out!r}, f"launches.{{pid}}.json"), "w") as f:
+        json.dump(ops.launch_counts(), f)
+    touch()
+trainer._touch_heartbeat = heartbeat
+summary = trainer.run()
+summary.update(pid=pid, mem_get_info_before_model=free_before_model,
+               max_memory_allocated=torch.cuda.max_memory_allocated() if torch.cuda.is_available() else None,
+               mem_get_info_at_end=torch.cuda.mem_get_info() if torch.cuda.is_available() else None)
+with open(os.path.join({out!r}, "driver_summary.json"), "w") as f:
+    json.dump(summary, f)
+"""
+
+
+def complete_checkpoints(ckpt_dir: Path) -> list[int]:
+    """The steps whose checkpoint the manager's commit rule counts: renamed
+    from ``step_<n>.tmp`` to ``step_<n>``."""
+    with contextlib.suppress(OSError):
+        return sorted(int(p.name[5:]) for p in ckpt_dir.iterdir() if p.name.startswith("step_")
+                      and not p.name.endswith(".tmp"))
+    return []
+
+
+def profilerd_pids() -> set[int]:
+    """Every process of this machine running ``repro_torch.profilerd``."""
+    pids = set()
+    for proc in Path("/proc").iterdir():
+        if proc.name.isdigit():
+            with contextlib.suppress(OSError):
+                if b"repro_torch.profilerd" in (proc / "cmdline").read_bytes():
+                    pids.add(int(proc.name))
+    return pids
+
+
+def tree_names(tree, root: str) -> set[str]:
+    node = tree.root.children.get(root)
+    return {n.name for _, n in node.walk()} if node is not None else set()
+
+
+def launcher_phase(hang_timeout_s: float = LAUNCHER_HANG_TIMEOUT_S) -> dict:
+    """The port's ``Launcher`` (``repro_torch.launch.launcher``) supervising
+    the xlstm-125m trainer at full width on the card (``LAUNCHER_JOB``), with
+    a profile dir (one shared ``--watch`` daemon), the in-process aggregator
+    (``aggregate=True``), the merged profile served (``serve_port=0``) and
+    ``max_restarts=2``. Attempt 0 gets SIGSTOP once a checkpoint is complete:
+    alive but silent, as a real hang. Fails unless the launcher reports exit
+    0 with one restart, attempt 1 resumed from that checkpoint's step and
+    reached the last, one profilerd process ran and mapped no torch or CUDA
+    library, both attempts have a target dir and attempt 1's ends done, the
+    aggregator's merged tree holds both attempts' main-thread frames and
+    equals their sum (each attempt's main thread holds the train step, the
+    merged one the train step and the sLSTM loop), the launcher's server answers ``/status``,
+    ``/targets`` and ``/tree?fmt=folded``, ``profilerd top --once`` against it
+    exits 0, no file-copy fallback was logged and both attempts launched the
+    RMSNorm kernel and its backward. Prints the first heartbeat and the
+    longest gap between heartbeats of each attempt, the time to recover,
+    push frames and bytes, the rendezvous collect's ms, the served
+    endpoints' ms, the stall and resume events and what the rendezvous found
+    of the device plane. -> the kernel launches of both attempts."""
+    import glob
+    import signal
+    import threading
+
+    from repro_torch.core.calltree import CallTree
+    from repro_torch.core.snapshot import TimelineReader
+    from repro_torch.launch.launcher import LaunchConfig, Launcher
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        work, prof = tmp / "job", tmp / "prof"
+        job = {**LAUNCHER_JOB, "out_dir": str(work)}
+        launcher = Launcher(LaunchConfig(
+            cmd=[sys.executable, "-c", LAUNCHER_DRIVER.format(src=str(ROOT / "src"), job=job, out=str(tmp))],
+            workdir=str(tmp), heartbeat_path=str(work / "heartbeat"), heartbeat_timeout_s=hang_timeout_s,
+            poll_s=0.2, max_restarts=2, backoff_s=1.0, env={"PYTHONPATH": env["PYTHONPATH"]},
+            profile_dir=str(prof), aggregate=True, serve_port=0,
+        ))
+        collect = {}
+        collect_fn = launcher._collect_from_aggregator
+
+        def timed_collect():
+            t0 = time.perf_counter()
+            try:
+                return collect_fn()
+            finally:
+                collect["ms"] = (time.perf_counter() - t0) * 1e3
+
+        launcher._collect_from_aggregator = timed_collect
+        result = {}
+        runner = threading.Thread(target=lambda: result.setdefault("report", launcher.run()), daemon=True)
+        t0, wall0 = time.perf_counter(), time.time()
+        seen_events: list[tuple[float, str]] = []  # (wall time seen, the launcher's event)
+        attempts: dict[int, dict] = {}  # attempt -> pid, spawn wall time, heartbeats [(step, wall)]
+        hb_mtime, stopped, mapped, maps_reads, daemons_seen, push_polls = None, None, set(), 0, set(), []
+        next_slow_poll = 0.0
+        runner.start()
+        try:
+            while runner.is_alive():
+                if time.perf_counter() - t0 > LAUNCHER_PHASE_TIMEOUT_S:
+                    raise AssertionError("launcher: the job did not finish in time")
+                now = time.time()
+                for msg in launcher.report.events[len(seen_events):]:
+                    seen_events.append((now, msg))
+                    if msg.startswith("spawned attempt "):
+                        k = int(msg.split()[2])
+                        attempts[k] = {"pid": int(msg.rsplit("pid=", 1)[1]), "spawned": now, "heartbeats": []}
+                with contextlib.suppress(OSError, ValueError, IndexError):
+                    mtime = os.path.getmtime(work / "heartbeat")
+                    if mtime != hb_mtime and attempts:
+                        step, written = (work / "heartbeat").read_text().split()
+                        hb_mtime = mtime
+                        attempts[max(attempts)]["heartbeats"].append((int(step), float(written)))
+                if stopped is None and 0 in attempts and len(attempts) == 1 and complete_checkpoints(work / "ckpt"):
+                    os.kill(attempts[0]["pid"], signal.SIGSTOP)  # alive but silent: the hang
+                    stopped = {"wall": time.time(), "resume_expected": max(complete_checkpoints(work / "ckpt")),
+                               "heartbeat_step": attempts[0]["heartbeats"][-1][0] if attempts[0]["heartbeats"]
+                               else None}
+                if time.perf_counter() >= next_slow_poll:
+                    next_slow_poll = time.perf_counter() + 0.5
+                    daemons_seen |= profilerd_pids()
+                    for d in launcher._daemons:
+                        files = mapped_files(d.pid)
+                        maps_reads += bool(files)
+                        mapped |= files
+                    if launcher.aggregator is not None:
+                        with contextlib.suppress(Exception):
+                            fleet = launcher.aggregator.status()["fleet"]
+                            push_polls.append((fleet["epochs_applied"], fleet["bytes"]))
+                time.sleep(0.05)
+            rep = result["report"]
+            seconds = time.perf_counter() - t0
+            url = launcher.server.url if launcher.server is not None else None
+            served = {q: http_get(url + q) for q in ("/status", "/targets", "/tree?fmt=folded")} if url else {}
+            top_rc = subprocess.run([sys.executable, "-m", "repro_torch.profilerd", "top", "--once", "--url", url],
+                                    env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                                    timeout=60).returncode if url else None
+        finally:
+            if runner.is_alive():  # a failed check: no restart, no attempt left running
+                launcher.cfg.max_restarts = -1
+                for a in attempts.values():
+                    with contextlib.suppress(OSError):
+                        os.kill(a["pid"], signal.SIGKILL)
+                runner.join(timeout=120)
+            for d in launcher._daemons:
+                if d.poll() is None:
+                    d.kill()
+                    d.wait()
+            if launcher.aggregator is not None:
+                launcher.aggregator.close()
+            if launcher.server is not None:
+                launcher.server.stop()
+
+        fleet_d = prof / "fleet.d"
+        fleet_status = json.loads((fleet_d / "status.json").read_text())
+        events = [json.loads(x) for x in (fleet_d / "events.jsonl").read_text().splitlines() if x.strip()]
+        targets, sealed = {}, {}
+        for name in ("attempt0", "attempt1"):
+            tdir = fleet_d / "targets" / name
+            targets[name] = {
+                "exists": tdir.is_dir(),
+                "status": json.loads((tdir / "status.json").read_text()) if (tdir / "status.json").exists() else {},
+                "tree": CallTree.from_json((tdir / "tree.json").read_text()) if (tdir / "tree.json").exists()
+                else CallTree(),
+            }
+            last = TimelineReader(str(tdir / "timeline")).last() if (tdir / "timeline").is_dir() else None
+            sealed[name] = last[1].total() if last is not None else 0.0
+        merged = CallTree.from_json((prof / "merged_tree.json").read_text()) \
+            if (prof / "merged_tree.json").exists() else CallTree()
+        summary = json.loads((tmp / "driver_summary.json").read_text()) \
+            if (tmp / "driver_summary.json").exists() else {}
+        metrics = json.loads((work / "metrics.json").read_text()) if (work / "metrics.json").exists() else {}
+        resumed_from = metrics["steps"][0]["step"] - 1 if metrics.get("steps") else None
+        pid0 = attempts.get(0, {}).get("pid")
+        launches0 = json.loads((tmp / f"launches.{pid0}.json").read_text()) \
+            if pid0 and (tmp / f"launches.{pid0}.json").exists() else {}
+        launches1 = summary.get("kernel_launches", {})
+        killed = next((w for w, m in seen_events if m.startswith("heartbeat stale")), None)
+        hb = {k: [w for _, w in a["heartbeats"]] for k, a in attempts.items()}
+
+        def gaps(k: int) -> dict:
+            walls = hb.get(k, [])
+            return {"first_heartbeat_s": walls[0] - attempts[k]["spawned"] if walls else None,
+                    "max_gap_s": max((b - a for a, b in zip(walls, walls[1:])), default=None),
+                    "heartbeats": len(walls), "steps": [s for s, _ in attempts[k]["heartbeats"]]}
+
+        recover = None
+        if hb.get(0) and hb.get(1) and killed is not None:
+            recover = {"last_heartbeat_to_kill_s": killed - hb[0][-1], "kill_to_first_heartbeat_s": hb[1][0] - killed,
+                       "total_s": hb[1][0] - hb[0][-1]}
+        push = fleet_status.get("push") or {}
+        main_frames = {"repro::train_step", "repro::_slstm"}
+        forbidden = sorted({Path(f).name for f in mapped if any(k in Path(f).name for k in DAEMON_FORBIDDEN_LIBS)})
+        agg_status = json.loads((prof / "region.d" / "status.json").read_text()) \
+            if (prof / "region.d" / "status.json").exists() else {}
+        numbers = {
+            "seconds": round(seconds, 1), "hang_timeout_s": hang_timeout_s, "exit_code": rep.exit_code,
+            "restarts": rep.restarts, "attempts": {k: gaps(k) for k in sorted(attempts)},
+            "stopped_at_heartbeat_step": (stopped or {}).get("heartbeat_step"),
+            "resume_expected": (stopped or {}).get("resume_expected"), "resumed_from": resumed_from,
+            "last_step": metrics.get("summary", {}).get("steps"),
+            "time_to_recover": recover,
+            "attempt1": {k: summary.get(k) for k in ("wall_s", "tokens_per_s", "final_loss", "mem_get_info_before_model",
+                                                     "max_memory_allocated", "mem_get_info_at_end")},
+            "daemon": {"profilerd_pids": sorted(daemons_seen), "maps_reads": maps_reads, "mapped_files": len(mapped),
+                       "forbidden_libs": forbidden},
+            "push": {"pushed_epochs": push.get("pushed_epochs"), "pushed_bytes": push.get("pushed_bytes"),
+                     "bytes_per_epoch": push["pushed_bytes"] / max(push["pushed_epochs"], 1) if push else None,
+                     "failures": push.get("failures"), "spilled": push.get("spilled"),
+                     "daemon_epochs": (fleet_status.get("timeline") or {}).get("epochs"),
+                     "aggregator": agg_status.get("fleet"), "polls": len(push_polls)},
+            "merged_total": merged.total(), "targets_sealed_totals": sealed,
+            "targets_tree_totals": {k: t["tree"].total() for k, t in targets.items()},
+            "targets_main_frames": {k: sorted(main_frames & tree_names(t["tree"], "thread::MainThread"))
+                                    for k, t in targets.items()},
+            "rendezvous_collect_ms": collect.get("ms"),
+            "served": {q: {"code": c, "ms": ms, "bytes": len(b)} for q, (c, b, ms) in served.items()},
+            "top_once_rc": top_rc,
+            "events": [{"at_s": round(w - wall0, 2), "event": m} for w, m in seen_events],
+            "stall_events": [{"kind": e["kind"], "target": e.get("target"), "at_s": round(e["wall_time"] - wall0, 1)}
+                             for e in events if e["kind"] in ("TARGET_STALLED", "TARGET_RESUMED", "TARGET_ATTACHED",
+                                                               "TARGET_RESTARTED")],
+            "device_plane_surfaced": (prof / "device_tree.json").exists(),
+            "device_tree_candidates": sorted(glob.glob(str(prof / "*.d" / "device_tree.json"))
+                                             + glob.glob(str(prof / "*.d" / "targets" / "*" / "device_tree.json"))),
+            "trainer_device_tree": (work / "device_tree.json").exists(),
+            "launches": {"attempt0": launches0, "attempt1": launches1},
+        }
+        checks = {
+            "one_restart_exit_0": rep.exit_code == 0 and rep.restarts == 1,
+            "resumed_from_the_checkpoint": stopped is not None and resumed_from == stopped["resume_expected"],
+            "reached_the_last_step": numbers["last_step"] == LAUNCHER_JOB["steps"],
+            "one_daemon": len(launcher._daemons) == 1 and len(daemons_seen) == 1,
+            "no_torch_or_cuda_in_daemon": maps_reads > 0 and not forbidden,
+            "both_attempts_targets": all(t["exists"] for t in targets.values()),
+            "attempt1_done": bool(targets["attempt1"]["status"].get("done")),
+            "merged_holds_both_attempts": all("repro::train_step" in tree_names(t["tree"], "thread::MainThread")
+                                              for t in targets.values())
+            and main_frames <= tree_names(merged, "thread::MainThread")
+            and merged.total() == sum(sealed.values()) > 0,
+            "served": bool(served) and all(c == 200 for c, _, _ in served.values()),
+            "top_once": top_rc == 0,
+            "no_file_copy_fallback": not any("file-copy" in m for m in rep.events),
+            "rmsnorm_in_both_attempts": all(n.get("fused_rmsnorm", 0) > 0 and n.get("fused_rmsnorm_bwd", 0) > 0
+                                            for n in (launches0, launches1)),
+        }
+        emit("launcher", **numbers, checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"launcher: checks failed: {sorted(k for k, v in checks.items() if not v)}")
+    launches = dict(launches1)
+    for name, n in launches0.items():
+        launches[name] = launches.get(name, 0) + n
     return launches
 
 
@@ -1909,7 +2315,8 @@ def main() -> int:
                 lambda: train_phase(torch, get_config, ops, dev, TRAIN_MOE),
                 lambda: train_phase(torch, get_config, ops, dev, TRAIN_XLSTM),
                 lambda: trainer_phase(torch, ops, dev),
-                lambda: profilerd_phase()):
+                lambda: profilerd_phase(),
+                lambda: launcher_phase()):
         for name, n in run().items():
             launches[name] += n
         torch.cuda.empty_cache()

@@ -1,7 +1,8 @@
 """The profiling plane: copies of the parts of ``repro.core`` the port needs.
 
 The host plane (call tree, sampler backends, detectors and watchdog, the
-snapshot codec and timeline ring, HTML report) is pure Python; the device
+snapshot codec and timeline ring, HTML report, views, cross-run diffs and the
+exporters: folded, speedscope, flamegraph HTML) is pure Python; the device
 plane (``scope``: the named ranges, ``scope.scope`` entered at the JAX
 package's scope sites; ``device_tree``: the call tree of one profiled step;
 ``roofline``: the H100 spec and the three-term bound; ``planes``: the host
@@ -46,9 +47,24 @@ _EXPORTS = {
     "collapse_stack": ".sampler",
     "frame_symbol": ".sampler",
     "make_sampler": ".sampler",
+    "ViewConfig": ".report",
+    "NO_MATCH_MARKER": ".report",
+    "breakdown": ".report",
+    "diff_rows": ".report",
     "name_shares": ".report",
+    "render_diff": ".report",
     "render_html": ".report",
+    "save_views": ".report",
+    "share_regressions": ".report",
     "write_report": ".report",
+    "EXPORT_FORMATS": ".export",
+    "build_diff_tree": ".export",
+    "diff_flamegraph_html": ".export",
+    "export_tree": ".export",
+    "flamegraph_html": ".export",
+    "from_folded": ".export",
+    "to_folded": ".export",
+    "to_speedscope": ".export",
     # device plane (torch on first use of a builder; the artifact's loader
     # and saver import none)
     "DEVICE_TREE_SCHEMA": ".device_tree",

@@ -1,12 +1,23 @@
-"""Standalone HTML/JSON report of a call tree (a copy of ``render_html``,
-``write_report`` and ``name_shares`` from ``repro.core.report``): nested
-``<details>`` elements with share bars, plus the raw JSON tree.
+"""Interactive HTML/JSON report export (paper §III-D "call-stack analyzer").
+
+The paper exports the merged call tree as an interactive HTML/JSON report with
+expand/collapse navigation. We emit a dependency-free standalone HTML page
+(nested ``<details>`` elements + share bars) plus the raw JSON tree, and a
+parser-config mechanism mirroring the artifact's 125 exploration configs:
+each :class:`ViewConfig` selects a root, a fold level, white/blacklists and a
+metric, and renders either HTML or CSV.
+
+A copy of ``repro.core.report``: the same bytes for the same tree (the page's
+default title included), so a report or view from either package reads the
+same.
 """
 
 from __future__ import annotations
 
 import html
+import json
 import os
+from dataclasses import dataclass
 
 from .calltree import SAMPLES, CallNode, CallTree
 
@@ -84,6 +95,9 @@ def write_report(tree: CallTree, out_dir: str, name: str, metric: str = SAMPLES)
     return paths
 
 
+# -- cross-run differential analysis ----------------------------------------
+
+
 def name_shares(tree: CallTree, metric: str = SAMPLES, self_only: bool = True) -> dict[str, float]:
     """Per-function-name share vector, normalized to sum to 1.
 
@@ -103,3 +117,237 @@ def name_shares(tree: CallTree, metric: str = SAMPLES, self_only: bool = True) -
     if total <= 0:
         return {}
     return {k: v / total for k, v in out.items()}
+
+
+def diff_rows(
+    a: CallTree,
+    b: CallTree,
+    metric: str = SAMPLES,
+    self_only: bool = False,
+) -> list[tuple[tuple[str, ...], float, float, float]]:
+    """Per-call-site share deltas between two trees (the cross-run diff).
+
+    Returns ``(path, share_a, share_b, share_b - share_a)`` over the union of
+    call-site paths, sorted by descending ``|delta|`` — "did this change make
+    the hot path slower" answered per node.
+    """
+    sa = a.shares(metric, self_only=self_only)
+    sb = b.shares(metric, self_only=self_only)
+    rows = []
+    for path in set(sa) | set(sb):
+        va, vb = sa.get(path, 0.0), sb.get(path, 0.0)
+        rows.append((path, va, vb, vb - va))
+    rows.sort(key=lambda r: (-abs(r[3]), r[0]))
+    return rows
+
+
+def render_diff(
+    a: CallTree,
+    b: CallTree,
+    metric: str = SAMPLES,
+    *,
+    label_a: str = "a",
+    label_b: str = "b",
+    min_delta: float = 0.002,
+    max_rows: int = 40,
+    self_only: bool = False,
+) -> str:
+    """Text rendering of a cross-run tree diff (per-node share deltas)."""
+    from .detector import share_distance
+
+    rows = diff_rows(a, b, metric, self_only=self_only)
+    dist = share_distance(name_shares(a, metric), name_shares(b, metric))
+    lines = [
+        f"# diff metric={metric} {label_a}: total={a.total(metric):.6g} "
+        f"{label_b}: total={b.total(metric):.6g} share_distance={dist:.4f}",
+        f"{'delta':>8}  {label_a:>7}  {label_b:>7}  path",
+    ]
+    shown = 0
+    for path, va, vb, d in rows:
+        if abs(d) < min_delta:
+            continue
+        lines.append(f"{d:+8.2%}  {va:7.2%}  {vb:7.2%}  {'/'.join(path)}")
+        shown += 1
+        if shown >= max_rows:
+            lines.append(f"# ... {sum(1 for r in rows if abs(r[3]) >= min_delta) - shown} more rows")
+            break
+    if shown == 0:
+        lines.append("# trees are share-identical at this resolution")
+    return "\n".join(lines)
+
+
+def share_regressions(
+    baseline: CallTree,
+    current: CallTree,
+    metric: str = SAMPLES,
+    tolerance: float = 0.05,
+    self_only: bool = True,
+) -> list[tuple[str, float, float, float]]:
+    """Functions whose share *grew* beyond ``tolerance`` vs the baseline.
+
+    The ``profilerd check`` gate: only increases count (a function losing
+    share is someone else's increase), compared on the per-name share vector
+    so run length cancels out.  Returns ``(name, base, cur, delta)`` sorted
+    by descending delta.
+    """
+    base = name_shares(baseline, metric, self_only=self_only)
+    cur = name_shares(current, metric, self_only=self_only)
+    out = []
+    for name in set(base) | set(cur):
+        d = cur.get(name, 0.0) - base.get(name, 0.0)
+        if d > tolerance:
+            out.append((name, base.get(name, 0.0), cur.get(name, 0.0), d))
+    out.sort(key=lambda r: -r[3])
+    return out
+
+
+#: Row prepended to a view CSV whose ``root=`` matched no node.
+NO_MATCH_MARKER = "# no match for root="
+
+#: Row prepended to a view CSV whose filters/whitelist removed every row
+#: (the root *did* match — distinct from :data:`NO_MATCH_MARKER`).
+EMPTY_VIEW_MARKER = "# empty view: filters removed every row"
+
+
+def min_share_marker(min_share: float) -> str:
+    """Marker row for a ``min_share`` threshold that pruned every row —
+    shared by :meth:`ViewConfig.to_csv` and ``repro_torch.core.export.prepare_view``
+    so the CSV body and the CLI/server verdicts can never drift apart."""
+    return f"# empty view: min_share={min_share:g} pruned every row"
+
+
+@dataclass
+class ViewConfig:
+    """One exploration config (artifact §G): root, fold level, filters."""
+
+    name: str = "view"
+    root: str | None = None  # zoom selector (substring of a node name)
+    level: int = -1  # -1 expands to leaves, n truncates (artifact semantics)
+    metric: str = SAMPLES
+    whitelist: list[str] | None = None
+    blacklist: list[str] | None = None
+    min_share: float = 0.0
+
+    def apply(self, tree: CallTree) -> CallTree:
+        t = tree
+        if self.root:
+            t = t.zoom(lambda n, r=self.root: r in n)
+        if self.whitelist or self.blacklist:
+            t = t.filtered(self.whitelist, self.blacklist)
+        if self.level >= 0:
+            t = t.levels(self.level)
+        return t
+
+    def matches(self, tree: CallTree) -> bool:
+        """False when ``root=`` selected nothing — the view is vacuously empty.
+
+        An empty zoom is indistinguishable from "this run genuinely spent
+        nothing there" in the output rows, so consumers (the ``profilerd
+        export`` CLI, CI scripts) must be able to tell the difference and
+        fail loudly instead of shipping an empty CSV.
+        """
+        if not self.root:
+            return True
+        return bool(tree.zoom(lambda n, r=self.root: r in n).root.children)
+
+    def empty_marker(self, tree: CallTree) -> str | None:
+        """The marker row this view's emptiness deserves, or ``None``.
+
+        One source of truth for :meth:`to_csv` and the ``profilerd export``
+        exit code: "root selected nothing" and "root matched but the
+        white/blacklist removed every row" are different operator errors and
+        get different markers.  (level=0 folding everything into the root is
+        not empty for CSV — the header total says it all — and an empty
+        input tree is the caller's business.)
+        """
+        if self.root and not self.matches(tree):
+            return f"{NO_MATCH_MARKER}{self.root}"
+        if (self.whitelist or self.blacklist) and tree.root.children:
+            # Judge the filters *before* the level fold: level=0 collapsing a
+            # perfectly matching view into the root is not "filters removed
+            # every row".
+            t = tree
+            if self.root:
+                t = t.zoom(lambda n, r=self.root: r in n)
+            if not t.filtered(self.whitelist, self.blacklist).root.children:
+                return EMPTY_VIEW_MARKER
+        return None
+
+    def to_csv(self, tree: CallTree) -> str:
+        t = self.apply(tree)
+        total = max(t.total(self.metric), 1e-12)
+        rows = [f"# view={self.name} metric={self.metric} total={total:.6g}", "path,value,share"]
+        if not t.root.children:
+            marker = self.empty_marker(tree)
+            if marker is not None:
+                rows.append(marker)
+                return "\n".join(rows)
+        shown = 0
+        for path, node in t.root.walk():
+            if node is t.root:
+                continue
+            v = node.metrics.get(self.metric, 0.0)
+            if v / total >= self.min_share:
+                rows.append(f"{'/'.join(path[1:])},{v:.6g},{v / total:.4f}")
+                shown += 1
+        if shown == 0 and self.min_share > 0 and t.root.children:
+            # Same contract as the no-match markers: a threshold that prunes
+            # every row must say so, not ship a header-only table.
+            rows.append(min_share_marker(self.min_share))
+        return "\n".join(rows)
+
+
+def breakdown(tree: CallTree, level: int = 1, metric: str = SAMPLES, min_share: float = 0.005) -> list[tuple[str, float]]:
+    """Top-level share table — what the paper's stacked-bar figures plot."""
+    t = tree.levels(level)
+    total = max(t.total(metric), 1e-12)
+    out = []
+
+    def rec(node: CallNode, prefix: str) -> None:
+        for c in sorted(node.children.values(), key=lambda c: -c.metrics.get(metric, 0.0)):
+            share = c.metrics.get(metric, 0.0) / total
+            if share >= min_share:
+                out.append((f"{prefix}{c.name}", share))
+                rec(c, f"{prefix}{c.name}/")
+
+    rec(t.root, "")
+    return out
+
+
+_VIEW_EXT = {"csv": "csv", "folded": "folded", "speedscope": "speedscope.json", "html": "html", "json": "json"}
+
+
+def save_views(
+    tree: CallTree,
+    configs: list[ViewConfig],
+    out_dir: str,
+    formats: tuple[str, ...] = ("csv",),
+) -> list[str]:
+    """Write every view in every requested format (default: CSV, as before).
+
+    Non-CSV formats route through :func:`repro_torch.core.export.export_tree`, so
+    ``formats=("csv", "folded", "html")`` turns the whole view library into
+    flamegraph-ready artifacts in one call.  A view that comes out empty
+    (no-match root, filters, min_share) writes its marker row as the
+    artifact body instead of a vacuously empty file — same contract as the
+    CSV markers and the ``profilerd export`` exit code.
+    """
+    os.makedirs(out_dir, exist_ok=True)
+    written = []
+    for cfg in configs:
+        for fmt in formats:
+            p = os.path.join(out_dir, f"{cfg.name}.{_VIEW_EXT.get(fmt, fmt)}")
+            if fmt == "csv":
+                payload = cfg.to_csv(tree)
+            else:
+                from .export import export_tree, prepare_view
+
+                applied, metric, marker = prepare_view(tree, cfg, fmt=fmt)
+                if marker is not None:
+                    payload = marker + "\n"
+                else:
+                    payload = export_tree(applied, fmt, metric=metric, title=cfg.name)
+            with open(p, "w") as f:
+                f.write(payload)
+            written.append(p)
+    return written

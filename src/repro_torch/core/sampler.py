@@ -132,9 +132,10 @@ class SamplerConfig:
     # spool path was given (an explicit spool means an external daemon
     # attaches).
     spawn_daemon: bool | None = None
-    # Daemon backend: regional aggregator URL for the spawned daemon's
-    # `attach --push`, which raises until push.py is ported (ROADMAP Queue 1
-    # item 18).
+    # Daemon backend: regional aggregator URL — the spawned daemon pushes
+    # every sealed epoch there (`attach --push`); node name defaults to the
+    # short hostname.  Ignored when an external daemon drains the spool
+    # (configure --push on that daemon instead).
     push_url: str | None = None
     push_node: str | None = None
 

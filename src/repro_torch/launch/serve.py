@@ -13,6 +13,8 @@ server, or, with ``--spool``, attached from another shell.
 CLI (the smoke config unless ``--full``; the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.serve [--arch gemma-2b] [--full] [--device cuda] [--profile]
   PYTHONPATH=src python -m repro_torch.launch.serve --profile --backend daemon [--spool /tmp/serve.spool]
+  # the spawned daemon pushes each sealed epoch to a regional aggregator:
+  PYTHONPATH=src python -m repro_torch.launch.serve --profile --backend daemon --push http://127.0.0.1:8788
 """
 
 from __future__ import annotations
@@ -169,13 +171,21 @@ def main(argv: list[str] | None = None) -> None:
                     help="profiler backend (daemon = out-of-process repro_torch.profilerd)")
     ap.add_argument("--spool", default=None,
                     help="daemon backend: spool path for an externally-attached profilerd")
+    ap.add_argument("--push", default=None, metavar="URL",
+                    help="daemon backend: regional aggregator the spawned "
+                         "profilerd pushes sealed epochs to (profilerd aggregate)")
+    ap.add_argument("--push-node", default=None,
+                    help="node name reported to the aggregator (default: hostname)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=not args.full)
     model = Model(cfg, device=args.device)
     reqs = make_requests(cfg.vocab, args.requests, args.max_new)
     sampler = (
-        make_sampler(SamplerConfig(period_s=0.1, backend=args.backend, spool_path=args.spool))
+        make_sampler(
+            SamplerConfig(period_s=0.1, backend=args.backend, spool_path=args.spool,
+                          push_url=args.push, push_node=args.push_node)
+        )
         if args.profile
         else None
     )

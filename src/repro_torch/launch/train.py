@@ -32,6 +32,8 @@ CLI (smoke scale by default; the card unless ``--device cpu``):
   # profiled by an attached daemon (start it first, from another shell):
   PYTHONPATH=src python -m repro_torch.profilerd attach --spool /tmp/t.spool
   PYTHONPATH=src python -m repro_torch.launch.train --backend daemon --spool /tmp/t.spool
+  # the spawned daemon pushes each sealed epoch to a regional aggregator:
+  PYTHONPATH=src python -m repro_torch.launch.train --backend daemon --push http://127.0.0.1:8788
 """
 
 from __future__ import annotations
@@ -83,6 +85,10 @@ class TrainJobConfig:
     # `python -m repro_torch.profilerd attach --spool ...` drains it; when None
     # a daemon subprocess is spawned automatically.
     spool_path: str | None = None
+    # Daemon backend: regional aggregator URL the spawned profilerd pushes
+    # sealed epochs to (`profilerd aggregate`); node name defaults to hostname.
+    push_url: str | None = None
+    push_node: str | None = None
     sample_period_s: float = 0.2
     watchdog_threshold: float = 0.95
     # Extra detector rules appended to the defaults (e.g. a pattern-scoped
@@ -117,7 +123,13 @@ class Trainer:
         # -- profiling plane (always on) ---------------------------------------
         self.sampler = (
             make_sampler(
-                SamplerConfig(period_s=job.sample_period_s, backend=job.profile_backend, spool_path=job.spool_path)
+                SamplerConfig(
+                    period_s=job.sample_period_s,
+                    backend=job.profile_backend,
+                    spool_path=job.spool_path,
+                    push_url=job.push_url,
+                    push_node=job.push_node,
+                )
             )
             if job.profile
             else None
@@ -332,6 +344,11 @@ def main(argv: list[str] | None = None) -> None:
                     help="profiler backend (daemon = out-of-process repro_torch.profilerd)")
     ap.add_argument("--spool", default=None,
                     help="daemon backend: spool path for an externally-attached profilerd")
+    ap.add_argument("--push", default=None, metavar="URL",
+                    help="daemon backend: regional aggregator the spawned "
+                         "profilerd pushes sealed epochs to (profilerd aggregate)")
+    ap.add_argument("--push-node", default=None,
+                    help="node name reported to the aggregator (default: hostname)")
     args = ap.parse_args(argv)
     job = TrainJobConfig(
         arch=args.arch,
@@ -346,6 +363,8 @@ def main(argv: list[str] | None = None) -> None:
         resume=not args.no_resume,
         profile_backend=args.backend,
         spool_path=args.spool,
+        push_url=args.push,
+        push_node=args.push_node,
     )
     summary = Trainer(job).run()
     print(json.dumps(summary, indent=1))

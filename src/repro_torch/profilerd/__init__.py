@@ -25,21 +25,30 @@ sampler config included), so the daemon maps neither torch nor CUDA:
   detectors, seals the timeline (annotated with the device tree on the H100
   spec) and publishes ``status.json``/``tree.json``/``events.jsonl``/
   ``report.html``/``timeline/``;
+* :mod:`repro_torch.profilerd.server`   — live HTTP query plane (``/status``,
+  ``/targets``, ``/tree``, ``/timeline``, ``/diff``) over a running daemon's
+  published snapshots or any offline profile artifact, plus ``top``;
+* :mod:`repro_torch.profilerd.push`     — a daemon's client that POSTs each
+  sealed epoch to a regional aggregator (spill and keyframe resync);
+* :mod:`repro_torch.profilerd.aggregator` — that aggregator: per-node rings,
+  the merged fleet tree, the same query plane;
 * :mod:`repro_torch.profilerd.profiles` — the loader of those artifacts;
 * :mod:`repro_torch.profilerd.events`   — the registry of event kinds;
-* ``python -m repro_torch.profilerd``   — ``attach``, ``status``, ``report``.
+* ``python -m repro_torch.profilerd``   — ``attach``, ``aggregate``,
+  ``serve``, ``top``, ``export``, ``status``, ``report``, ``timeline``,
+  ``diff``, ``check``.
 
-The wire format, spool layout, snapshot codec, file names and environment
-seam are the JAX package's, so one reader takes both packages' spools and
-artifacts.  The live query server, the aggregator and push, and the export
-views are not ported yet (ROADMAP Queue 1 item 18).
+The wire format, spool layout, snapshot codec, push frames, HTTP endpoints,
+file names and environment seam are the JAX package's, so one reader takes
+both packages' spools and artifacts.
 """
 
 from importlib import import_module
 
 # Lazy exports (PEP 562, the pattern of repro_torch.core): the daemon imports
 # this package on every attach and must stay importable in milliseconds and
-# free of torch.
+# free of torch, while the serving plane (http.server machinery) is only paid
+# for on first use.
 _EXPORTS = {
     "Agent": ".agent",
     "DaemonBackend": ".agent",
@@ -50,6 +59,10 @@ _EXPORTS = {
     "ProfileLoadError": ".profiles",
     "load_profile": ".profiles",
     "SymbolResolver": ".resolver",
+    "LiveSource": ".server",
+    "OfflineSource": ".server",
+    "ProfileServer": ".server",
+    "SharedProfileState": ".server",
     "SpoolSet": ".sources",
     "SpoolSource": ".sources",
     "SpoolReader": ".spool",

@@ -30,11 +30,10 @@ This is a copy of ``repro.profilerd.daemon`` that imports no torch: the
 daemon maps neither torch nor CUDA into its process. The device tree is read
 with ``repro_torch.core.device_tree.load_device_tree`` and the fleet epochs
 are annotated by ``repro_torch.core.planes.annotate_tree`` against the H100.
-Not ported yet (ROADMAP Queue 1 item 18): the live HTTP query plane
-(``serve_port``, :meth:`ProfilerDaemon.enable_serving`), the push plane
-(``push_url``) and, until item 21, the static call-graph plane; the first two
-raise, and ``status.json`` keeps their keys (``static_plane``, ``node``,
-``push``) so one reader takes both packages' artifacts.
+The live HTTP query plane (``serve_port``, :meth:`ProfilerDaemon.enable_serving`)
+and the push plane (``push_url``) are the JAX package's. The static
+call-graph plane has no loader in the port yet (ROADMAP Queue 1 item 21):
+``status.json`` keeps its ``static_plane`` key, always false.
 """
 
 from __future__ import annotations
@@ -230,9 +229,12 @@ class DaemonConfig:
     epochs_per_segment: int = 16
     max_segments: int = 64
     trend_rule: TrendRule | None = None
-    # Live HTTP query plane: not ported yet, so anything but None raises
-    # (ROADMAP Queue 1 item 18).
+    # Live HTTP query plane (repro_torch.profilerd.server): serve /status
+    # /targets /tree /timeline /diff while attached.  None disables; 0 binds
+    # an ephemeral port.  Handlers read the published snapshot under a lock —
+    # the ingest path is never touched by a request.
     serve_port: int | None = None
+    serve_host: str = "127.0.0.1"
     # Stop (clean final drain+publish) when this pid dies.  A --watch daemon
     # has no BYE-based exit, so a supervisor that crashes before sending
     # SIGTERM would otherwise leak it forever; the launcher passes its own
@@ -245,12 +247,17 @@ class DaemonConfig:
     # late-bound.  An explicit path that does not exist yet is probed every
     # publish window.  When present the fleet timeline seals
     # roofline-annotated epochs (solo mode switches from the CountSealer fast
-    # path to the generic fleet ring to carry them).
+    # path to the generic fleet ring to carry them) and the live server
+    # gains plane=device|merged.
     device_tree: str | None = None
-    # Fleet push plane: not ported yet, so a URL raises (ROADMAP Queue 1
-    # item 18).
+    # Fleet push plane: POST each sealed epoch (snapshot-codec framing, see
+    # repro_torch.profilerd.push) to a regional aggregator.  None disables.
+    # Push rides the epoch cadence, so it needs epoch_s > 0.
     push_url: str | None = None
-    push_node: str | None = None
+    push_node: str | None = None  # default: the hostname
+    push_keyframe_every: int = 16
+    push_max_spill_bytes: int = 16 << 20
+    push_timeout_s: float = 5.0
 
     def resolved_out_dir(self) -> str:
         if self.out_dir:
@@ -285,12 +292,6 @@ class ProfilerDaemon:
         self.cfg = cfg
         if not (cfg.spool_path or cfg.spool_paths or cfg.watch_dir):
             raise ValueError("DaemonConfig needs spool_path, spool_paths or watch_dir")
-        if cfg.serve_port is not None:
-            self.enable_serving()
-        if cfg.push_url:
-            raise NotImplementedError(
-                "the push plane (repro.profilerd.push) is not ported yet: ROADMAP Queue 1 item 18"
-            )
         self.out_dir = cfg.resolved_out_dir()
         os.makedirs(self.out_dir, exist_ok=True)
         # Solo mode = the classic single-target daemon: flat artifact layout,
@@ -335,6 +336,10 @@ class ProfilerDaemon:
         # Ring of windowed fleet snapshots: (wall_time, cumulative-tree copy)
         # serving retrospective "what changed in the last N windows" queries.
         self.windows: deque = deque(maxlen=cfg.window_ring)
+        # Live query plane (see enable_serving): the publisher hands each
+        # window's status + tree copies to `shared`; HTTP threads read those.
+        self.shared = None
+        self.server = None
         self._stop_requested = False
         self._attach_errors: dict[str, str] = {}
         self._last_attach_error: SpoolError | None = None
@@ -351,6 +356,27 @@ class ProfilerDaemon:
         self._straggler = StragglerDetector(threshold=cfg.straggler_threshold)
         self._straggler_prev: dict[str, CallTree] = {}
         self._straggler_streaks: dict[str, int] = {}
+        # Fleet push plane: ship each sealed epoch to a regional aggregator.
+        # Outages spill locally (bounded) and resync via keyframe, so a dead
+        # aggregator never blocks ingest or loses epoch mass.
+        self._push = None
+        self._push_done = False
+        if cfg.push_url:
+            import socket
+
+            from .push import PushClient
+
+            self._push = PushClient(
+                cfg.push_url,
+                cfg.push_node or socket.gethostname().split(".")[0] or "node",
+                interval_hint_s=cfg.epoch_s if cfg.epoch_s > 0 else cfg.publish_interval_s,
+                keyframe_every=cfg.push_keyframe_every,
+                max_spill_bytes=cfg.push_max_spill_bytes,
+                timeout_s=cfg.push_timeout_s,
+                retry_base_s=cfg.attach_retry_base_s,
+                retry_cap_s=cfg.attach_retry_cap_s,
+                on_event=self._record_event,
+            )
         self._t_start = time.monotonic()
 
     # -- compatibility surface (classic single-target attributes) ------------
@@ -593,8 +619,8 @@ class ProfilerDaemon:
         Targets profile a step *after* attaching, so the artifact usually lands
         after the daemon started; one existence/mtime probe per publish window
         keeps discovery off the ingest path.  A loaded tree is copied to the
-        out dir (making it self-contained for later offline reading) and
-        annotates the sealed epochs from then on.
+        out dir (making it self-contained for later offline serving) and
+        handed to the live query plane.
         """
         path = next((p for p in self._device_tree_candidates() if os.path.exists(p)), None)
         if path is None:
@@ -626,7 +652,9 @@ class ProfilerDaemon:
                 with open(path) as f:
                     _atomic_write(fleet_copy, f.read())
             except OSError:
-                pass  # the sealed epochs still carry the in-memory tree
+                pass  # serving still works from the in-memory tree
+        if self.shared is not None:
+            self.shared.set_device_tree(tree)
         self._record_event(
             {"kind": "DEVICE_TREE_LOADED", "path": path,
              "call_sites": tree.node_count(), "wall_time": time.time()}
@@ -672,21 +700,27 @@ class ProfilerDaemon:
                     }
                 )
         fleet: CallTree | None = None
-        if self.fleet_writer is not None and self.sources:
-            fleet = CallTree()
-            for s in self.sources:
-                fleet.merge(s.tree)
-            if self._device_tree is not None:
-                # Annotations are ordinary metric keys, so the sealed
-                # epochs carry the device plane through the unchanged
-                # codec — and cross-run diff/check can gate on roofline
-                # regressions.
-                from repro_torch.core.planes import annotate_tree
+        if (self.fleet_writer is not None or self._push is not None) and self.sources:
+            solo_src = self._solo_source()
+            if self.solo and solo_src is not None and self.fleet_writer is None:
+                # Solo push without a fleet ring: the lone source's live tree
+                # IS the fleet — no merge copy needed (push only reads it).
+                fleet = solo_src.tree
+            else:
+                fleet = CallTree()
+                for s in self.sources:
+                    fleet.merge(s.tree)
+                if self._device_tree is not None:
+                    # Annotations are ordinary metric keys, so the sealed
+                    # epochs carry the device plane through the unchanged
+                    # codec — and cross-run diff/check can gate on roofline
+                    # regressions.
+                    from repro_torch.core.planes import annotate_tree
 
-                # The fleet tree was built fresh above, so annotate in
-                # place: the device plane's marginal cost is one
-                # attribution walk.
-                fleet = annotate_tree(fleet, self._device_tree, copy=False)
+                    # The fleet tree was built fresh above, so annotate in
+                    # place: the device plane's marginal cost is one
+                    # attribution walk.
+                    fleet = annotate_tree(fleet, self._device_tree, copy=False)
         progress = float(
             sum(s.sealer.node_count for s in self.sources if s.sealer)
             or (fleet.node_count() if fleet is not None else 0)
@@ -705,6 +739,18 @@ class ProfilerDaemon:
                     {"kind": "TIMELINE_WRITE_FAILED", "target": "<fleet>", "path": [],
                      "share": 0.0, "error": str(e), "wall_time": wall}
                 )
+        if self._push is not None and fleet is not None:
+            # Ship this epoch to the regional aggregator.  The client keeps
+            # its own cumulative shadow (decoupled from the local ring's
+            # keyframe cadence), spills through outages, and resyncs with a
+            # K_FULL — a dead aggregator costs bounded memory, zero mass.
+            self._push.push_epoch(
+                fleet,
+                wall_time=wall,
+                progress=progress,
+                targets=[s.name for s in self.sources],
+                done=self._push_done,
+            )
 
     def _check_stalls(self) -> None:
         for s in self.sources:
@@ -805,12 +851,46 @@ class ProfilerDaemon:
                 }
             )
 
-    def enable_serving(self, port: int | None = None):
-        """The HTTP query plane over this daemon's published state: not
-        ported yet."""
-        raise NotImplementedError(
-            "the live query plane (repro.profilerd.server) is not ported yet: ROADMAP Queue 1 item 18"
+    def enable_serving(self, port: int | None = None, host: str | None = None):
+        """Start the HTTP query plane over this daemon's published state.
+
+        Returns the started :class:`~repro_torch.profilerd.server.ProfileServer`.
+        Reads are decoupled from ingest: every publish window hands a status
+        dict plus immutable fleet/per-target tree copies to
+        :class:`SharedProfileState`, and request handlers only ever touch
+        those.
+        """
+        from .server import LiveSource, ProfileServer, SharedProfileState
+
+        if self.server is not None:
+            return self.server
+        self.shared = SharedProfileState()
+        if self._device_tree is not None:
+            self.shared.set_device_tree(self._device_tree)
+        tdir = self.cfg.resolved_timeline_dir() if self.cfg.epoch_s > 0 else None
+        label = f"pid={self.target_pid or '?'}" if self.solo else f"fleet:{self.out_dir}"
+        source = LiveSource(
+            self.shared,
+            timeline_dir=tdir,
+            label=label,
+            target_timeline_dir_fn=None if self.solo else self._target_timeline_dir,
+            profile_dir=self.out_dir,
         )
+        self.server = ProfileServer(
+            source,
+            host=host if host is not None else self.cfg.serve_host,
+            port=port if port is not None else (self.cfg.serve_port or 0),
+        ).start()
+        self._record_event(
+            {"kind": "SERVING", "path": [], "share": 0.0, "url": self.server.url,
+             "wall_time": time.time()}
+        )
+        return self.server
+
+    def _target_timeline_dir(self, name: str) -> str | None:
+        if self.cfg.epoch_s <= 0 or name not in self.spools.sources:
+            return None
+        return os.path.join(self._target_dir(name), TIMELINE_DIRNAME)
 
     def publish(self) -> None:
         """One analysis window: detector verdicts + status/tree artifacts."""
@@ -841,6 +921,15 @@ class ProfilerDaemon:
         self._check_stalls()
         self._check_stragglers(changed)
         status = self.status()
+        if self.shared is not None:
+            # Snapshots are never mutated after this point; handlers may read
+            # them concurrently.  Quiet windows keep the previous trees.
+            self.shared.update(
+                status,
+                fleet_snap,
+                targets={s.name: s.last_snapshot for s in self.sources
+                         if s.last_snapshot is not None},
+            )
         _atomic_write(os.path.join(self.out_dir, "tree.json"), self.tree.to_json())
         if not self.solo:
             fresh = {id(s): snap for s, snap in changed}
@@ -924,10 +1013,10 @@ class ProfilerDaemon:
                 for row in self.spools.attach_failure_rows()
             ],
             "device_plane": self._device_tree is not None,
-            # The static and push planes are not ported: their keys stay.
+            # The static plane has no loader in the port: its key stays.
             "static_plane": False,
-            "node": None,
-            "push": None,
+            "node": self._push.node if self._push is not None else None,
+            "push": self._push.stats() if self._push is not None else None,
             "targets": {s.name: s.status_row() for s in srcs},
             "hot_paths": [
                 {"path": list(p), "share": round(s, 4)}
@@ -967,6 +1056,15 @@ class ProfilerDaemon:
         Returns the merged fleet tree."""
         if not self.spools.sources:
             self.attach()
+        if self.cfg.serve_port is not None and self.server is None:
+            try:
+                self.enable_serving()
+            except OSError as e:
+                # A busy/privileged port must not cost the profiling run.
+                self._record_event(
+                    {"kind": "SERVE_FAILED", "path": [], "share": 0.0,
+                     "error": str(e), "wall_time": time.time()}
+                )
         next_publish = time.monotonic() + self.cfg.publish_interval_s
         next_epoch = (
             time.monotonic() + self.cfg.epoch_s if self.cfg.epoch_s > 0 else None
@@ -1012,11 +1110,15 @@ class ProfilerDaemon:
                 break
             time.sleep(self.cfg.drain_interval_s)
         self.drain()  # salvage whatever dead/late targets left behind
+        self._push_done = True  # the final push announces a clean shutdown
         self.seal_epoch()  # final epoch: short runs still leave a timeline
         self.publish()
         if on_publish is not None:
             on_publish(self)
         self.write_report()
+        if self.server is not None:
+            self.server.stop()
+            self.server = None
         if self.fleet_writer is not None:
             self.fleet_writer.close()
         for s in self.sources:

@@ -1,7 +1,7 @@
 """Loading profile artifacts, in every shape this repo produces them.
 
-One loader serves the CLI and, once ported, the HTTP server's offline mode.
-A "profile" is any of:
+One loader serves the CLI (``timeline``/``diff``/``check``/``export``) and the
+HTTP server's offline mode.  A "profile" is any of:
 
 * a daemon ``--out`` dir (uses its ``timeline/`` ring, falling back to
   ``tree.json``);
@@ -11,25 +11,32 @@ A "profile" is any of:
 
 Beside a profile it finds the device-plane artifact (``device_tree.json``,
 read by ``repro_torch.core.device_tree.load_device_tree``, no torch). A copy
-of the parts of ``repro.profilerd.profiles`` the daemon and its CLI's
-``attach``/``status``/``report`` need; the offline server's freshness probe
-and timeline lookup, the multi-target listing and the aggregator's region
-map come with the server (ROADMAP Queue 1 item 18), and the static
-call-graph plane with item 21.
+of ``repro.profilerd.profiles`` but for the static call-graph plane, whose
+loader comes with ROADMAP Queue 1 item 21: a present ``static_tree.json``
+raises :class:`StaticPlaneNotPorted`, which every reader of a plane turns
+into its "no such plane" answer (HTTP 404, exit 4), never a crash.
 """
 
 from __future__ import annotations
 
+import json
 import os
+
+from repro_torch.core.planes import PlaneError
 
 TIMELINE_DIRNAME = "timeline"
 TARGETS_DIRNAME = "targets"  # multi-target daemon: per-target artifact dirs
 DEVICE_TREE_FILENAME = "device_tree.json"  # device-plane artifact beside a profile
 STATIC_TREE_FILENAME = "static_tree.json"  # static call-graph artifact beside a profile
+REGION_FILENAME = "region.json"  # aggregator out dir: region -> node -> target map
 
 
 class ProfileLoadError(RuntimeError):
     pass
+
+
+class StaticPlaneNotPorted(PlaneError, NotImplementedError):
+    """A ``static_tree.json`` exists, but the port cannot read it yet."""
 
 
 def load_profile(path: str):
@@ -67,6 +74,60 @@ def load_profile(path: str):
         return load_snapshot(path)[1]
     except (OSError, SnapshotError) as e:
         raise ProfileLoadError(f"{path}: unreadable snapshot: {e}") from None
+
+
+def profile_mtime(path: str) -> float:
+    """Newest mtime across the artifacts ``load_profile`` would read.
+
+    The server's offline source caches the loaded tree and re-reads only when
+    this changes, so serving a directory a daemon is *still writing into*
+    stays fresh without re-decoding the ring on every request.
+    """
+    from repro_torch.core.snapshot import list_segments
+
+    candidates = [path]
+    if os.path.isdir(path):
+        tj = _tree_json_inside(path)
+        if tj:
+            candidates.append(tj)
+        for d in (path, os.path.join(path, TIMELINE_DIRNAME)):
+            candidates.extend(list_segments(d))
+    newest = 0.0
+    for p in candidates:
+        try:
+            newest = max(newest, os.path.getmtime(p))
+        except OSError:
+            pass
+    return newest
+
+
+def list_profile_targets(path: str) -> list[str]:
+    """Target names under a multi-target daemon out dir (sorted; [] if none).
+
+    A target is any ``targets/<name>/`` subdir holding a ``tree.json`` or a
+    timeline ring — the shapes :func:`load_profile` can read.
+    """
+    from repro_torch.core.snapshot import is_timeline_dir
+
+    d = os.path.join(path, TARGETS_DIRNAME)
+    if not os.path.isdir(d):
+        return []
+    out = []
+    for name in sorted(os.listdir(d)):
+        sub = os.path.join(d, name)
+        if not os.path.isdir(sub):
+            continue
+        if os.path.exists(os.path.join(sub, "tree.json")) or is_timeline_dir(
+            os.path.join(sub, TIMELINE_DIRNAME)
+        ):
+            out.append(name)
+    return out
+
+
+def target_profile_dir(path: str, name: str):
+    """The per-target profile dir behind a fleet out dir, or None."""
+    sub = os.path.join(path, TARGETS_DIRNAME, name)
+    return sub if name in list_profile_targets(path) else None
 
 
 def _tree_json_inside(dir_path: str):
@@ -133,10 +194,47 @@ def static_tree_path(path: str, target: str | None = None):
 
 def load_static_plane(path: str, target: str | None = None):
     """The static call-graph CallTree beside a profile: None when absent. The
-    port has no static-tree loader yet, so a present artifact raises."""
+    port has no static-tree loader yet, so a present artifact raises
+    :class:`StaticPlaneNotPorted`."""
     p = static_tree_path(path, target)
     if p is None:
         return None
-    raise NotImplementedError(
+    raise StaticPlaneNotPorted(
         f"{p}: the static-tree loader (repro.analysis.static_tree) is not ported yet: ROADMAP Queue 1 [21]"
     )
+
+
+def load_region(path: str):
+    """The aggregator's ``region.json`` hierarchy beside a profile, or None.
+
+    Shape: ``{"region": <name>, "nodes": [{"name": ..., "targets": [...]},
+    ...]}`` — written by ``profilerd aggregate`` every publish window so the
+    offline query plane can serve hierarchical ``/targets`` from the same
+    artifact dir.
+    """
+    if not os.path.isdir(path):
+        return None
+    p = os.path.join(path, REGION_FILENAME)
+    try:
+        with open(p) as f:
+            data = json.load(f)
+    except OSError:
+        return None
+    except ValueError as e:
+        raise ProfileLoadError(f"{p}: unreadable region map: {e}") from None
+    return data if isinstance(data, dict) else None
+
+
+def timeline_dir_of(path: str):
+    """The timeline ring dir behind a profile path, if it has one."""
+    from repro_torch.core.snapshot import is_timeline_dir
+
+    if not os.path.isdir(path):
+        return None
+    if is_timeline_dir(path):
+        return path
+    for name in (TIMELINE_DIRNAME, "merged_timeline"):
+        tdir = os.path.join(path, name)
+        if is_timeline_dir(tdir):
+            return tdir
+    return None

@@ -1110,3 +1110,22 @@ def test_smoke_trainer_under_the_daemon_backend_on_card(card, tmp_path):
     assert status["n_stacks"] > 0 and tree.total() == status["n_stacks"]
     assert os.path.exists(summary["host_profile"])
     assert summary["kernel_launches"]["flash_attention"] > 0 and summary["kernel_launches"]["fused_rmsnorm_bwd"] > 0
+
+
+@pytest.mark.gpu
+def test_launcher_restarts_a_hung_smoke_trainer_on_card(card, tmp_path):
+    """``tests/test_torch_launcher.py``'s hung-once run with the smoke
+    xlstm-125m Trainer on the card: attempt 0 stopped after a complete
+    checkpoint, killed on its stale heartbeat and restarted; attempt 1
+    resumes from that checkpoint, reaches the last step and launches the
+    Triton norm forward and backward; one shared daemon saw both attempts.
+    The hang timeout covers a cold start on the card (CUDA, the Triton JIT,
+    the profiled second step)."""
+    from test_torch_launcher import hung_once
+
+    run = hung_once(tmp_path, "cuda", hang_timeout_s=60.0)
+    launches = run["summary"]["kernel_launches"]
+    assert launches["fused_rmsnorm"] > 0 and launches["fused_rmsnorm_bwd"] > 0
+    assert len(run["launcher"]._daemons) == 1
+    assert (run["prof"] / "fleet.d" / "targets" / "attempt1" / "tree.json").exists()
+    assert (run["prof"] / "merged_tree.json").exists()

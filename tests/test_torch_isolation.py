@@ -55,13 +55,27 @@ def test_importing_every_port_module_loads_no_jax():
         "import runpy; sys.argv = ['profilerd', 'attach', '--help']\n"
         "try: runpy.run_module('repro_torch.profilerd', run_name='__main__')\n"
         "except SystemExit as e: assert e.code == 0, e.code",
+        "import repro_torch.launch.launcher",
+        "import repro_torch.profilerd.server",
+        "import repro_torch.profilerd.aggregator",
+        "import repro_torch.profilerd.push, repro_torch.core.export, repro_torch.core.views_library, "
+        "repro_torch.core.report",
+        *[
+            f"import runpy; sys.argv = ['profilerd', {sub!r}, '--help']\n"
+            "try: runpy.run_module('repro_torch.profilerd', run_name='__main__')\n"
+            "except SystemExit as e: assert e.code == 0, e.code"
+            for sub in ("serve", "aggregate", "export")
+        ],
     ],
-    ids=["import-daemon", "import-daemon-side", "attach-help"],
+    ids=["import-daemon", "import-daemon-side", "attach-help", "import-launcher", "import-server",
+         "import-aggregator", "import-push-export-views", "serve-help", "aggregate-help", "export-help"],
 )
 def test_the_profiling_daemon_loads_no_torch(run):
     """The daemon process (its modules, the agent's, the device tree's loader
     and ``python -m repro_torch.profilerd attach --help``) loads no torch in a
-    fresh interpreter, so it maps neither torch nor CUDA."""
+    fresh interpreter, so it maps neither torch nor CUDA; nor do the launcher,
+    the query server, the aggregator, push, the exporters and the ``serve``,
+    ``aggregate`` and ``export`` subcommands."""
     code = f"import sys\n{run}\nprint(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'repro')))\n"
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)

@@ -1,6 +1,7 @@
 """The port's profiling daemon (``repro_torch.profilerd``) on the CPU: the
-tests of ``tests/test_profilerd.py`` that need no server, aggregator or push,
-pointed at the port, then the port held to the JAX package's daemon.
+tests of ``tests/test_profilerd.py`` pointed at the port (the aggregator's
+and push's are in ``tests/test_torch_aggregator.py``), then the port held to
+the JAX package's daemon.
 
 The copied invariants:
 
@@ -23,7 +24,12 @@ spool the port's ``Agent`` writes is drained by both packages' daemons to
 equal worker subtrees and ``status.json`` key sets; the resolvers give the
 same symbols but for the stated origin labels. Then the CLIs: the
 ``Trainer`` and the serve CLI on the daemon backend, the event registry,
-and what is not ported yet raising.
+the query and push planes a daemon starts, and the static plane's loader,
+which is not ported yet, raising.
+
+The multi-target class (``TestMultiTargetDaemon``) is the JAX package's
+serve and fleet tests pointed at the port: live and offline servers over a
+two-target daemon, ``--watch`` discovery, and the supervisor's exit hook.
 """
 
 import ast
@@ -37,6 +43,8 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import pytest
 
@@ -88,6 +96,14 @@ def wait_until(pred, timeout_s=10.0, interval_s=0.01, desc="condition"):
         if time.monotonic() >= deadline:
             raise AssertionError(f"timed out after {timeout_s:g}s waiting for {desc}")
         time.sleep(interval_s)
+
+
+def _http_get(url: str) -> tuple[int, str]:
+    try:
+        with urllib.request.urlopen(url, timeout=5) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
 
 
 def _thread_stack_funcs(thread) -> list:
@@ -1040,6 +1056,212 @@ _x_frame_st = st.sampled_from(
 _x_stacks_st = st.lists(st.lists(_x_frame_st, min_size=0, max_size=8), min_size=1, max_size=24)
 
 
+class TestMultiTargetDaemon:
+    """The tentpole: one daemon, N spools -> per-target trees + merged fleet."""
+
+    def _cfg(self, tmp_path, **kw):
+        kw.setdefault("out_dir", str(tmp_path / "fleet.out"))
+        kw.setdefault("publish_interval_s", 0.05)
+        kw.setdefault("drain_interval_s", 0.01)
+        kw.setdefault("epoch_s", 0.2)
+        kw.setdefault("max_seconds", 30.0)
+        return DaemonConfig(**kw)
+
+    def test_two_live_targets_served_and_merged(self, tmp_path):
+        """Acceptance: one daemon over >= 2 concurrently-running targets
+        serves distinct /tree?target= views plus a fleet tree whose inclusive
+        mass equals the sum of the per-target trees."""
+        alpha = FakeTarget(tmp_path / "alpha.spool", "alpha_leaf").emit(6)
+        beta = FakeTarget(tmp_path / "beta.spool", "beta_leaf").emit(4)
+        cfg = self._cfg(
+            tmp_path,
+            spool_paths=(str(tmp_path / "alpha.spool"), str(tmp_path / "beta.spool")),
+            serve_port=0,
+        )
+        daemon = ProfilerDaemon(cfg)
+        th = threading.Thread(target=daemon.run, daemon=True)
+        th.start()
+        try:
+            wait_until(lambda: daemon.server is not None, desc="query plane up")
+            url = daemon.server.url
+
+            def targets_published():
+                _code, body = _http_get(url + "/targets")
+                rows = {r["name"]: r for r in json.loads(body)["targets"]}
+                return rows if {"alpha", "beta"} <= set(rows) else None
+
+            rows = wait_until(targets_published, desc="both targets published")
+            assert rows["alpha"]["n_stacks"] == 6 and rows["beta"]["n_stacks"] == 4
+            assert rows["alpha"]["done"] is False and rows["alpha"]["alive"] is True
+
+            from repro_torch.core.export import from_folded
+
+            _c, alpha_folded = _http_get(url + "/tree?target=alpha&fmt=folded")
+            assert "alpha_leaf" in alpha_folded and "beta_leaf" not in alpha_folded
+            _c, beta_folded = _http_get(url + "/tree?target=beta&fmt=folded")
+            assert "beta_leaf" in beta_folded and "alpha_leaf" not in beta_folded
+            _c, fleet_folded = _http_get(url + "/tree?fmt=folded")
+            fleet = from_folded(fleet_folded)
+            per_target_sum = from_folded(alpha_folded).total() + from_folded(beta_folded).total()
+            assert fleet.total() == pytest.approx(per_target_sum) == pytest.approx(10.0)
+            code, body = _http_get(url + "/tree?target=nope&fmt=folded")
+            assert code == 404 and "unknown target" in body
+        finally:
+            alpha.bye()
+            beta.bye()
+            th.join(timeout=20)
+        assert not th.is_alive()
+        assert daemon.bye_seen
+
+        # On-disk layout: fleet tree + per-target artifacts + sealed rings.
+        from repro_torch.core.snapshot import TimelineReader
+        from repro_torch.profilerd.profiles import list_profile_targets, load_profile
+
+        out = cfg.resolved_out_dir()
+        assert load_profile(out).total() == 10.0
+        assert list_profile_targets(out) == ["alpha", "beta"]
+        assert load_profile(os.path.join(out, "targets", "alpha")).total() == 6.0
+        fleet_last = TimelineReader(os.path.join(out, "timeline")).last()
+        assert fleet_last is not None and fleet_last[1].total() == 10.0
+        alpha_last = TimelineReader(
+            os.path.join(out, "targets", "alpha", "timeline")
+        ).last()
+        assert alpha_last is not None and alpha_last[1].total() == 6.0
+        status = json.load(open(os.path.join(out, "status.json")))
+        assert status["n_targets"] == 2 and set(status["targets"]) == {"alpha", "beta"}
+
+    def test_offline_fleet_dir_serves_targets(self, tmp_path):
+        from repro_torch.profilerd.server import OfflineSource, ProfileServer
+
+        FakeTarget(tmp_path / "alpha.spool", "alpha_leaf").emit(6).bye()
+        FakeTarget(tmp_path / "beta.spool", "beta_leaf").emit(4).bye()
+        cfg = self._cfg(
+            tmp_path,
+            spool_paths=(str(tmp_path / "alpha.spool"), str(tmp_path / "beta.spool")),
+        )
+        ProfilerDaemon(cfg).run()  # both targets already said BYE: returns fast
+        src = OfflineSource(cfg.resolved_out_dir())
+        assert {r["name"] for r in src.targets()} == {"alpha", "beta"}
+        assert src.tree("alpha").total() == 6.0
+        assert src.tree().total() == 10.0
+        server = ProfileServer(src).start()
+        try:
+            _c, body = _http_get(server.url + "/targets")
+            assert {r["name"] for r in json.loads(body)["targets"]} == {"alpha", "beta"}
+            _c, folded = _http_get(server.url + "/tree?target=beta&fmt=folded")
+            assert "beta_leaf" in folded and "alpha_leaf" not in folded
+            code, _b = _http_get(server.url + "/tree?target=missing")
+            assert code == 404
+            _c, status_body = _http_get(server.url + "/status")
+            assert json.loads(status_body)["n_targets"] == 2
+        finally:
+            server.stop()
+
+    def test_watch_discovers_spool_created_after_start(self, tmp_path):
+        """Acceptance: --watch picks up a spool created after daemon start
+        within one drain interval."""
+        watch = tmp_path / "spools"
+        watch.mkdir()
+        cfg = self._cfg(tmp_path, watch_dir=str(watch), attach_timeout_s=10.0)
+        daemon = ProfilerDaemon(cfg)
+        th = threading.Thread(target=daemon.run, daemon=True)
+        th.start()
+        early = FakeTarget(watch / "early.spool", "early_leaf").emit(3)
+        wait_until(lambda: daemon.n_stacks == 3, desc="first spool attached+drained")
+        t0 = time.monotonic()
+        late = FakeTarget(watch / "late.spool", "late_leaf").emit(2)
+        wait_until(lambda: daemon.n_stacks == 5, desc="late spool discovered")
+        # "within one drain interval" (0.01s) plus scheduler noise; 2s is the
+        # generous CI bound that still proves discovery is loop-driven.
+        assert time.monotonic() - t0 < 2.0
+        assert set(daemon.spools.sources) == {"early", "late"}
+        early.bye()
+        late.bye()
+        # A --watch daemon outlives done targets (new ones may appear): it
+        # exits on request_stop (the launcher sends SIGTERM).
+        wait_until(lambda: daemon.bye_seen, desc="both targets drained to BYE")
+        assert th.is_alive()
+        daemon.request_stop()
+        th.join(timeout=20)
+        assert not th.is_alive()
+        kinds = [e["kind"] for e in daemon.events]
+        assert kinds.count("TARGET_ATTACHED") == 2
+        assert daemon.tree.total() == 5.0
+
+    def test_watch_skips_garbage_spool_with_one_event(self, tmp_path):
+        watch = tmp_path / "spools"
+        watch.mkdir()
+        (watch / "junk.spool").write_bytes(b"\xde\xad\xbe\xef" * 64)
+        FakeTarget(watch / "good.spool", "good_leaf").emit(3).bye()
+        cfg = self._cfg(tmp_path, watch_dir=str(watch))
+        daemon = ProfilerDaemon(cfg)
+        th = threading.Thread(target=daemon.run, daemon=True)
+        th.start()
+        wait_until(lambda: daemon.n_stacks == 3, desc="good spool drained")
+        daemon.request_stop()
+        th.join(timeout=20)
+        assert not th.is_alive()
+        fails = [e for e in daemon.events if e["kind"] == "SOURCE_ATTACH_FAILED"]
+        assert len(fails) == 1  # logged once, not once per drain pass
+        assert "junk" in fails[0]["path"] and "magic" in fails[0]["error"]
+        assert list(daemon.spools.sources) == ["good"]
+
+    def test_config_requires_a_source(self):
+        with pytest.raises(ValueError):
+            ProfilerDaemon(DaemonConfig())
+
+    def test_live_quiet_target_serves_empty_tree_not_404(self):
+        """A target that attached but has no published window yet is listed
+        by /targets, so /tree?target= must answer with an empty tree, not
+        contradict the listing with a 404."""
+        from repro_torch.profilerd.profiles import ProfileLoadError
+        from repro_torch.profilerd.server import LiveSource, SharedProfileState
+
+        shared = SharedProfileState()
+        shared.update({"targets": {"quiet": {"n_stacks": 0}}}, None, targets={})
+        src = LiveSource(shared)
+        assert src.tree("quiet").total() == 0.0
+        with pytest.raises(ProfileLoadError, match="unknown target"):
+            src.tree("missing")
+
+    def test_never_appearing_explicit_target_is_abandoned(self, tmp_path):
+        """A typo'd --targets path must not pin the run open forever: after
+        the attach window it is abandoned with a loud event and the daemon
+        exits once the real targets finish."""
+        FakeTarget(tmp_path / "real.spool", "real_leaf").emit(3).bye()
+        daemon = ProfilerDaemon(
+            self._cfg(
+                tmp_path,
+                spool_paths=(str(tmp_path / "real.spool"), str(tmp_path / "typo.spool")),
+                attach_timeout_s=0.3,
+            )
+        )
+        th = threading.Thread(target=daemon.run, daemon=True)
+        th.start()
+        th.join(timeout=20)
+        assert not th.is_alive(), "daemon hung on the never-appearing target"
+        never = [e for e in daemon.events if e["kind"] == "TARGET_NEVER_APPEARED"]
+        assert len(never) == 1 and never[0]["target"] == "typo"
+        assert daemon.tree.total() == 3.0
+
+    def test_exit_with_dead_pid_stops_watch_daemon(self, tmp_path):
+        """--exit-with: a watch daemon whose supervisor died finishes cleanly
+        instead of leaking forever."""
+        watch = tmp_path / "spools"
+        watch.mkdir()
+        FakeTarget(watch / "job.spool", "leaf").emit(2).bye()
+        dead_pid = 2**22 + 12345  # beyond any live pid on this box
+        daemon = ProfilerDaemon(
+            self._cfg(tmp_path, watch_dir=str(watch), exit_with_pid=dead_pid)
+        )
+        th = threading.Thread(target=daemon.run, daemon=True)
+        th.start()
+        th.join(timeout=20)
+        assert not th.is_alive()
+        assert "SUPERVISOR_GONE" in [e["kind"] for e in daemon.events]
+        assert daemon.tree.total() == 2.0
+
+
 def _jax_samples(samples):
     return [jax_wire.RawSample(s.t, s.tid, s.thread_name, [jax_wire.RawFrame(*dataclasses.astuple(f))
                                                            for f in s.frames]) for s in samples]
@@ -1226,15 +1448,34 @@ def test_an_agent_that_cannot_create_its_spool_raises(tmp_path):
 
 @pytest.mark.parametrize("field,value", [("serve_port", 0), ("push_url", "http://127.0.0.1:9/")])
 def test_the_planes_not_ported_yet_raise(tmp_path, field, value):
-    cfg = DaemonConfig(spool_path=str(tmp_path / "s.spool"), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 18"):
-        ProfilerDaemon(cfg)
+    """The query and push planes are ported: a daemon configured with either
+    builds, runs to its target's BYE, and reports the plane (the server's
+    SERVING event and URL; the push client's node and its failed pushes,
+    counted in status.json, to an address where nothing listens)."""
+    FakeTarget(tmp_path / "s.spool", "leaf").emit(3).bye()
+    cfg = DaemonConfig(spool_path=str(tmp_path / "s.spool"), publish_interval_s=0.05, drain_interval_s=0.01,
+                       epoch_s=0.05, max_seconds=20.0, push_timeout_s=0.5, **{field: value})
+    daemon = ProfilerDaemon(cfg)
+    assert daemon.run().total() == 3.0
+    status = json.loads((tmp_path / "s.spool.d" / "status.json").read_text())
+    if field == "serve_port":
+        (serving,) = [e for e in daemon.events if e["kind"] == "SERVING"]
+        assert serving["url"].startswith("http://127.0.0.1:") and daemon.server is None  # stopped at the end
+        assert status["push"] is None
+    else:
+        assert status["node"] and status["push"]["failures"] > 0
+        assert any(e["kind"] == "PUSH_FAILED" for e in daemon.events)
 
 
 def test_attach_serve_exits_2_naming_the_roadmap_item(tmp_path):
+    """``attach --serve`` serves while attached: the CLI returns 0 once its
+    target said BYE, and events.jsonl holds the SERVING event."""
     from repro_torch.profilerd.__main__ import main
 
-    assert main(["attach", "--spool", str(tmp_path / "s.spool"), "--serve", "0"]) == 2
+    FakeTarget(tmp_path / "s.spool", "leaf").emit(2).bye()
+    assert main(["attach", "--spool", str(tmp_path / "s.spool"), "--serve", "0", "--max-seconds", "20"]) == 0
+    events = [json.loads(x) for x in (tmp_path / "s.spool.d" / "events.jsonl").read_text().splitlines()]
+    assert any(e["kind"] == "SERVING" for e in events)
 
 
 def test_static_tree_loader_raises_where_an_artifact_exists(tmp_path):
@@ -1305,10 +1546,13 @@ def _emitted_kinds(path: pathlib.Path) -> set[str]:
 def test_every_event_kind_the_daemon_emits_is_registered():
     pkg = ROOT / "src" / "repro_torch"
     emitted = set()
-    for name in ("daemon.py", "sources.py", "agent.py", "pipeline.py"):
+    for name in ("daemon.py", "sources.py", "agent.py", "pipeline.py", "server.py", "push.py", "aggregator.py"):
         emitted |= _emitted_kinds(pkg / "profilerd" / name)
     emitted |= _emitted_kinds(pkg / "core" / "detector.py")
+    emitted |= _emitted_kinds(pkg / "launch" / "launcher.py")
     assert {"DEVICE_TREE_LOADED", "TARGET_STALLED", "TARGET_RESUMED", "LIVELOCK", "STRAGGLER"} <= emitted
+    assert {"SERVING", "SERVE_FAILED", "PUSH_FAILED", "PUSH_RECOVERED", "PUSH_REJECTED", "AGGREGATOR_RESTORED",
+            "NODE_ATTACHED", "NODE_REBOOTED", "NODE_STALLED", "NODE_RECOVERED"} <= emitted
     assert emitted <= events.EVENT_KINDS, sorted(emitted - events.EVENT_KINDS)
     assert events.EVENT_KINDS == jax_events.EVENT_KINDS
 

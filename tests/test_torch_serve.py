@@ -162,14 +162,23 @@ def test_cli_profiles_on_the_thread_backend(capsys):
     assert stats["requests_done"] == 8 and stats["profile_samples"] > 0 and stats["anomalies"] == []
 
 
-def test_cli_daemon_backend_is_not_ported(capsys):
+def test_cli_daemon_backend_is_not_ported(capsys, tmp_path):
     """The daemon backend is ported: the server's samples come back from a
-    daemon it spawned, which finished. ``--push`` (the daemon's push plane)
-    is still to port, and the CLI does not take it."""
-    main(["--arch", ARCH, "--device", "cpu", "--profile", "--backend", "daemon", "--requests", "3", "--batch", "2",
-          "--max-new", "2"])
-    out = capsys.readouterr().out
-    stats = json.loads(out[out.rfind("\n{\n") + 1:])
-    assert stats["requests_done"] == 3 and stats["profile_daemon"]["exit_code"] == 0 and stats["profile_daemon"]["done"]
-    with pytest.raises(SystemExit):
-        main(["--device", "cpu", "--profile", "--backend", "daemon", "--push", "http://127.0.0.1:9/"])
+    daemon it spawned, which finished. So is its push plane: with ``--push``
+    and ``--push-node`` the spawned daemon ships its sealed epochs to a
+    regional aggregator, whose node ends done with the server's samples."""
+    from repro_torch.profilerd.aggregator import Aggregator, AggregatorConfig
+
+    agg = Aggregator(AggregatorConfig(out_dir=str(tmp_path / "region.d")))
+    try:
+        url = agg.enable_serving().url
+        main(["--arch", ARCH, "--device", "cpu", "--profile", "--backend", "daemon", "--requests", "3", "--batch",
+              "2", "--max-new", "2", "--push", url, "--push-node", "n0"])
+        out = capsys.readouterr().out
+        stats = json.loads(out[out.rfind("\n{\n") + 1:])
+        assert stats["requests_done"] == 3 and stats["profile_daemon"]["exit_code"] == 0
+        assert stats["profile_daemon"]["done"]
+        node = agg.status()["nodes"]["n0"]
+        assert node["done"] and node["epochs_applied"] > 0 and node["mass"] == stats["profile_daemon"]["n_stacks"]
+    finally:
+        agg.close()

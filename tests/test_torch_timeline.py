@@ -16,9 +16,14 @@ Copied invariants:
   from plain dominance, both stamped with the epoch where they began; drift
   fires against a trailing baseline; phase segmentation splits on jumps.
 
-Left out with the code they test (ROADMAP Queue 1 item 18): the report's
-diffs and share regressions, the ``check``/``diff``/``timeline`` CLI, and
-the launcher's timeline merge.
+* differential — share regressions count only increases, the text diff
+  signs its deltas;
+* CLI — ``check`` exit codes (0 pass / 2 regression / 3 unreadable),
+  ``diff`` share deltas, ``timeline`` phase output, on the profiles
+  ``tests/data/gen_workload.py`` writes with the JAX package (so the port's
+  CLI reads the JAX package's rings and dumps).
+
+The launcher's timeline merge is in ``tests/test_torch_launcher.py``.
 
 Cross-package, exact: ``save_snapshot`` writes the JAX package's bytes for
 the same tree, each ``TimelineReader`` reads the other's ring, and the trend
@@ -29,6 +34,7 @@ sequences.
 import dataclasses
 import os
 import random
+import sys
 
 import pytest
 
@@ -58,8 +64,13 @@ from repro_torch.core.snapshot import (
     read_epochs,
     save_snapshot,
 )
+from repro_torch.core.report import render_diff, share_regressions
+from repro_torch.profilerd.__main__ import main as profilerd_main
 from repro_torch.profilerd.ingest import TreeIngestor
 from repro_torch.profilerd.wire import RawFrame, RawSample
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "data"))
+import gen_workload  # noqa: E402  (writes its profiles with the JAX package)
 
 
 def sample_tree() -> CallTree:
@@ -354,6 +365,114 @@ class TestTrendDetector:
         assert segment_phases([]) == []
 
 
+
+
+class TestDifferential:
+    def test_share_regressions_only_increases(self):
+        base = window([(("t", "model"), 8.0), (("t", "data"), 2.0)])
+        cur = window([(("t", "model"), 4.0), (("t", "data"), 1.0), (("t", "spin"), 5.0)])
+        regs = share_regressions(base, cur, tolerance=0.05)
+        names = [r[0] for r in regs]
+        assert names == ["spin"]  # data/model *lost* share: not regressions
+        assert regs[0][3] == pytest.approx(0.5)
+
+    def test_render_diff_shows_signed_deltas(self):
+        a = window([(("t", "model"), 8.0), (("t", "data"), 2.0)])
+        b = window([(("t", "model"), 2.0), (("t", "data"), 8.0)])
+        out = render_diff(a, b, label_a="base", label_b="cand")
+        assert "t/model" in out and "t/data" in out
+        assert "+60.00%" in out and "-60.00%" in out
+
+
+class TestCheckCLI:
+    @pytest.fixture
+    def gate(self, tmp_path):
+        base_snap = str(tmp_path / "base.snap")
+        good = str(tmp_path / "good")
+        bad = str(tmp_path / "bad")
+        tree = CallTree.from_json(gen_workload.build(good).to_json())  # the JAX package writes the profiles
+        save_snapshot(tree, base_snap)
+        gen_workload.build(bad, inject_hot_loop=True)
+        return base_snap, good, bad
+
+    def test_check_pass(self, gate, capsys):
+        base, good, _ = gate
+        rc = profilerd_main(["check", good, "--baseline", base, "--tolerance", "0.02"])
+        assert rc == 0
+        assert "PASS" in capsys.readouterr().out
+
+    def test_check_regression(self, gate, capsys):
+        base, _, bad = gate
+        rc = profilerd_main(["check", bad, "--baseline", base, "--tolerance", "0.02"])
+        assert rc == 2
+        out = capsys.readouterr().out
+        assert "REGRESSION" in out and "spin_retry_loop" in out
+
+    def test_check_missing_baseline(self, gate, tmp_path):
+        _, good, _ = gate
+        rc = profilerd_main(
+            ["check", good, "--baseline", str(tmp_path / "nope.snap")]
+        )
+        assert rc == 3
+
+    def test_check_missing_profile(self, gate, tmp_path):
+        base, _, _ = gate
+        rc = profilerd_main(["check", str(tmp_path / "nope"), "--baseline", base])
+        assert rc == 3
+
+    def test_check_accepts_tree_json_and_snap(self, gate, tmp_path):
+        base, good, _ = gate
+        rc = profilerd_main(
+            ["check", os.path.join(good, "tree.json"), "--baseline", base]
+        )
+        assert rc == 0
+
+    def test_committed_ci_baseline_matches_workload(self):
+        """The committed baseline gates the deterministic workload (the CI
+        profile-gate contract); regenerate with gen_workload.py --snapshot
+        if the workload ever changes deliberately."""
+        committed = os.path.join(os.path.dirname(__file__), "data", "ci_baseline.snap")
+        _meta, tree = load_snapshot(committed)
+        assert tree.root == CallTree.from_json(gen_workload.build(None).to_json()).root
+
+    def test_diff_cli(self, gate, capsys):
+        base, good, bad = gate
+        rc = profilerd_main(["diff", good, bad, "--self-only"])
+        assert rc == 0
+        assert "spin_retry_loop" in capsys.readouterr().out
+
+    def test_timeline_cli(self, gate, capsys):
+        _, good, _ = gate
+        rc = profilerd_main(["timeline", "--store", good])
+        assert rc == 0
+        out = capsys.readouterr().out
+        assert "phase epochs 0..7" in out and "scores" in out
+
+    def test_timeline_cli_missing(self, tmp_path):
+        assert profilerd_main(["timeline", "--store", str(tmp_path / "none")]) == 3
+
+    def test_check_empty_profile_is_unreadable_not_pass(self, gate, tmp_path):
+        # A profile with zero samples must not pass vacuously: the gate
+        # would otherwise go green exactly when profiling broke.
+        base, _, _ = gate
+        empty = tmp_path / "empty.json"
+        empty.write_text(CallTree().to_json())
+        rc = profilerd_main(["check", str(empty), "--baseline", base])
+        assert rc == 3
+
+    def test_check_falls_back_to_tree_json_when_ring_undecodable(self, gate, tmp_path):
+        # Daemon killed mid-keyframe: ring has a header-only segment, but a
+        # valid tree.json sits beside it — check must use it, not exit 3.
+        base, good, _ = gate
+        out = tmp_path / "out"
+        out.mkdir()
+        (out / "tree.json").write_text(gen_workload.build(None).to_json())
+        ring = out / "timeline"
+        ring.mkdir()
+        seg = ring / "seg-0000000000.tl"
+        seg.write_bytes(b"")  # crash before the header landed
+        rc = profilerd_main(["check", str(out), "--baseline", base])
+        assert rc == 0
 
 
 class TestDaemonStatusJson:

@@ -260,18 +260,17 @@ class TestTrainer:
 
     def test_daemon_backend_is_not_ported(self, tmp_path):
         """The daemon backend is ported (the Trainer builds the agent's
-        backend, which spawns ``repro_torch.profilerd``); what is still to
-        port is the daemon's push plane, which raises."""
+        backend, which spawns ``repro_torch.profilerd``), and so is its push
+        plane: the job's ``push_url``/``push_node`` reach the backend's
+        config, from which the spawned daemon gets ``attach --push``."""
         from repro_torch.profilerd.agent import DaemonBackend
-        from repro_torch.profilerd.daemon import DaemonConfig, ProfilerDaemon
 
-        trainer = Trainer(job(tmp_path, profile_backend="daemon"))
+        trainer = Trainer(job(tmp_path, profile_backend="daemon", push_url="http://127.0.0.1:9/", push_node="n0"))
         try:
             assert isinstance(trainer.sampler, DaemonBackend) and trainer.sampler.spawn_daemon
+            assert (trainer.sampler.config.push_url, trainer.sampler.config.push_node) == ("http://127.0.0.1:9/", "n0")
         finally:
             trainer.data.close()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ProfilerDaemon(DaemonConfig(spool_path=str(tmp_path / "s.spool"), push_url="http://127.0.0.1:9/"))
 
 
 class TestData:
