@@ -96,7 +96,8 @@ then the training paths:
               cut to 8 layers (2 stacked units + the 2 remainder rec layers; 11
               do not fit, see TRAIN_HYBRID) at B = 1, S = 4096, then on
               deepseek-moe-16b at full width cut to 6 layers (TRAIN_MOE) at
-              B = 1, S = 2048, then on xlstm-125m uncut at B = 8, S = 512
+              B = 1, S = 2048, then on xlstm-125m at full width cut to 4
+              layers, one (slstm, mlstm x 3) unit of 12, at B = 8, S = 512
               (TRAIN_XLSTM: whole chunks of 256), from
               ``SyntheticLM``: one warm-up step whose loss and gradients must
               be finite, three timed steps (step ms,
@@ -149,6 +150,23 @@ then the training paths:
               fallback, the RMSNorm kernel and its backward in both attempts;
               prints the heartbeats, the time to recover, push bytes, the
               rendezvous collect's ms and the stall events (``launcher_phase``);
+   faults -- the port's fault corpus (``repro_torch.faults``): the two model
+              scenarios at full width on the card, each through
+              ``run_scenario`` with the default ``HarnessConfig`` (the windows
+              of ``BENCH_detect.json``), one fault run and one control run,
+              each child profiled by the port's daemon from outside:
+              ``moe_imbalance`` (one deepseek-moe-16b MoE layer, 2 x 64
+              tokens, collapsed inputs drop 0.875 and the retry loop
+              livelocks) and ``serve_convoy`` (gemma-2b through the batched
+              server, decode parked on the metrics lock); fails unless each is
+              detected by an expected kind inside the fault window, its best
+              time-to-detect is at most 10 epochs, its control run has no
+              scored verdict, the markers reached the daemon, every child ran
+              on the card and the serve children launched the RMSNorm kernel;
+              prints each run's detector row, the agent's ticks and the
+              daemon's samples in the fault window, the dropped fractions, the
+              decode rounds a second clean and faulted, each child's cold start
+              and the phase's wall (``faults_phase``);
 10. train_check -- one train step at the smoke config of qwen3-4b,
               recurrentgemma-9b, deepseek-moe-16b and xlstm-125m through the kernels on the
               card, and the same step through the plain versions on the card and
@@ -269,10 +287,16 @@ TRAIN_HYBRID = dict(arch="recurrentgemma-9b", B=1, S=4096, timed_steps=3, n_laye
 # 55.1 GB, and the f32 logits of 2048 x 102,400 are 0.84 GB.
 TRAIN_MOE = dict(arch="deepseek-moe-16b", B=1, S=2048, timed_steps=3, n_layers=6, flash=("wgmma", "wgmma"),
                  depth_why="28 layers need 262 GB of f32 state; 6 (the dense layer and 5 MoE units) need 55.1 GB")
-# xlstm-125m uncut (1.8 GB of f32 state), remat "full": 8 x 512 tokens a
-# step, so each mLSTM layer differentiates two whole chunks of 256 (where the
-# JAX package's gradient is NaN) and each sLSTM layer a loop of 512 steps
-TRAIN_XLSTM = dict(arch="xlstm-125m", B=8, S=512, timed_steps=3)
+# xlstm-125m at full width cut to one (slstm, mlstm, mlstm, mlstm) unit of its
+# 12 layers, remat "full": 8 x 512 tokens a step, so each mLSTM layer
+# differentiates two whole chunks of 256 (where the JAX package's gradient is
+# NaN) and the sLSTM layer a loop of 512 steps. Cut for time, not memory (12
+# layers take 1.8 GB of f32 state): the profiled step of the device plane held
+# ~700 K events at 12 layers, 125-175 s of the script; the prefill, the serve
+# path and the launcher phase keep all 12 layers.
+TRAIN_XLSTM = dict(arch="xlstm-125m", B=8, S=512, timed_steps=3, n_layers=4,
+                   depth_why="for the script's time limit: one of the 3 (slstm, mlstm x 3) units, so the device "
+                             "plane's profile holds one sLSTM loop of 512 steps, not three")
 # One train step at qwen3-4b smoke, card against CPU, from the same weights and
 # batch: the loss within 0.01; each moment leaf within 5 % relative L2 (the
 # matrix products sum in another order on the card, and bf16 activations round
@@ -1992,6 +2016,91 @@ def launcher_phase(hang_timeout_s: float = LAUNCHER_HANG_TIMEOUT_S) -> dict:
     return launches
 
 
+# The fault corpus's model scenarios, each run as BENCH_detect.json's cells are
+# (the default HarnessConfig), at full width on the card.
+FAULTS_SCENARIOS = ("moe_imbalance", "serve_convoy")
+
+
+def faults_phase(torch, kind: str) -> dict:
+    """``repro_torch.faults.run_scenario`` over ``FAULTS_SCENARIOS`` on the
+    card at full width (``device="cuda"``, ``smoke=False``), a fault run and a
+    control run each, after freeing the parent's cached blocks (the children
+    are processes of their own). Fails unless, for both scenarios: a kind of
+    the scenario's ``expected_kinds`` fires inside the fault window; the best
+    time-to-detect (``floor_report``) is at most its floor of 10 epochs; the
+    control run has no scored verdict; ``FAULT_INJECT`` and ``FAULT_CLEAR``
+    reached the daemon's events; every child ran on this card (``kind``); and
+    the serve children launched ``fused_rmsnorm``. Prints each run's detector
+    row, the agent's ticks (the child's own count) and the daemon's
+    ``n_stacks`` (samples ingested) inside the fault window, the MoE child's
+    dropped fractions clean and collapsed, the serve child's decode rounds a
+    second clean and faulted, each child's cold start (spawn to ready) and
+    the phase's wall. -> the children's kernel launches (their stepped loops,
+    after each child's warm-up)."""
+    from repro_torch.faults import SCENARIOS, HarnessConfig, floor_report, run_scenario, score_runs
+    from repro_torch.faults.scoreboard import detector_of
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = HarnessConfig(device="cuda", smoke=False)
+    launches: dict[str, int] = {}
+    numbers, checks = {}, {}
+    for name in FAULTS_SCENARIOS:
+        scen = SCENARIOS[name]
+        runs = {"fault": run_scenario(scen, cfg, control=False), "control": run_scenario(scen, cfg, control=True)}
+        fault, control = runs["fault"], runs["control"]
+        cells = score_runs(fault.events, control.events, t_inject=fault.t_inject, t_clear=fault.t_clear,
+                           epoch_s=cfg.epoch_s, grace_epochs=cfg.grace_epochs)
+        floors = floor_report({name: cells})
+        best = floors["per_scenario"][name]["best_ttd_epochs"]
+        tp_kinds = sorted({k for c in cells.values() for k in c.kinds})
+        reports = {run: r.child_reports.get("host0", {}) for run, r in runs.items()}
+        for rep in reports.values():
+            for k, n in rep.get("kernel_launches", {}).items():
+                launches[k] = launches.get(k, 0) + n
+        fault_kinds = {e["kind"] for e in fault.events}
+        ticks = reports["fault"].get("agent_ticks", {})
+        row = {
+            "matrix": {col: cell.to_json() for col, cell in cells.items()},
+            "best_ttd_epochs": best, "floors_pass": floors["pass"], "problems": floors["problems"],
+            "expected_kinds": list(scen.expected_kinds), "true_positive_kinds": tp_kinds,
+            "control_scored": [e["kind"] for e in control.events if detector_of(e) is not None],
+            "fault_window_s": fault.t_clear - fault.t_inject,
+            "agent_ticks_in_fault": ticks.get("at_clear", 0) - ticks.get("at_inject", 0),
+            "agent_ticks": {run: rep.get("agent_ticks") for run, rep in reports.items()},
+            "daemon_samples_in_fault": fault.n_stacks_at.get("clear", 0) - fault.n_stacks_at.get("inject", 0),
+            "cold_start_s": {run: r.ready_s for run, r in runs.items()},
+            "devices": {run: rep.get("device") for run, rep in reports.items()},
+            "launches": {run: {k: n for k, n in rep.get("kernel_launches", {}).items() if n}
+                         for run, rep in reports.items()},
+        }
+        if name == "moe_imbalance":
+            row["dropped_frac"] = {run: rep.get("dropped_frac") for run, rep in reports.items()}
+            row["capacity"] = reports["fault"].get("capacity")
+            row["retry_passes"] = reports["fault"].get("retry_passes")
+        if name == "serve_convoy":
+            row["rounds_per_s"] = {run: rep.get("rounds_per_s") for run, rep in reports.items()}
+            row["decode_steps"] = {run: rep.get("decode_steps") for run, rep in reports.items()}
+        numbers[name] = row
+        checks[name] = {
+            "expected_kind_in_window": bool(set(tp_kinds) & set(scen.expected_kinds)),
+            "best_ttd_within_floor": best is not None and best <= floors["ttd_floor_epochs"],
+            "control_silent": sum(c.control_fps for c in cells.values()) == 0,
+            "markers_ingested": {"FAULT_INJECT", "FAULT_CLEAR"} <= fault_kinds,
+            "children_on_the_card": all(rep.get("device") == kind for rep in reports.values()),
+        }
+        if name == "serve_convoy":
+            checks[name]["rmsnorm_launched"] = all(rep.get("kernel_launches", {}).get("fused_rmsnorm", 0) > 0
+                                                   for rep in reports.values())
+        if not all(checks[name].values()):  # the children's last log lines, to read the failure by
+            row["host_logs"] = {run: r.host_logs for run, r in runs.items()}
+    emit("faults", scenarios=numbers, launches=launches, wall_s=time.perf_counter() - t0, checks=checks)
+    failed = sorted(f"{n}.{k}" for n, c in checks.items() for k, v in c.items() if not v)
+    if failed:
+        raise AssertionError(f"faults: checks failed: {failed}")
+    return launches
+
+
 def smoke_batch(torch, cfg) -> dict:
     """A smoke config's train batch on the CPU: 4 x 64 ``SyntheticLM``
     tokens and labels (seed 0); where the config takes embeddings, bf16
@@ -2316,7 +2425,8 @@ def main() -> int:
                 lambda: train_phase(torch, get_config, ops, dev, TRAIN_XLSTM),
                 lambda: trainer_phase(torch, ops, dev),
                 lambda: profilerd_phase(),
-                lambda: launcher_phase()):
+                lambda: launcher_phase(),
+                lambda: faults_phase(torch, kind)):
         for name, n in run().items():
             launches[name] += n
         torch.cuda.empty_cache()

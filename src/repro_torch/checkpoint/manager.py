@@ -19,6 +19,10 @@ complete, so a crash mid-save can never corrupt the restore point.
   where the reference's list counts saves and deletes a step it still lists.
 * ``restore_latest``: the restart path; tolerant of a trailing ``.tmp`` from a
   crashed save. Leaves come back as CPU torch tensors in their saved dtypes.
+
+Saving loads no torch: a leaf can be a torch tensor only in a process that
+has imported torch, so a host-only job (the fault corpus's ``ckpt_wedge``
+child) checkpoints numpy state without it. Restoring imports torch.
 """
 
 from __future__ import annotations
@@ -27,12 +31,15 @@ import json
 import os
 import re
 import shutil
+import sys
 import threading
 from collections.abc import Callable
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import numpy as np
-import torch
+
+if TYPE_CHECKING:
+    import torch
 
 _SEP = "."
 
@@ -76,7 +83,8 @@ def _to_host(v) -> tuple[np.ndarray, str]:
     """-> (a host numpy copy of the leaf, its dtype's name). A copy even of a
     CPU tensor: the caller may update the leaf in place while the writer
     thread saves it. A bf16 tensor becomes its raw bits as uint16."""
-    if isinstance(v, torch.Tensor):
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(v, torch.Tensor):
         t = v.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -87,6 +95,8 @@ def _to_host(v) -> tuple[np.ndarray, str]:
 
 def _from_host(a: np.ndarray, dtype: str) -> torch.Tensor:
     """The inverse of :func:`_to_host`, as a CPU tensor."""
+    import torch
+
     if dtype == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)

@@ -1129,3 +1129,24 @@ def test_launcher_restarts_a_hung_smoke_trainer_on_card(card, tmp_path):
     assert len(run["launcher"]._daemons) == 1
     assert (run["prof"] / "fleet.d" / "targets" / "attempt1" / "tree.json").exists()
     assert (run["prof"] / "merged_tree.json").exists()
+
+
+@pytest.mark.gpu
+def test_serve_convoy_detected_on_card(card):
+    """``chip_smoke.py``'s ``faults`` phase at smoke size: the port's
+    ``serve_convoy`` scenario through the harness with its child on the card
+    (gemma-2b smoke through the batched server) and the port's daemon
+    attached from outside; the lock convoy is detected inside the fault
+    window, and the child ran its decode on the card through the RMSNorm
+    kernel."""
+    from repro_torch.faults import SCENARIOS, HarnessConfig, run_scenario, score_runs
+
+    cfg = HarnessConfig(clean_s=1.6, fault_s=2.4, recovery_s=1.2, device="cuda", smoke=True)
+    res = run_scenario(SCENARIOS["serve_convoy"], cfg, control=False)
+    cells = score_runs(res.events, [], t_inject=res.t_inject, t_clear=res.t_clear, epoch_s=cfg.epoch_s,
+                       grace_epochs=cfg.grace_epochs)
+    kinds = sorted({e["kind"] for e in res.events})
+    assert cells["dominance"].detected and "LOCK_CONVOY" in cells["dominance"].kinds, kinds
+    report = res.child_reports["host0"]
+    assert report["device"] == torch.cuda.get_device_name(0)
+    assert report["kernel_launches"]["fused_rmsnorm"] > 0

@@ -66,16 +66,21 @@ def test_importing_every_port_module_loads_no_jax():
             "except SystemExit as e: assert e.code == 0, e.code"
             for sub in ("serve", "aggregate", "export")
         ],
+        "import repro_torch.faults, repro_torch.faults.__main__, repro_torch.faults._target, "
+        "repro_torch.checkpoint",
     ],
     ids=["import-daemon", "import-daemon-side", "attach-help", "import-launcher", "import-server",
-         "import-aggregator", "import-push-export-views", "serve-help", "aggregate-help", "export-help"],
+         "import-aggregator", "import-push-export-views", "serve-help", "aggregate-help", "export-help",
+         "import-faults"],
 )
 def test_the_profiling_daemon_loads_no_torch(run):
     """The daemon process (its modules, the agent's, the device tree's loader
     and ``python -m repro_torch.profilerd attach --help``) loads no torch in a
     fresh interpreter, so it maps neither torch nor CUDA; nor do the launcher,
     the query server, the aggregator, push, the exporters and the ``serve``,
-    ``aggregate`` and ``export`` subcommands."""
+    ``aggregate`` and ``export`` subcommands; nor do the fault corpus's
+    registry, harness, CLI and child entry point, and the checkpoint manager
+    (the ``ckpt_wedge`` child's), before a model driver's warm-up."""
     code = f"import sys\n{run}\nprint(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'repro')))\n"
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
