@@ -32,6 +32,24 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               at 1 and 2 x 4096 x 4096 f32, also held to its own order of
               arithmetic, its two launches equal to the bit;
 
+then the paper's Fig. 1 engines (``core/engines.py``), first of the paths:
+
+   engines -- ``repro_torch.benchmarks.fig01_engines`` at qwen3-4b's full width
+              and depth (36 layers, B 2 x S 64): eager, blockwise (one CUDA
+              graph a stage: embed, 36 layers, the head with cross-entropy; a
+              sync after each) and compiled (one graph of ``Model.loss``), each
+              3 steps under the thread sampler at 0.02 s with the capture inside
+              the timed window (cold), then 3 more (warm: replays only): ms a
+              step, tokens/s, the torch frame share, launches a step; fails
+              unless both graph engines captured, every engine's warm step
+              launches flash 36 and RMSNorm 145 times, the compiled loss equals
+              the eager loss to the bit and every loss is finite; one eager
+              step and one replay under torch.profiler (device ms, kernels,
+              idle share); then the eager engine's steps (ENGINES_AGENT_STEPS,
+              ENGINES_AGENT_ROUNDS rounds) bare, under the thread sampler and
+              under the daemon backend, at 0.02 s: what the agent costs a job
+              on the card (``engines_phase``);
+
 then five serving paths and two paths from embeddings, each through the
 entry points a user calls, with random weights drawn from seed 0, each freed
 before the next (every line carries ``t_s``, the seconds since the start):
@@ -112,7 +130,9 @@ then the training paths:
               share, the top components by
               device ms, the tree's flops against 6 N D, the tree's roofline
               bound on the H100 against the measured step, and the hand-written
-              kernels the tree holds against ``ops.launch_counts()``; it fails
+              kernels the tree holds against ``ops.launch_counts()``, and for
+              qwen3-4b and deepseek-moe-16b ``fig10_12_zoom``'s row from the
+              same tree (attention by flops, the MoE by ops); it fails
               when the tree is empty, when the backward holds no kernel, or
               when a ``flash_attention`` / ``fused_rmsnorm`` / ``rglru_scan``
               kernel of the path is missing from either branch;
@@ -205,6 +225,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1290,6 +1311,102 @@ def train_phase(torch, get_config, ops, dev, spec: dict) -> dict:
     return counts
 
 
+# The engines phase: fig01_engines at qwen3-4b's full width and depth; the
+# eager engine's warm steps again without a sampler and under each backend
+ENGINES_AGENT_STEPS = 20  # eager steps a run of the agent's cost (~1 s at ~60 ms a step)
+ENGINES_AGENT_ROUNDS = 3  # rounds of (bare, thread, daemon): the host spreads a bare run by ~40 % on the card
+ENGINES_LAUNCHES = {"flash_attention": 36, "flash_attention_wgmma": 36, "fused_rmsnorm": 145}  # a forward
+
+
+def engines_phase(torch, ops, dev) -> dict:
+    """``repro_torch.benchmarks.fig01_engines`` on the card at qwen3-4b's full
+    width and depth (36 layers, 8.8 GB of bf16 weights): each engine (eager;
+    blockwise, one CUDA graph a stage; compiled, one graph) runs fig01's 3
+    steps under the thread sampler at 0.02 s with the capture inside the
+    timed window (cold), then 3 more (warm: replays only). Fails unless the
+    graph engines captured, every engine's warm steps launch flash 36 and
+    RMSNorm 145 times a step, the compiled loss equals the eager loss to the
+    bit and every loss is finite. Then one eager step and one compiled replay
+    under torch.profiler (device ms, idle share, kernels a step; the replay
+    also on CUDA events), and the agent's cost on the card: the eager
+    engine's steps bare, under the thread sampler and under the daemon
+    backend (a spawned ``repro_torch.profilerd``), each at 0.02 s, in
+    ``ENGINES_AGENT_ROUNDS`` rounds. -> the phase's counted launches."""
+    import statistics
+
+    from repro_torch.benchmarks import fig01_engines as fig01
+    from repro_torch.core import SamplerConfig, make_sampler
+    from repro_torch.core.engines import EagerEngine
+
+    t0 = time.perf_counter()
+    model, params, batch = fig01.setup(dev, smoke=False)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    full_loss, stages = fig01.make_fns(model, params, batch)
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    engines, rows = fig01.make_engines(full_loss, stages), {}
+    for eng in engines:
+        row = {}
+        for run in ("cold", "warm"):
+            ops.reset_launch_counts()
+            r = fig01.run_engine(eng, params)
+            counts = ops.launch_counts()
+            for k, n in counts.items():
+                launches[k] += n
+            row[run] = {"ms_per_step": r["wall_s"] / fig01.STEPS * 1e3, "tokens_per_s": r["tokens_per_s"],
+                        "torch_frame_share": r["torch_frame_share"], "loss": r["loss"],
+                        "launches_per_step": {k: n / fig01.STEPS for k, n in counts.items() if n}}
+        rows[eng.name] = {"captured": eng.captured, "loss_hex": row["warm"]["loss"].hex(), **row}
+    eager, _, compiled = engines
+    profiles = {"eager": profile_step(torch, lambda: eager.run_step(params)),
+                "compiled": profile_step(torch, lambda: compiled.run_step(params))}
+    profiles["compiled"]["events_ms"] = events_ms(lambda: compiled.run_step(params), iters=10)
+    with torch.no_grad():
+        ce = float(model.loss(params, batch)[1]["ce"])
+    agent = {label: {"ms_per_step": [], "samples": []} for label in ("none", "thread", "daemon")}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(ENGINES_AGENT_ROUNDS):
+            for label in agent:
+                cfg = {"thread": SamplerConfig(period_s=fig01.PERIOD_S),
+                       "daemon": SamplerConfig(period_s=fig01.PERIOD_S, backend="daemon", spawn_daemon=True,
+                                               spool_path=str(Path(tmp) / f"engines{i}.spool"))}.get(label)
+                sampler = make_sampler(cfg) if cfg else None
+                if sampler:
+                    sampler.start()
+                    if hasattr(sampler, "wait_ready"):
+                        sampler.wait_ready()  # the daemon's start-up stays out of the timed steps
+                res = EagerEngine(full_loss).run(ENGINES_AGENT_STEPS, lambda i: (params,))
+                if sampler:
+                    sampler.stop()
+                agent[label]["ms_per_step"].append(res.wall_s / ENGINES_AGENT_STEPS * 1e3)
+                agent[label]["samples"].append(sampler.n_samples if sampler else 0)
+    for a in agent.values():
+        a["median_ms"] = statistics.median(a["ms_per_step"])
+    for label in ("thread", "daemon"):
+        agent[label]["overhead"] = agent[label]["median_ms"] / agent["none"]["median_ms"] - 1
+    out = {
+        "arch": model.cfg.name, "layers": model.cfg.n_layers, "batch": fig01.B, "seq": fig01.S,
+        "steps": fig01.STEPS, "init_s": init_s, "engines": rows, "profiles": profiles, "eager_ce": ce,
+        "blockwise_minus_eager_ce": rows["blockwise"]["warm"]["loss"] - ce,
+        "compiled_equals_eager_bits": rows["compiled"]["warm"]["loss"] == rows["eager"]["warm"]["loss"],
+        "agent_steps": ENGINES_AGENT_STEPS, "agent_period_s": fig01.PERIOD_S, "agent": agent,
+        "phase_s": time.perf_counter() - t0,
+    }
+    emit("engines", **out)
+    bad_launches = {name: e["warm"]["launches_per_step"] for name, e in rows.items()
+                    if e["warm"]["launches_per_step"] != ENGINES_LAUNCHES}
+    finite = all(math.isfinite(e[run]["loss"]) for e in rows.values() for run in ("cold", "warm"))
+    if (not rows["blockwise"]["captured"] or not rows["compiled"]["captured"] or bad_launches or not finite
+            or not out["compiled_equals_eager_bits"]):
+        raise AssertionError(f"engines: captured {[e['captured'] for e in rows.values()]}, launches per step "
+                             f"apart from {ENGINES_LAUNCHES}: {bad_launches}, finite {finite}, compiled loss "
+                             f"{rows['compiled']['warm']['loss']!r} against eager {rows['eager']['warm']['loss']!r}")
+    del model, params, batch, full_loss, stages, engines, eager, compiled
+    gc.collect()  # the graphs' memory pools go with the engines
+    torch.cuda.empty_cache()
+    return launches
+
+
 # The hand-written kernels the device plane must find in a train step's tree,
 # by the layer kinds that launch them: forward under jvp(loss), backward under
 # transpose(jvp(loss)) (where a checkpoint's recompute launches forwards too).
@@ -1300,12 +1417,14 @@ DEVICE_PLANE_ATTEMPTS = 3  # profiles of one more step, where the profiler dropp
 def device_plane(torch, ops, dev, cfg, spec: dict, run_step, timed_ms: float) -> dict:
     """The ``device_plane`` line of one train setup: ``run_step`` (one more
     train step, after the timed ones) profiled into the device tree, read as
-    ``repro_torch.benchmarks.fig08_11_breakdown`` reads it. Fails (after
+    ``repro_torch.benchmarks.fig08_11_breakdown`` reads it, with
+    ``fig10_12_zoom``'s row where the arch is one it zooms. Fails (after
     DEVICE_PLANE_ATTEMPTS profiles) if the tree is empty, the backward holds
     no kernel, or a hand-written kernel of the path holds none in either
     branch; the launches the tree's ``kernel:`` nodes count must equal
     ``ops.launch_counts()`` for the step."""
     from repro_torch.benchmarks.fig08_11_breakdown import FORWARD, BACKWARD, component_shares, step_split
+    from repro_torch.benchmarks.fig10_12_zoom import attention_row, moe_row
     from repro_torch.core.device_tree import UNATTRIBUTED, build_device_tree, profiling
     from repro_torch.core.roofline import H100, report_from_tree
     from repro_torch.models import Model
@@ -1357,6 +1476,9 @@ def device_plane(torch, ops, dev, cfg, spec: dict, run_step, timed_ms: float) ->
         "kernels": kernels, "kernel_nodes": found,
         "profiler_dropped_records": any(k["device_kernels"] < k["in_tree"] for k in kernels.values()),
     }
+    zoom = {"qwen3-4b": attention_row, "deepseek-moe-16b": moe_row}.get(cfg.name)
+    if zoom:  # fig10_12_zoom's row, from this tree
+        out["zoom_row"] = zoom(tree)
     emit("device_plane", **out)
     bad_counts = {k: v for k, v in kernels.items() if v["in_tree"] != v["launches"]}
     if not device_ms or not branch[BACKWARD].total("kernels") or missing or bad_counts:
@@ -2410,8 +2532,11 @@ def main() -> int:
             emit("kernel_timing", name=name, **row)
     torch.cuda.empty_cache()
 
+    # -- the paper's Fig. 1 engines: eager, and in CUDA graphs; first of the paths, in a process
+    # whose host is still quiet (the eager step ran 3x slower after the serving paths) ------------
+    launches = engines_phase(torch, ops, dev)
+
     # -- the serving paths: prefill, serve, profile, check ---------------------------------------
-    launches = dict.fromkeys(ops.launch_counts(), 0)
     for arch in PATHS:
         for counts in drive_path(torch, get_config, ops, dev, arch):
             for name, n in counts.items():

@@ -3,15 +3,16 @@
 The host plane (call tree, sampler backends, detectors and watchdog, the
 snapshot codec and timeline ring, HTML report, views, cross-run diffs and the
 exporters: folded, speedscope, flamegraph HTML) is pure Python; the device
-plane (``scope``: the named ranges, ``scope.scope`` entered at the JAX
-package's scope sites; ``device_tree``: the call tree of one profiled step;
+plane (``engines``: the paper's Fig. 1 engines, eager and in CUDA graphs;
+``scope``: the named ranges, ``scope.scope`` entered at the JAX package's
+scope sites; ``device_tree``: the call tree of one profiled step;
 ``roofline``: the H100 spec and the three-term bound; ``planes``: the host
-tree annotated with the device tree) reads ``torch.profiler``.
+tree annotated with the device tree) runs on torch and ``torch.profiler``.
 
 Exports resolve lazily (PEP 562), as ``repro.core``'s do: the
 out-of-process ``repro_torch.profilerd`` daemon imports the host plane on
-every attach and must load neither torch nor CUDA, while ``scope`` and the
-builders of ``device_tree`` import torch on first use.
+every attach and must load neither torch nor CUDA, while ``engines``,
+``scope`` and the builders of ``device_tree`` import torch on first use.
 """
 
 from importlib import import_module
@@ -66,7 +67,11 @@ _EXPORTS = {
     "to_folded": ".export",
     "to_speedscope": ".export",
     # device plane (torch on first use of a builder; the artifact's loader
-    # and saver import none)
+    # and saver import none; the engines import torch)
+    "BlockwiseEngine": ".engines",
+    "CompiledEngine": ".engines",
+    "EagerEngine": ".engines",
+    "compare_engines": ".engines",
     "DEVICE_TREE_SCHEMA": ".device_tree",
     "build_device_tree": ".device_tree",
     "load_device_tree": ".device_tree",

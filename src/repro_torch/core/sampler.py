@@ -243,33 +243,40 @@ class StackSampler:
         names = {t.ident: t.name for t in threading.enumerate()}
         now = time.monotonic() - self._t0
         frames = sys._current_frames()
-        with self._lock:
-            for ident, frame in frames.items():
-                # Profiler infrastructure lives "outside the cgroup": neither
-                # the helper itself nor watchdog/report threads are profiled.
-                # (A synchronous sample_now() caller *is* profiled — it is
-                # target code asking for a sample of itself.)
-                if ident == helper or is_profiler_thread(names.get(ident, "")):
-                    continue
-                stack = self._stack_of(frame)
-                tname = names.get(ident, f"tid{ident}")
-                key = (tname, *stack)
-                chain = self._path_cache.get(key)
-                if chain is None:
-                    chain = self.tree.path_nodes([f"thread::{tname}"] + stack)
-                    if len(self._path_cache) < PATH_CACHE_CAP:
-                        self._path_cache[key] = chain
-                CallTree.add_stack_nodes(chain)
-                if self.config.record_timeline:
-                    self.timeline.append(TimelinePoint(now, len(stack), tname))
-            self.n_samples += 1
-            if self._psutil_proc is not None:
-                try:
-                    cpu = self._psutil_proc.cpu_times()
-                    rss = self._psutil_proc.memory_info().rss
-                    self.rusage.append(RusagePoint(now, cpu.user + cpu.system, rss))
-                except Exception:
-                    pass
+        try:
+            with self._lock:
+                for ident, frame in frames.items():
+                    # Profiler infrastructure lives "outside the cgroup": neither
+                    # the helper itself nor watchdog/report threads are profiled.
+                    # (A synchronous sample_now() caller *is* profiled — it is
+                    # target code asking for a sample of itself.)
+                    if ident == helper or is_profiler_thread(names.get(ident, "")):
+                        continue
+                    stack = self._stack_of(frame)
+                    tname = names.get(ident, f"tid{ident}")
+                    key = (tname, *stack)
+                    chain = self._path_cache.get(key)
+                    if chain is None:
+                        chain = self.tree.path_nodes([f"thread::{tname}"] + stack)
+                        if len(self._path_cache) < PATH_CACHE_CAP:
+                            self._path_cache[key] = chain
+                    CallTree.add_stack_nodes(chain)
+                    if self.config.record_timeline:
+                        self.timeline.append(TimelinePoint(now, len(stack), tname))
+                self.n_samples += 1
+                if self._psutil_proc is not None:
+                    try:
+                        cpu = self._psutil_proc.cpu_times()
+                        rss = self._psutil_proc.memory_info().rss
+                        self.rusage.append(RusagePoint(now, cpu.user + cpu.system, rss))
+                    except Exception:
+                        pass
+        finally:
+            # The snapshot holds this thread's own frame, whose locals hold the
+            # snapshot: a cycle that would keep every sampled frame, and the
+            # tensors in its locals, alive until the garbage collector runs
+            # (device memory on the card).
+            frames = frame = None
 
     def _run(self) -> None:
         while not self._stop.wait(self.config.period_s):

@@ -1239,6 +1239,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_wgmma_kernel(
         for (int q0 = qf; q0 < qe; q0 += ROWS, ++it) {
           if ((it & 1) != wg) continue;  // the other warpgroup's tile
           const int s = it % DKDV_STAGES;
+          // The three stages pass between the two warpgroups in turn, so this
+          // warpgroup's last use of stage s was two uses back, and a parity
+          // wait cannot tell use it / STAGES from the one before it: while
+          // the other warpgroup's use of s (the one in between) has not
+          // landed, the full wait would pass on the older phase and read
+          // the stage before its tile is in. Waiting first until the other
+          // warpgroup has released s keeps the full wait one phase ahead.
+          sm90::mbar_wait(&empty[s], ((it / DKDV_STAGES) & 1) ^ 1);
           sm90::mbar_wait(&full[s], (it / DKDV_STAGES) & 1);
           const uint32_t q_base = sm90::smem_u32(q_tiles + s * C::TILE);
           const uint32_t do_base = sm90::smem_u32(do_tiles + s * C::TILE);

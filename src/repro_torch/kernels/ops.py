@@ -35,6 +35,7 @@ paths never enter it.
 
 from __future__ import annotations
 
+import sys
 from contextlib import contextmanager
 
 import torch
@@ -84,35 +85,41 @@ def _plain(kernel: str, t: torch.Tensor) -> bool:
     return t.device.type == "cpu" or kernel in _PLAIN
 
 
+# launch_counts() key -> (module, counter): the wrappers' counters, and the
+# two yardstick kernels' that their own launchers keep
+_self = sys.modules[__name__]
+_COUNTERS = {
+    "flash_attention": (_self, "FLASH_ATTENTION_LAUNCHES"),
+    "flash_attention_wgmma": (_self, "FLASH_ATTENTION_WGMMA_LAUNCHES"),
+    "fused_rmsnorm": (_self, "FUSED_RMSNORM_LAUNCHES"),
+    "rglru_scan": (_self, "RGLRU_SCAN_LAUNCHES"),
+    "rglru_scan_sequential": (_rglru, "SEQUENTIAL_LAUNCHES"),  # never launched through ops
+    "flash_attention_bwd": (_self, "FLASH_ATTENTION_BWD_LAUNCHES"),
+    "flash_attention_bwd_wgmma": (_self, "FLASH_ATTENTION_BWD_WGMMA_LAUNCHES"),
+    "flash_attention_bwd_mma": (_flash, "MMA_BWD_LAUNCHES"),  # never launched through ops
+    "fused_rmsnorm_bwd": (_self, "FUSED_RMSNORM_BWD_LAUNCHES"),
+    "rglru_scan_bwd": (_self, "RGLRU_SCAN_BWD_LAUNCHES"),
+}
+
+
 def launch_counts() -> dict[str, int]:
-    return {
-        "flash_attention": FLASH_ATTENTION_LAUNCHES,
-        "flash_attention_wgmma": FLASH_ATTENTION_WGMMA_LAUNCHES,
-        "fused_rmsnorm": FUSED_RMSNORM_LAUNCHES,
-        "rglru_scan": RGLRU_SCAN_LAUNCHES,
-        "rglru_scan_sequential": _rglru.SEQUENTIAL_LAUNCHES,  # never launched through ops
-        "flash_attention_bwd": FLASH_ATTENTION_BWD_LAUNCHES,
-        "flash_attention_bwd_wgmma": FLASH_ATTENTION_BWD_WGMMA_LAUNCHES,
-        "flash_attention_bwd_mma": _flash.MMA_BWD_LAUNCHES,  # never launched through ops
-        "fused_rmsnorm_bwd": FUSED_RMSNORM_BWD_LAUNCHES,
-        "rglru_scan_bwd": RGLRU_SCAN_BWD_LAUNCHES,
-    }
+    return {key: getattr(mod, attr) for key, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_WGMMA_LAUNCHES, FUSED_RMSNORM_LAUNCHES, RGLRU_SCAN_LAUNCHES
-    global FLASH_ATTENTION_BWD_LAUNCHES, FLASH_ATTENTION_BWD_WGMMA_LAUNCHES, FUSED_RMSNORM_BWD_LAUNCHES
-    global RGLRU_SCAN_BWD_LAUNCHES
-    FLASH_ATTENTION_LAUNCHES = 0
-    FLASH_ATTENTION_WGMMA_LAUNCHES = 0
-    FUSED_RMSNORM_LAUNCHES = 0
-    RGLRU_SCAN_LAUNCHES = 0
-    _rglru.SEQUENTIAL_LAUNCHES = 0
-    FLASH_ATTENTION_BWD_LAUNCHES = 0
-    FLASH_ATTENTION_BWD_WGMMA_LAUNCHES = 0
-    _flash.MMA_BWD_LAUNCHES = 0
-    FUSED_RMSNORM_BWD_LAUNCHES = 0
-    RGLRU_SCAN_BWD_LAUNCHES = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def add_launches(delta: dict[str, int]) -> None:
+    """Add ``delta`` (keys of ``launch_counts()``) to the counters. A CUDA
+    graph's replay launches the kernels it captured without running the
+    wrappers that count them: ``core/engines.py`` adds the capture's count
+    once per replay, and takes it back off after the capture, which ran no
+    kernel."""
+    for key, n in delta.items():
+        mod, attr = _COUNTERS[key]
+        setattr(mod, attr, getattr(mod, attr) + n)
 
 
 def causal_pairs(S: int, T: int, causal: bool, window: int | None) -> int:

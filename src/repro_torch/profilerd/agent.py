@@ -105,6 +105,10 @@ class Agent:
             samples.append(
                 RawSample(now, ident, names.get(ident, f"tid{ident}"), self._raw_stack(frame))
             )
+        # The snapshot holds this thread's own frame, whose locals hold the
+        # snapshot: a cycle that would keep every sampled frame, and the
+        # tensors in its locals, alive until the garbage collector runs.
+        frames = frame = None
         rusage = None
         if self._psutil_proc is not None:
             try:

@@ -308,6 +308,24 @@ def test_flash_bwd_kernel_is_deterministic(card, D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("Hq,Hkv", [(16, 16), (32, 8)], ids=["deepseek-moe-16b", "qwen3-4b"])
+def test_flash_bwd_kernel_is_deterministic_over_many_launches(card, Hq, Hkv):
+    """2,000 launches of the wgmma backward pair at a training shape (1 x
+    2048, D 128) on the same inputs all give the first launch's bits. The
+    dK/dV kernel's ring of three stages passes between its two warpgroups in
+    turn; with a parity wait alone, a warpgroup could read a stage before its
+    tile landed, now and then: one launch in ~300 at deepseek-moe-16b's shape
+    gave a whole 64-key tile of dK and dV of one head wrong."""
+    q, k, v = _qkv(card, 18, 1, 2048, 2048, Hq, Hkv, 128, "bf16")
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    do = torch.randn_like(o)
+    first = ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    differ = [i for i in range(2000)
+              if not all(torch.equal(x, y) for x, y in zip(ops.flash_attention_bwd(q, k, v, o, do, lse=lse), first))]
+    assert not differ, differ[:10]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
 def test_flash_bwd_d256_head_groups_vs_plain(card, splits):
     """The D = 256 wgmma pair at a windowed MQA shape (16 q-heads a kv-head,
@@ -1150,3 +1168,77 @@ def test_serve_convoy_detected_on_card(card):
     report = res.child_reports["host0"]
     assert report["device"] == torch.cuda.get_device_name(0)
     assert report["kernel_launches"]["fused_rmsnorm"] > 0
+
+
+def _fresh(card, seed: int, shapes_dtypes):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=card, dtype=dt) for s, dt in shapes_dtypes]
+
+
+# Each forward kernel at a main path's shape: (kernel, counter key, inputs)
+GRAPH_KERNELS = {
+    # qwen3-4b's prefill: q 2 x 2048 x 32 x 128, kv 8 heads, the wgmma kernel
+    "flash_attention": (lambda q, k, v: ops.flash_attention(q, k, v, causal=True), "flash_attention_wgmma",
+                        [((2, 2048, 32, 128), torch.bfloat16), ((2, 2048, 8, 128), torch.bfloat16),
+                         ((2, 2048, 8, 128), torch.bfloat16)]),
+    # qwen3-4b's norm1 rows
+    "fused_rmsnorm": (lambda x, s: ops.fused_rmsnorm(x, s), "fused_rmsnorm",
+                      [((4096, 2560), torch.bfloat16), ((2560,), torch.float32)]),
+    # recurrentgemma-9b's prefill scan
+    "rglru_scan": (lambda a, b: ops.rglru_scan(torch.sigmoid(a), b), "rglru_scan",
+                   [((2, 4096, 4096), torch.float32), ((2, 4096, 4096), torch.float32)]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(GRAPH_KERNELS))
+def test_cuda_graph_replay_of_a_kernel_equals_its_eager_launch(card, name):
+    """Each forward kernel captured in a CUDA graph by ``CompiledEngine``:
+    fresh inputs copied into the static buffers and replayed give the eager
+    launch's output on them to the bit, and each replay counts one launch."""
+    from repro_torch.core.engines import CompiledEngine
+
+    fn, key, shapes = GRAPH_KERNELS[name]
+    eng = CompiledEngine(fn)
+    eng.run_step(*_fresh(card, 0, shapes))
+    assert eng.captured
+    for seed in (1, 2):
+        fresh = _fresh(card, seed, shapes)
+        ops.reset_launch_counts()
+        got = eng.run_step(*fresh)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[key] == 1
+        assert torch.equal(got, fn(*fresh))
+
+
+@pytest.mark.gpu
+def test_graph_engines_equal_eager_on_full_width_qwen3(card):
+    """``fig01_engines`` on qwen3-4b at full width cut to 2 layers: the
+    compiled engine's loss equals the eager full loss to the bit, the
+    blockwise engine's the eager chain of its stages, and every engine
+    counts the same launches a step (flash 2, RMSNorm 2 x 4 + 1)."""
+    from repro_torch.benchmarks import fig01_engines as fig01
+    from repro_torch.core.engines import EagerEngine
+
+    model, params, batch = fig01.setup(card, smoke=False, n_layers=2)
+    full_loss, stages = fig01.make_fns(model, params, batch)
+    eager, blockwise, compiled = fig01.make_engines(full_loss, stages)
+
+    def chain(carry):
+        for s in stages:
+            carry = s(carry)
+        return carry
+
+    eager_chain = EagerEngine(chain)
+    got, per_step = {}, {}
+    for eng in (eager, eager_chain, blockwise, compiled):
+        eng.run(1, lambda i: (params,))  # the graph engines capture here
+        ops.reset_launch_counts()
+        out = eng.run(3, lambda i: (params,)).outputs
+        got[eng] = out.clone()
+        per_step[eng] = {k: n / 3 for k, n in ops.launch_counts().items() if n}
+    assert blockwise.captured and compiled.captured
+    assert torch.equal(got[compiled], got[eager])
+    assert torch.equal(got[blockwise], got[eager_chain])
+    want = {"flash_attention": 2, "flash_attention_wgmma": 2, "fused_rmsnorm": 9}
+    assert all(p == want for p in per_step.values()), per_step

@@ -68,10 +68,14 @@ def test_importing_every_port_module_loads_no_jax():
         ],
         "import repro_torch.faults, repro_torch.faults.__main__, repro_torch.faults._target, "
         "repro_torch.checkpoint",
+        "import repro_torch.benchmarks.run, repro_torch.benchmarks.common, repro_torch.benchmarks.overhead, "
+        "repro_torch.benchmarks.ingest_throughput, repro_torch.benchmarks.aggregate_throughput, "
+        "repro_torch.benchmarks.annotate_overhead, repro_torch.benchmarks.timeline_overhead",
+        "import repro_torch.examples, repro_torch.examples.live_flamegraph",
     ],
     ids=["import-daemon", "import-daemon-side", "attach-help", "import-launcher", "import-server",
          "import-aggregator", "import-push-export-views", "serve-help", "aggregate-help", "export-help",
-         "import-faults"],
+         "import-faults", "import-host-benchmarks", "import-live-flamegraph"],
 )
 def test_the_profiling_daemon_loads_no_torch(run):
     """The daemon process (its modules, the agent's, the device tree's loader
@@ -80,7 +84,10 @@ def test_the_profiling_daemon_loads_no_torch(run):
     the query server, the aggregator, push, the exporters and the ``serve``,
     ``aggregate`` and ``export`` subcommands; nor do the fault corpus's
     registry, harness, CLI and child entry point, and the checkpoint manager
-    (the ``ckpt_wedge`` child's), before a model driver's warm-up."""
+    (the ``ckpt_wedge`` child's), before a model driver's warm-up; nor do
+    the benchmark harness, the host-only benchmarks (``overhead`` and the
+    four that write ``BENCH_ingest.json``'s sections) and the
+    ``live_flamegraph`` example."""
     code = f"import sys\n{run}\nprint(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'repro')))\n"
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
