@@ -136,6 +136,20 @@ then the training paths:
               when the tree is empty, when the backward holds no kernel, or
               when a ``flash_attention`` / ``fused_rmsnorm`` / ``rglru_scan``
               kernel of the path is missing from either branch;
+   dryrun -- after the four train setups, the port's dry-run
+              (``repro_torch.launch.dryrun.run_cell``, a shape-only trace on
+              the meta device) plans each of them on the host mesh of one
+              device at its cut depth and B x S, and recurrentgemma-9b at 11
+              layers too: one line each with the planned state, peak, kernel
+              calls a step, flops, roofline step bound and fit beside what the
+              same run's train and device_plane lines measured; fails unless
+              the state is 16 bytes a parameter, the kernel calls equal
+              ``train_launches`` (its ``_wgmma`` keys aside), the flops are
+              within DRYRUN_FLOPS_REL of the device tree's, the peak within
+              DRYRUN_PEAK_REL of the card's, the bound within DRYRUN_BOUND_REL
+              of the device tree's, and the plan fits where the card held the
+              step (recurrentgemma-9b at 11 layers, which ran out of memory on
+              an H100, must not fit);
 9. trainer -- ``Trainer`` at qwen3-4b smoke on the card with the sampler and the
               watchdog on: 3 steps and a checkpoint, a second Trainer that resumes
               to 6, a third that runs 6 in one go; parameters and optimizer state
@@ -318,6 +332,21 @@ TRAIN_MOE = dict(arch="deepseek-moe-16b", B=1, S=2048, timed_steps=3, n_layers=6
 TRAIN_XLSTM = dict(arch="xlstm-125m", B=8, S=512, timed_steps=3, n_layers=4,
                    depth_why="for the script's time limit: one of the 3 (slstm, mlstm x 3) units, so the device "
                              "plane's profile holds one sLSTM loop of 512 steps, not three")
+# The dry-run phase: each train setup planned on the meta device, held to the
+# card's measurements of the same run (train_phase and device_plane keep them
+# in TRAIN_MEASURED): the flops to the device tree's, the peak to
+# torch.cuda.max_memory_allocated, the roofline step bound to the device
+# tree's. The planned peak is the trace's live bytes (the same Python and
+# autograd lifetimes as the eager step), so only the allocator's own
+# rounding, the libraries' workspaces and what earlier phases left allocated
+# part it from the card's. DRYRUN_UNFIT: a setup the card could not hold
+# (TRAIN_HYBRID's 11 layers ran out of memory on an H100), which the plan
+# must not fit.
+DRYRUN_FLOPS_REL = 0.03
+DRYRUN_PEAK_REL = 0.10
+DRYRUN_BOUND_REL = 0.15
+DRYRUN_UNFIT = dict(TRAIN_HYBRID, n_layers=11)
+TRAIN_MEASURED: dict[str, dict] = {}  # arch -> what its train and device_plane lines measured
 # One train step at qwen3-4b smoke, card against CPU, from the same weights and
 # batch: the loss within 0.01; each moment leaf within 5 % relative L2 (the
 # matrix products sum in another order on the card, and bf16 activations round
@@ -1305,7 +1334,10 @@ def train_phase(torch, get_config, ops, dev, spec: dict) -> dict:
         raise AssertionError(f"train {cfg.name}: finite {finite}, launches per step {per_step}, expected {want}")
     out["profile"] = profile_step(torch, lambda: step(params, opt, batches[n + 1]))
     emit("train", **out)
-    device_plane(torch, ops, dev, cfg, spec, lambda: step(params, opt, batches[n + 2]), mean_ms)
+    plane = device_plane(torch, ops, dev, cfg, spec, lambda: step(params, opt, batches[n + 2]), mean_ms)
+    TRAIN_MEASURED[cfg.name] = {"peak_memory_gb": peak_gb, "launches_per_step": per_step, "n_params": n_params,
+                                "tree_flops": plane["tree_flops"], "tree_bytes": plane["tree_bytes"],
+                                "bound_ms": plane["roofline"]["bound_ms"]}
     del params, opt, step, batches
     torch.cuda.empty_cache()
     return counts
@@ -1485,6 +1517,72 @@ def device_plane(torch, ops, dev, cfg, spec: dict, run_step, timed_ms: float) ->
         raise AssertionError(f"device plane of {cfg.name}: device ms {device_ms}, kernels missing {missing}, "
                              f"launch counts apart {bad_counts}")
     return out
+
+
+def dryrun_phase(torch) -> dict:
+    """The ``dryrun`` lines: each train setup (and DRYRUN_UNFIT) planned by
+    ``repro_torch.launch.dryrun.run_cell`` on the host mesh of one device,
+    beside TRAIN_MEASURED; fails as the module docstring says. -> no launches
+    (the plan runs on the meta device)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh()
+    failures = []
+    for spec in (TRAIN, TRAIN_HYBRID, TRAIN_MOE, TRAIN_XLSTM, DRYRUN_UNFIT):
+        B, S = spec["B"], spec["S"]
+        full = get_config(spec["arch"])
+        cfg = dataclasses.replace(full, n_layers=spec.get("n_layers", full.n_layers))
+        t0 = time.perf_counter()
+        cell = run_cell(cfg, ShapeSpec(f"train_{B}x{S}", S, B, "train"), mesh=mesh, verbose=False)
+        plan_s = time.perf_counter() - t0
+        if cell["status"] != "ok":
+            emit("dryrun", arch=cfg.name, layers=cfg.n_layers, status=cell["status"], error=cell.get("error"))
+            failures.append(f"{cfg.name} at {cfg.n_layers} layers: {cell['status']}")
+            continue
+        ma, r = cell["memory_analysis"], cell["roofline"]
+        want_calls = {k: v for k, v in train_launches(cfg, spec.get("flash", ("wgmma", "wgmma"))).items()
+                      if v and not k.endswith("_wgmma")}
+        measured = TRAIN_MEASURED.get(cfg.name) if spec is not DRYRUN_UNFIT else None
+        line = {
+            "arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": S, "mesh": cell["mesh"], "plan_s": plan_s,
+            "state_bytes": ma["state_bytes"], "state_bytes_16n": 16 * cell["n_params"],
+            "peak_gb": ma["peak_bytes_per_device"] / 1e9, "fits_hbm": ma["fits_hbm"],
+            "kernel_calls": cell["kernel_calls"], "train_launches": want_calls,
+            "flops": cell["tree_metrics"]["flops"], "bytes": cell["tree_metrics"]["bytes"],
+            "flops_over_6nd": cell["tree_metrics"]["flops"] / (6.0 * cell["n_active_params"] * B * S),
+            "t_step_ms": r["t_step_s"] * 1e3, "dominant": r["dominant"],
+        }
+        bad = []
+        if ma["state_bytes"] != 16 * cell["n_params"]:
+            bad.append("state")
+        if cell["kernel_calls"] != want_calls:
+            bad.append("kernel calls")
+        if measured is None:
+            if ma["fits_hbm"]:
+                bad.append("fits where the card ran out of memory")
+        else:
+            line["measured"] = {k: measured[k] for k in ("peak_memory_gb", "tree_flops", "tree_bytes", "bound_ms")}
+            line["flops_rel"] = line["flops"] / measured["tree_flops"] - 1
+            line["peak_rel"] = line["peak_gb"] / measured["peak_memory_gb"] - 1
+            line["bound_rel"] = line["t_step_ms"] / measured["bound_ms"] - 1
+            line["bytes_rel"] = line["bytes"] / measured["tree_bytes"] - 1
+            if not ma["fits_hbm"]:
+                bad.append("does not fit where the card held the step")
+            for key, tol in (("flops_rel", DRYRUN_FLOPS_REL), ("peak_rel", DRYRUN_PEAK_REL),
+                             ("bound_rel", DRYRUN_BOUND_REL)):
+                if abs(line[key]) > tol:
+                    bad.append(f"{key} {line[key]:+.4f}")
+        line["failed"] = bad
+        emit("dryrun", **line)
+        if bad:
+            failures.append(f"{cfg.name} at {cfg.n_layers} layers: {bad}")
+    emit("dryrun_phase", s=time.perf_counter() - t_phase, failures=failures)
+    if failures:
+        raise AssertionError(f"dry-run plans apart from the card: {failures}")
+    return {}
 
 
 def profile_step(torch, fn) -> dict:
@@ -2548,6 +2646,7 @@ def main() -> int:
                 lambda: train_phase(torch, get_config, ops, dev, TRAIN_HYBRID),
                 lambda: train_phase(torch, get_config, ops, dev, TRAIN_MOE),
                 lambda: train_phase(torch, get_config, ops, dev, TRAIN_XLSTM),
+                lambda: dryrun_phase(torch),
                 lambda: trainer_phase(torch, ops, dev),
                 lambda: profilerd_phase(),
                 lambda: launcher_phase(),

@@ -4,9 +4,8 @@ counterpart of the JAX package's ``benchmarks/run.py``).
 Prints ``name,us_per_call,derived`` CSV rows on stdout (see each module's
 docstring for the mapping to the paper's figures); what a benchmark prints
 of its own goes to stderr. The benchmarks that run a model run on the card
-unless ``--device cpu`` is given (the smoke configs). ``roofline`` is not
-here: it reads the dry-run's files, which the port has not yet
-(ROADMAP Queue 1 item 15). Usage:
+unless ``--device cpu`` is given (the smoke configs); ``roofline`` reads the
+dry-run's files (``python -m repro_torch.launch.dryrun``). Usage:
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run                   # all, on the card
   PYTHONPATH=src python -m repro_torch.benchmarks.run fig13             # substring filter
@@ -30,6 +29,7 @@ BENCHES = [
     ("fig10_12_zoom", "repro_torch.benchmarks.fig10_12_zoom", True),
     ("fig13_detect", "repro_torch.benchmarks.fig13_detect", False),
     ("overhead", "repro_torch.benchmarks.overhead", False),
+    ("roofline", "repro_torch.benchmarks.roofline", False),
 ]
 
 

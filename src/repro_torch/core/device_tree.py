@@ -60,7 +60,9 @@ first range already stands in it. A checkpoint's recompute (ops that record
 autograd inside a backward node) goes under ``checkpoint/rematted_computation``,
 as the JAX tree's remat does, and the forward drops the ``checkpoint`` level,
 as JAX's does: so the recompute counts in the backward branch, not the
-forward.
+forward. A checkpoint stops its recompute early, inside the op that saves
+its last tensor: the profiler records that op, which never ran, and the tree
+leaves it out (``_stopped``).
 
 **Hand-written kernels.** A kernel wrapper marks each launch with
 ``scope.kernel_launch``: the range becomes the leaf ``kernel:<key>`` with the
@@ -185,6 +187,15 @@ def _op_flops(e) -> float:
     if e.name in _FLOP_OPS and e.flops:
         return float(e.flops)
     return sum(_op_flops(c) for c in e.cpu_children)
+
+
+def _stopped(e) -> bool:
+    """Whether a recomputed op was stopped before it ran: a checkpoint's
+    recompute stops early, raising in the autograd kernel of the op that
+    saves its last tensor, after the profiler opened the op's event (with the
+    flops its shapes give) and before the op computed. It launched nothing
+    and, though it writes no operand in place, allocated no result."""
+    return not e.name.endswith("_") and not ((e.cpu_memory_usage or 0) + (e.device_memory_usage or 0))
 
 
 def _launches(e) -> bool:
@@ -354,7 +365,7 @@ def build_device_tree(prof) -> CallTree:
                 add(here + [e.name], device_metrics(*kernels.own(e)))
                 return
             us, n = kernels.under(e)
-            if not (n or _launches(e)):
+            if not (n or _launches(e)) or (bwd is not None and bwd[2] and not n and _stopped(e)):
                 return
             flops, nbytes = _op_flops(e), _op_bytes(e, dtypes.get(id(e), []))
             m = {"ops": 1.0, **({"flops": flops} if flops else {}), **({"bytes": nbytes} if nbytes else {})}

@@ -23,8 +23,12 @@ its static input buffers: a copy of each tensor, or the tensor itself where
 its argument is named in ``donate_argnums`` (the caller hands the buffer
 over, as JAX's donation does). It warms the function up once on a side
 stream (lazy initialisation, the Triton compile, the kernel libraries'
-loads), captures it into a ``torch.cuda.CUDAGraph`` and replays it. Each
-later call copies its tensor arguments into the static buffers and replays;
+loads) and captures it into a ``torch.cuda.CUDAGraph``, which runs nothing:
+the first call's result is the warm-up's, copied into the graph's static
+outputs, so the first call runs the function once, as every later call does
+(a function that updates its arguments in place, as the train step's AdamW
+does, takes one step). Each later call copies its tensor arguments into the
+static buffers and replays;
 an argument that already is its static buffer is not copied, and a donated
 argument must be it (the graph reads no other memory). The outputs are the
 graph's static outputs, so **the next call overwrites them**: copy what must
@@ -42,7 +46,7 @@ copying its result into the first call's outputs.
 kernel, and a replay runs no Python. An engine reads the counters' delta over
 the capture (which ran no kernel), takes it back off and adds it once per
 replay (``ops.add_launches``), so every engine counts the launches that ran:
-the warm-up's and each replay's.
+the warm-up's on the first call and each replay's after it.
 
 Do not capture under ``torch.profiler``: ``core/scope.py``'s ranges are
 entered only while a profiler records. Benchmarked in
@@ -127,14 +131,18 @@ class _CUDAGraph:
         self.device = device
         self.graph = torch.cuda.CUDAGraph()
 
-    def warm_up(self, fn: Callable, args: tuple) -> None:
+    def warm_up(self, fn: Callable, args: tuple):
+        """``fn(*args)`` on the side stream; -> its outputs, which the
+        current stream may read (it waits for the side stream, and the next
+        warm-up's side stream waits for it before reusing their memory)."""
         if self.device not in _WARM_UP_STREAMS:
             _WARM_UP_STREAMS[self.device] = torch.cuda.Stream(self.device)
         side = _WARM_UP_STREAMS[self.device]
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            fn(*args)
+            out = fn(*args)
         torch.cuda.current_stream(self.device).wait_stream(side)
+        return out
 
     def capture(self, fn: Callable, args: tuple):
         with torch.cuda.device(self.device), torch.cuda.graph(self.graph):
@@ -191,7 +199,8 @@ class _Static:
 
 
 def _copy_out(static_out, out):
-    """The CPU's replay: ``out``'s tensors copied into the first call's outputs."""
+    """``out``'s tensors copied into the static outputs (the CPU's replay,
+    and the first call on the card, whose values are the warm-up's)."""
     for s, o in zip(pytree.tree_leaves(static_out), pytree.tree_leaves(out)):
         if isinstance(s, torch.Tensor) and s is not o:
             s.copy_(o)
@@ -212,13 +221,15 @@ class _Graphed:
             self.out = self.fn(*args)
             return self.out
         self.graph = _CUDAGraph(device)
-        self.graph.warm_up(self.fn, args)
+        warm = self.graph.warm_up(self.fn, args)
         before = ops.launch_counts()
         self.out = self.graph.capture(self.fn, args)
         after = ops.launch_counts()
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         ops.add_launches({k: -n for k, n in self.launches.items()})
-        return self.again(args)
+        # the capture ran nothing: the warm-up's result is this call's, and a
+        # replay now would run the function a second time
+        return _copy_out(self.out, warm)
 
     def again(self, args: tuple):
         if self.graph is None:

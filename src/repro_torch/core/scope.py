@@ -18,11 +18,16 @@ work for it. The range's name carries the launch counter's key and the work
 the kernel does (the counts ``chip_smoke.py`` bounds it by); ``build_device_tree``
 turns it into a leaf node ``kernel:<key>`` with those ``flops`` and
 ``bytes``, and the kernels the launch made as its device time.
+
+On the meta device nothing is profiled: while ``core/meta_cost.py`` traces a
+step, :func:`scope` pushes its name on the tracer's stack instead, and the
+kernel wrappers report their work to the tracer (``meta_cost.record_kernel``).
 """
 
 from __future__ import annotations
 
 import re
+import threading
 from collections.abc import Callable
 from contextlib import nullcontext
 
@@ -40,9 +45,30 @@ KERNEL_PREFIX = "kernel:"
 _KERNEL_RE = re.compile(r"^kernel:(?P<key>[\w.]+)\[flops=(?P<flops>[^,\]]+),bytes=(?P<bytes>[^\]]+)\]$")
 
 
+# This thread's meta-device cost tracers, which key their ops by these names
+# (``core/meta_cost.py``): a trace counts only its own thread's scopes, as its
+# dispatch mode sees only its own thread's ops.
+_TRACING = threading.local()
+
+
+def tracers() -> list:
+    """The calling thread's cost tracers, innermost last; empty outside a trace."""
+    stack = getattr(_TRACING, "stack", None)
+    if stack is None:
+        stack = _TRACING.stack = []
+    return stack
+
+
 def scope(name: str):
-    """A ``record_function(name)`` range while a profiler records, else a no-op context."""
-    return record_function(name) if recording() else _NULL
+    """A ``record_function(name)`` range while a profiler records; the
+    innermost cost tracer's scope while one traces on the meta device; else a
+    no-op context."""
+    if recording():
+        return record_function(name)
+    active = tracers()
+    if active:
+        return active[-1].scope(name)
+    return _NULL
 
 
 def kernel_launch(key: str, work: Callable[[], tuple[float, float]]):

@@ -27,6 +27,15 @@ and each kernel launch is marked with the work the kernel does
 step sees the hand-written kernels' work and device time under their
 callers.
 
+**The meta device** (shapes only, for the dry-run's plan,
+``launch/dryrun.py``): a wrapper checks its inputs as on the card, returns
+empty meta tensors of its kernel's outputs (flash attention's ``lse`` where
+the card's kernel writes it) and reports the kernel's work to the cost
+tracer of ``core/meta_cost.py`` (``record_kernel``) where one traces. It
+computes nothing, launches nothing and moves no launch counter; a meta
+tensor never reaches a plain version (but inside ``plain_versions``, which
+runs them on any device).
+
 ``plain_versions`` is for checks that hold the kernels to their plain
 versions on the card: inside it the named kernels take their plain versions
 (forward and backward) whatever the device, and count no launch. The model's
@@ -40,6 +49,7 @@ from contextlib import contextmanager
 
 import torch
 
+from repro_torch.core import meta_cost
 from repro_torch.core.scope import kernel_launch, scope
 
 from . import flash_attention as _flash
@@ -169,9 +179,14 @@ def _device_type(*tensors: torch.Tensor) -> str:
     if len(devs) != 1:
         raise ValueError(f"inputs lie on different devices: {sorted(map(str, devs))}")
     dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}: the kernels run on cuda, their plain versions on cpu")
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"unsupported device {dev}: the kernels run on cuda, their plain versions on cpu, "
+                         "their shapes on meta")
     return dev.type
+
+
+def _meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
 
 
 def flash_attention(
@@ -240,6 +255,10 @@ def _flash_fwd(q, k, v, causal: bool, window: int | None, with_lse: bool = False
     global FLASH_ATTENTION_LAUNCHES, FLASH_ATTENTION_WGMMA_LAUNCHES
     B, S, Hq, _ = q.shape
     lse = _flash.new_lse(B, Hq, S, q.device) if with_lse else None
+    if _meta(q):
+        meta_cost.record_kernel("flash_attention", *flash_work(q, k, causal, window))
+        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        return (o, lse) if with_lse else o
     with kernel_launch("flash_attention", lambda: flash_work(q, k, causal, window)):
         o = _flash.launch(q, k, v, causal=causal, window=window, lse=lse)
     FLASH_ATTENTION_LAUNCHES += 1
@@ -308,6 +327,9 @@ def _flash_attention_bwd(q, k, v, o, do, causal: bool, window: int | None, lse):
     if wgmma and lse is None:
         raise ValueError("the wgmma backward reads the forward's row statistics: pass lse "
                          "(flash_attention(..., return_lse=True) gives them)")
+    if _meta(q):
+        meta_cost.record_kernel("flash_attention_bwd", *flash_work(q, k, causal, window, backward=True))
+        return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
     global FLASH_ATTENTION_BWD_LAUNCHES, FLASH_ATTENTION_BWD_WGMMA_LAUNCHES
     with kernel_launch("flash_attention_bwd", lambda: flash_work(q, k, causal, window, backward=True)):
         grads = _flash.launch_bwd(q, k, v, o, do, lse, causal=causal, window=window)
@@ -341,6 +363,9 @@ def _fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Te
 def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     if _plain("fused_rmsnorm", x):
         return ref.rmsnorm_ref(x, scale, eps=eps)
+    if _meta(x):
+        meta_cost.record_kernel("fused_rmsnorm", *rmsnorm_work(x))
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
     global FUSED_RMSNORM_LAUNCHES
     with kernel_launch("fused_rmsnorm", lambda: rmsnorm_work(x)):
         y = _rmsnorm.launch(x.view(-1, x.shape[-1]), scale, eps)
@@ -381,6 +406,9 @@ def _fused_rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, e
     dy = dy.contiguous()  # autograd may hand an expanded or strided gradient
     if _plain("fused_rmsnorm", x):
         return ref.rmsnorm_bwd_ref(x, scale, dy, eps=eps)
+    if _meta(x):
+        meta_cost.record_kernel("fused_rmsnorm_bwd", *rmsnorm_work(x, dy))
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device), torch.empty(D, device=x.device)
     global FUSED_RMSNORM_BWD_LAUNCHES
     with kernel_launch("fused_rmsnorm_bwd", lambda: rmsnorm_work(x, dy)):
         dx, dscale = _rmsnorm.launch_bwd(x.view(-1, D), scale, dy.view(-1, D), eps)
@@ -411,6 +439,9 @@ def _rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _rglru_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if _plain("rglru_scan", a):
         return ref.rglru_ref(a, b)
+    if _meta(a):
+        meta_cost.record_kernel("rglru_scan", *rglru_work(a))
+        return torch.empty(a.shape, dtype=a.dtype, device=a.device)
     global RGLRU_SCAN_LAUNCHES
     with kernel_launch("rglru_scan", lambda: rglru_work(a)):
         h = _rglru.launch(a, b)
@@ -451,6 +482,9 @@ def _rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor) -> tuple
     dh = dh.contiguous()  # autograd may hand an expanded or strided gradient
     if _plain("rglru_scan", a):
         return ref.rglru_bwd_ref(a, h, dh)
+    if _meta(a):
+        meta_cost.record_kernel("rglru_scan_bwd", *rglru_work(a, backward=True))
+        return tuple(torch.empty(a.shape, dtype=a.dtype, device=a.device) for _ in range(2))
     global RGLRU_SCAN_BWD_LAUNCHES
     with kernel_launch("rglru_scan_bwd", lambda: rglru_work(a, backward=True)):
         grads = _rglru.launch_bwd(a, h, dh)

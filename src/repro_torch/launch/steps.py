@@ -32,7 +32,9 @@ def make_train_step(
     dividing; the loss is their mean, the aux terms the last microbatch's;
     the learning rate is taken at the optimizer's step before the update.
     Parameters and optimizer state are updated in place and returned; the
-    f32 gradients live in one buffer the step keeps between calls. Metrics
+    f32 gradients live in one buffer the step keeps between calls (the
+    first call makes it, or ``train_step.prime(params)``, which returns it,
+    before that). Metrics
     are 0-d device tensors: {"loss", "lr", "ce", "z_loss", "lb_loss",
     "grad_norm", "clip_scale"}.
     """
@@ -66,6 +68,13 @@ def make_train_step(
         params, opt_state, om = adamw_update(grads, opt_state, params, lr=lr, cfg=opt_cfg)
         return params, opt_state, {"loss": loss, "lr": lr, **{k: v.detach() for k, v in aux.items()}, **om}
 
+    def prime(params):
+        nonlocal grads
+        if grads is None:
+            grads = _zeros_f32(params)
+        return grads
+
+    train_step.prime = prime
     return train_step
 
 

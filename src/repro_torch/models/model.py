@@ -9,7 +9,9 @@ versions. ``forward`` and ``loss`` follow the caller's autograd mode: the
 trainer differentiates them, the server and ``chip_smoke.py``'s prefill run
 them under ``torch.inference_mode()``. ``forward``, ``loss`` and
 ``decode_step`` run under the JAX package's scopes ``model``, ``loss`` and
-``decode`` (``core/scope.py``).
+``decode`` (``core/scope.py``). ``input_specs``, ``model_flops`` and
+``abstract_decode_state`` serve the dry-run (``launch/dryrun.py``), which
+runs a model on the meta device.
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.scope import scope
+from repro_torch.sharding.ctx import shard_activation
 
 from . import transformer as tfm
 from .modules import (
@@ -150,7 +153,7 @@ class Model:
             return self._forward(params, batch)
 
     def _forward(self, params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        x = self._embed(params, batch)
+        x = shard_activation(self._embed(params, batch), ("batch", None, None))
         positions = batch.get("positions")
         if positions is None:
             B, S = x.shape[:2]
@@ -185,6 +188,10 @@ class Model:
     def init_decode_state(self, batch: int, max_len: int) -> dict:
         return tfm.stack_state(self.cfg, batch, max_len, self.device)
 
+    def abstract_decode_state(self, batch: int, max_len: int) -> dict:
+        """The decode state's shapes and dtypes, as meta tensors."""
+        return tfm.stack_state(self.cfg, batch, max_len, "meta")
+
     @torch.inference_mode()
     def decode_step(self, params, batch: dict, state: dict, pos: int) -> tuple[torch.Tensor, dict]:
         """One new token for every sequence. batch: {'tokens': (B,1)} or
@@ -195,3 +202,42 @@ class Model:
             x, x_sum = tfm.stack_decode(params["layers"], x, state, pos, self.cfg)
             x = rms_norm(params["final_norm"], x if x_sum is None else x_sum, scope="final_norm").to(x.dtype)
             return self.logits_fn(params, x)[:, 0], state
+
+    # -- dry-run input specs --------------------------------------------------------
+
+    def input_specs(self, shape: ShapeSpec) -> dict:
+        """Meta-tensor stand-ins for every model input of this workload, of
+        the JAX package's shapes and dtypes."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        f32, i32, bf16 = torch.float32, torch.int32, torch.bfloat16
+
+        def spec(shape_, dtype):
+            return torch.empty(shape_, dtype=dtype, device="meta")
+
+        S_in = S if shape.kind in ("train", "prefill") else 1  # decode: one new token against a state of S
+        batch: dict[str, Any] = {}
+        if cfg.input_mode == "tokens":
+            batch["tokens"] = spec((B, S_in), i32)
+        else:
+            batch["embeds"] = spec((B, S_in, cfg.d_model), bf16)
+        if shape.kind == "decode":
+            return batch
+        if cfg.mrope:
+            batch["positions"] = spec((B, S, 3), i32)
+        if shape.kind == "train":
+            batch["labels"] = spec((B, S), i32)
+            batch["loss_mask"] = spec((B, S), f32)
+        return batch
+
+    # -- cost model ---------------------------------------------------------------------
+
+    def model_flops(self, shape: ShapeSpec) -> float:
+        """MODEL_FLOPS napkin: 6*N*D (dense) / 6*N_active*D (MoE); decode uses
+        D = new tokens (global_batch) and 2*N_active (no backward)."""
+        n = self.n_active_params
+        if shape.kind == "train":
+            return 6.0 * n * shape.tokens
+        if shape.kind == "prefill":
+            return 2.0 * n * shape.tokens
+        return 2.0 * n * shape.global_batch

@@ -110,6 +110,16 @@ def init_params(spec_tree, generator: torch.Generator, *, train: bool = False):
     )
 
 
+def abstract_params(spec_tree, *, train: bool = False):
+    """Parameters of ``spec_tree``'s shapes in their storage dtypes on the
+    meta device: the dry-run's stand-ins (the JAX package's
+    ``abstract_params``)."""
+    return tree_map_with_path(
+        lambda p, s: torch.empty(s.shape, dtype=storage_dtype(p, len(s.shape), train=train), device="meta"),
+        spec_tree,
+    )
+
+
 def param_count(spec_tree) -> int:
     total = 0
 

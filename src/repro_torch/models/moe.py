@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.scope import scope as _scope
+from repro_torch.sharding.ctx import shard_activation
 
 from .mlp import mlp, mlp_spec
 from .modules import ACTIVATIONS, ArraySpec, dtype_const
@@ -119,13 +120,16 @@ def _moe(params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
         src = order[(starts[:, None] + cap).clamp_max(T * K - 1)]  # (E, C) flat slot of each row
         # indexing the K-fold view (not xt itself): each (t, k) is read once, so
         # the backward sums a token's K gradients over the K axis in order
-        buf = xt[:, None, :].expand(T, K, D)[src // K, src % K]
-        buf = buf.masked_fill(~filled[..., None], 0)
+        slot_vals = shard_activation(xt[:, None, :].expand(T, K, D), ("batch", None, None))
+        buf = slot_vals[src // K, src % K].masked_fill(~filled[..., None], 0)
+        # EP: the expert buffer on the expert-parallel axis
+        buf = shard_activation(buf, ("expert_buf", None, None))
 
     with _scope("experts"):
         h = torch.bmm(buf, params["wi"].to(x.dtype))
         g = torch.bmm(buf, params["wg"].to(x.dtype))
-        y_e = torch.bmm(f(g) * h, params["wo"].to(x.dtype)).reshape(E * C, D)
+        y_e = shard_activation(torch.bmm(f(g) * h, params["wo"].to(x.dtype)), ("expert_buf", None, None))
+        y_e = y_e.reshape(E * C, D)
 
     with _scope("combine"):
         # each token's K slots in ascending expert id (the JAX scatter's order:
@@ -138,7 +142,8 @@ def _moe(params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
         slot, kept = slot.gather(1, by_expert), kept.gather(1, by_expert)
         w = gate_w.gather(1, by_expert).to(x.dtype)
         gathered = y_e[slot.clamp_max(E * C - 1)].masked_fill(~kept[..., None], 0)  # (T, K, D)
-        y = _add_in_order(gathered * w[..., None])
+        gathered = shard_activation(gathered, ("batch", None, None))
+        y = shard_activation(_add_in_order(gathered * w[..., None]), ("batch", None))
     if cfg.n_shared_experts:
         y = y + mlp(params["shared"], xt, act=cfg.act, scope="shared_experts")
 

@@ -31,6 +31,7 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.core.scope import scope as _scope
+from repro_torch.sharding.ctx import shard_activation
 
 from . import attention as attn_mod
 from . import rglru as rec_mod
@@ -139,7 +140,7 @@ def _residual_ffn(
     precision), while the residual stream itself is rounded to bf16. The
     norm's output is rounded to bf16 once, as there."""
     s = x.float() + y.float()
-    x = s.to(x.dtype)
+    x = shard_activation(s.to(x.dtype), ("batch", None, None))
     lb = None
     if ffn in ("mlp", "dense_mlp"):
         y = mlp(params["mlp"], rms_norm(params["norm2"], s, scope="pre_mlp_norm").to(x.dtype), act=cfg.act)
@@ -149,7 +150,7 @@ def _residual_ffn(
     else:
         return x, s, lb
     s = x.float() + y.float()
-    return s.to(x.dtype), s, lb
+    return shard_activation(s.to(x.dtype), ("batch", None, None)), s, lb
 
 
 # ---------------------------------------------------------------------------

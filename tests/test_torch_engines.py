@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 jax = pytest.importorskip("jax")  # the card's machine has no JAX
 import jax.numpy as jnp  # noqa: E402
@@ -194,7 +195,7 @@ class _StubGraph:
         self.replays = 0
 
     def warm_up(self, fn, args):
-        fn(*args)
+        return fn(*args)
 
     def capture(self, fn, args):
         return fn(*args)
@@ -221,14 +222,59 @@ def test_launches_are_counted_once_per_replay(monkeypatch, engine):
     try:
         eng.run_step(torch.zeros(3))
         assert eng.captured
-        # the first call: a warm-up and a replay per stage; the capture ran no kernel
-        assert ops.launch_counts()["fused_rmsnorm"] == 2 * 2 * n_stages
+        # the first call: a warm-up per stage and no replay; the capture ran no kernel
+        assert ops.launch_counts()["fused_rmsnorm"] == 2 * n_stages
         for _ in range(3):
             eng.run_step(torch.zeros(3))
         counts = ops.launch_counts()
-        assert counts["fused_rmsnorm"] == 2 * (2 + 3) * n_stages and counts["flash_attention"] == (2 + 3) * n_stages
+        assert counts["fused_rmsnorm"] == 2 * (1 + 3) * n_stages and counts["flash_attention"] == (1 + 3) * n_stages
     finally:
         ops.reset_launch_counts()
+
+
+class _ReplayingStubGraph:
+    """A graph whose capture runs the Python but writes nothing (the
+    arguments' values are put back, as a capture launches no kernel) and
+    whose replay runs the function again on the captured arguments."""
+
+    def __init__(self, device):
+        self.fn, self.args = None, ()
+
+    def warm_up(self, fn, args):
+        return fn(*args)
+
+    def capture(self, fn, args):
+        self.fn, self.args = fn, args
+        leaves = [t for t in pytree.tree_leaves(list(args)) if isinstance(t, torch.Tensor)]
+        saved = [t.clone() for t in leaves]
+        out = fn(*args)
+        for t, v in zip(leaves, saved):
+            t.copy_(v)
+        return out
+
+    def replay(self):
+        self.fn(*self.args)
+
+
+@pytest.mark.parametrize("engine", ["eager", "compiled", "blockwise"])
+def test_the_first_call_runs_an_in_place_function_once(monkeypatch, engine):
+    """A function that writes its argument in place (as AdamW does) takes one
+    step a call, the first included: x.add_(1) leaves 1, then 2."""
+    monkeypatch.setattr(engines, "_CUDAGraph", _ReplayingStubGraph)
+    monkeypatch.setattr(engines, "_uses_graph", lambda device: True)
+    monkeypatch.setattr(engines.torch.cuda, "synchronize", lambda *a: None)
+
+    def bump(x):
+        return x.add_(1)
+
+    eng = {"eager": lambda: engines.EagerEngine(bump),
+           "compiled": lambda: engines.CompiledEngine(bump, donate_argnums=(0,)),
+           "blockwise": lambda: engines.BlockwiseEngine([bump], donate_argnums=(0,))}[engine]()
+    x = torch.zeros(4)
+    eng.run_step(x)
+    assert torch.equal(x, torch.ones(4))
+    eng.run_step(x)
+    assert torch.equal(x, torch.full((4,), 2.0))
 
 
 def test_compare_engines_rows_have_the_jax_keys_with_torch_frames():

@@ -117,7 +117,7 @@ def test_run_prints_the_rows_of_the_filtered_benchmarks(capsys):
     from repro_torch.benchmarks import run
 
     assert [b[0] for b in run.BENCHES] == ["fig01_engines", "fig02_stack_depth", "fig08_11_breakdown",
-                                          "fig10_12_zoom", "fig13_detect", "overhead"]
+                                          "fig10_12_zoom", "fig13_detect", "overhead", "roofline"]
     run.main(["fig02", "--device", "cpu"])
     captured = capsys.readouterr()
     lines = captured.out.strip().splitlines()

@@ -1212,6 +1212,35 @@ def test_cuda_graph_replay_of_a_kernel_equals_its_eager_launch(card, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["eager", "compiled", "blockwise"])
+def test_the_first_call_runs_an_in_place_function_once_on_the_card(card, engine):
+    """A function that writes its argument in place (as the train step's
+    AdamW does) takes one step a call on the card, the first call (warm-up
+    and capture) included: x.add_(1) leaves 1, then 2; the RMSNorm kernel
+    inside it counts one launch a call."""
+    from repro_torch.core.engines import BlockwiseEngine, CompiledEngine, EagerEngine
+
+    scale = torch.zeros(8, device=card)
+
+    def bump(x):
+        ops.fused_rmsnorm(x[:, :8].contiguous(), scale)
+        return x.add_(1)
+
+    eng = {"eager": lambda: EagerEngine(bump),
+           "compiled": lambda: CompiledEngine(bump, donate_argnums=(0,)),
+           "blockwise": lambda: BlockwiseEngine([bump], donate_argnums=(0,))}[engine]()
+    x = torch.zeros(4, 8, device=card)
+    ops.reset_launch_counts()
+    eng.run_step(x)
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.ones_like(x)) and ops.launch_counts()["fused_rmsnorm"] == 1
+    eng.run_step(x)
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.full_like(x, 2.0)) and ops.launch_counts()["fused_rmsnorm"] == 2
+    assert eng.captured == (engine != "eager")
+
+
+@pytest.mark.gpu
 def test_graph_engines_equal_eager_on_full_width_qwen3(card):
     """``fig01_engines`` on qwen3-4b at full width cut to 2 layers: the
     compiled engine's loss equals the eager full loss to the bit, the

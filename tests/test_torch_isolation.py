@@ -72,10 +72,11 @@ def test_importing_every_port_module_loads_no_jax():
         "repro_torch.benchmarks.ingest_throughput, repro_torch.benchmarks.aggregate_throughput, "
         "repro_torch.benchmarks.annotate_overhead, repro_torch.benchmarks.timeline_overhead",
         "import repro_torch.examples, repro_torch.examples.live_flamegraph",
+        "import repro_torch.benchmarks.roofline",
     ],
     ids=["import-daemon", "import-daemon-side", "attach-help", "import-launcher", "import-server",
          "import-aggregator", "import-push-export-views", "serve-help", "aggregate-help", "export-help",
-         "import-faults", "import-host-benchmarks", "import-live-flamegraph"],
+         "import-faults", "import-host-benchmarks", "import-live-flamegraph", "import-roofline"],
 )
 def test_the_profiling_daemon_loads_no_torch(run):
     """The daemon process (its modules, the agent's, the device tree's loader
@@ -86,9 +87,32 @@ def test_the_profiling_daemon_loads_no_torch(run):
     registry, harness, CLI and child entry point, and the checkpoint manager
     (the ``ckpt_wedge`` child's), before a model driver's warm-up; nor do
     the benchmark harness, the host-only benchmarks (``overhead`` and the
-    four that write ``BENCH_ingest.json``'s sections) and the
+    four that write ``BENCH_ingest.json``'s sections, ``roofline``) and the
     ``live_flamegraph`` example."""
     code = f"import sys\n{run}\nprint(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'repro')))\n"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_a_dry_run_plan_loads_no_jax():
+    """The sharding rules, the meshes, the dry-run and its cost tracer plan a
+    smoke cell on the meta device (and on the (16, 16) mesh) in a fresh
+    interpreter that loads neither JAX nor the JAX package."""
+    code = (
+        "import sys\n"
+        "import repro_torch.sharding, repro_torch.launch.mesh, repro_torch.core.meta_cost\n"
+        "from repro_torch.configs import ShapeSpec, get_config\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.launch.mesh import MeshShape\n"
+        "cfg = get_config('qwen3-4b', smoke=True)\n"
+        "one = dryrun.run_cell(cfg, ShapeSpec('t', 16, 2, 'train'), mesh=MeshShape(('data', 'model'), (1, 1)),"
+        " verbose=False)\n"
+        "big = dryrun.run_cell(cfg, 'decode_32k', False, verbose=False)\n"
+        "assert one['status'] == big['status'] == 'ok', (one.get('error'), big.get('error'))\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))\n"
+    )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr

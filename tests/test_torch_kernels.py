@@ -402,8 +402,8 @@ def test_rglru_scan_bwd_dispatch_rejects(bad):
         h = h.bfloat16()
     elif bad == "strided_h":
         h = torch.rand(1, 8, 8)[..., ::2]
-    elif bad == "meta_device":
-        a = h = dh = torch.empty((1, 8, 4), device="meta")
+    elif bad == "meta_device":  # the meta device plans shapes (launch/dryrun.py), but not beside a CPU tensor
+        a = torch.empty((1, 8, 4), device="meta")
     with pytest.raises((ValueError, TypeError)):
         ops.rglru_scan_bwd(a, h, dh)
 
@@ -537,8 +537,8 @@ def test_flash_dispatch_rejects(bad):
         q = torch.cat([q, q], dim=-1)[..., ::2]
     elif bad == "mixed_dtypes":
         k = k.bfloat16()
-    elif bad == "meta_device":
-        q, k, v = (t.to("meta") for t in (q, k, v))
+    elif bad == "meta_device":  # the meta device plans shapes (launch/dryrun.py), but not beside a CPU tensor
+        q, k = q.to("meta"), k.to("meta")
     elif bad == "bf16_rows_not_16_byte_aligned":  # the wgmma kernel's TMA cannot read a head stride of 20
         q, k, v = (torch.cat([t, t[..., :4]], dim=-1).bfloat16()[..., :16] for t in (q, k, v))
     with pytest.raises((ValueError, TypeError)):
