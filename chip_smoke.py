@@ -32,6 +32,17 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
               at 1 and 2 x 4096 x 4096 f32, also held to its own order of
               arithmetic, its two launches equal to the bit;
 
+   long_attention -- the flash forward and backward at B 1 x S 32768 for
+              qwen3-4b (GQA 32 / 8, D 128, causal) and recurrentgemma-9b (MQA
+              16 / 1, D 256, window 2048), bf16, held to the JAX package's
+              xla-path ``_attend_chunked`` (512-row query chunks; the (window +
+              512)-key strip) run on f32 copies of the inputs, and to its
+              autograd gradient, at the bf16 tolerance and block by block
+              (64 rows, relative L2 within 1e-2), then
+              timed beside the plain version (``_attend_chunked`` on the bf16
+              inputs) and SDPA, each row with its bound
+              (``long_attention_phase``); ~30 s;
+
 then the paper's Fig. 1 engines (``core/engines.py``), first of the paths:
 
    engines -- ``repro_torch.benchmarks.fig01_engines`` at qwen3-4b's full width
@@ -90,9 +101,10 @@ before it) and each MoE layer held layer by layer;
   full width cut to 4 layers (94 need 470 GB): 4-7 again, prefill on 2 x 2048
   tokens asserting 4 flash and 17 RMSNorm launches, serve asserting 17 a step.
 
-  xlstm-125m (attention-free: (sLSTM, mLSTM x 3) x 3), uncut: 4-7 again,
-  prefill on 2 x 2048 tokens asserting 25 RMSNorm launches and no flash,
-  serve asserting 25 a step, the profile also giving the device and host
+  xlstm-125m (attention-free: (sLSTM, mLSTM x 3) x 3) at full width cut to
+  one unit of its three (for the script's time): 4-7 again,
+  prefill on 2 x 2048 tokens asserting 9 RMSNorm launches and no flash,
+  serve asserting 9 a step, the profile also giving the device and host
   time of the sLSTM's time loop and the mLSTM's chunks (``xlstm_scopes``),
   the check over 16 tokens (two smoke chunks).
 
@@ -201,6 +213,23 @@ then the training paths:
               daemon's samples in the fault window, the dropped fractions, the
               decode rounds a second clean and faulted, each child's cold start
               and the phase's wall (``faults_phase``);
+   ep_moe -- the expert-parallel MoE (``moe_impl="shard_map"``,
+              ``models/moe_shard_map.py``) run by four spawned ranks on this
+              one card, a (2 data, 2 model) mesh over a gloo group (every
+              rank on cuda:0): (a) ``Model.loss`` and its backward through
+              the kernels at deepseek-moe-16b's full width, 3 layers (layer 0
+              dense, 2 MoE), B 2 x S 2048, bf16, capacity 8: the mean loss
+              over the data ranks within EP_LOSS_REL of one process's dense
+              model at the same weights, each rank's expert gradients,
+              summed over the data ranks, within EP_GRAD_REL_L2 of the dense
+              slice; (b) the layer alone in f32 at full width for
+              deepseek-moe-16b and qwen3-moe-235b-a22b on 4096 tokens: at
+              capacity 8 within EP_LAYER_REL of the dense layer, at the
+              default capacity equal to the bit (output, aux, gradients) to
+              the one-process simulation of the four ranks on the card; per
+              rank the bytes it sent through the exchange, its peak memory,
+              the layer's ms beside the dense layer's, the dropped fractions
+              (``ep_moe_phase``); ~60 s;
 10. train_check -- one train step at the smoke config of qwen3-4b,
               recurrentgemma-9b, deepseek-moe-16b and xlstm-125m through the kernels on the
               card, and the same step through the plain versions on the card and
@@ -278,13 +307,18 @@ PATHS = {
                                 prefill={**NO_LAUNCHES, "flash_attention": 4, "flash_attention_wgmma": 4,
                                          "fused_rmsnorm": 17},
                                 per_step={**NO_LAUNCHES, "fused_rmsnorm": 17}),
-    # attention-free, uncut (114,509,568 parameters): per layer norm1 and the
-    # cell's out_norm, plus the final norm; the prefill's 2048 tokens are 8
-    # mLSTM chunks of 256 and 2048 sLSTM steps; the check runs 16 tokens, two
-    # smoke chunks of 8 (a prefill takes whole chunks)
-    "xlstm-125m": dict(B=2, S=2048, check_tokens=16,
-                       prefill={**NO_LAUNCHES, "fused_rmsnorm": 25},
-                       per_step={**NO_LAUNCHES, "fused_rmsnorm": 25}),
+    # attention-free, at full width cut to one (slstm, mlstm x 3) unit of its
+    # three, as TRAIN_XLSTM: per layer norm1 and the cell's out_norm, plus the
+    # final norm; the prefill's 2048 tokens are 8 mLSTM chunks of 256 and 2048
+    # sLSTM steps; the check runs 16 tokens, two smoke chunks of 8 (a prefill
+    # takes whole chunks)
+    "xlstm-125m": dict(B=2, S=2048, check_tokens=16, n_layers=4,
+                       depth_why="time, not memory: uncut, the prefill's profile (169,941 kernel launches, "
+                                 "three sLSTM time loops of 2048 steps) took 142 s and the script 1,122 s on an "
+                                 "H100, over its 1,050 s budget; at 4 layers the profile takes ~37 s; one unit "
+                                 "of the three runs every layer kind",
+                       prefill={**NO_LAUNCHES, "fused_rmsnorm": 9},
+                       per_step={**NO_LAUNCHES, "fused_rmsnorm": 9}),
     # the embeddings-input families, uncut: no server (the JAX server takes
     # token prompts), decode_steps Model.decode_step calls at batch 4 instead;
     # qwen2-vl-2b: GQA 12 / 2 (a group of 6) at head dim 128, M-RoPE over an
@@ -1346,7 +1380,10 @@ def train_phase(torch, get_config, ops, dev, spec: dict) -> dict:
 # The engines phase: fig01_engines at qwen3-4b's full width and depth; the
 # eager engine's warm steps again without a sampler and under each backend
 ENGINES_AGENT_STEPS = 20  # eager steps a run of the agent's cost (~1 s at ~60 ms a step)
-ENGINES_AGENT_ROUNDS = 3  # rounds of (bare, thread, daemon): the host spreads a bare run by ~40 % on the card
+# rounds of (bare, thread, daemon); the host spreads a bare run by ~40 % on the card, so one round
+# reads the agent's cost, it does not resolve it: one, so that the ep_moe and long_attention
+# phases fit in the script's time (within 1,050 s of its 1,200)
+ENGINES_AGENT_ROUNDS = 1
 ENGINES_LAUNCHES = {"flash_attention": 36, "flash_attention_wgmma": 36, "fused_rmsnorm": 145}  # a forward
 
 
@@ -2514,6 +2551,525 @@ def scan_tilings(torch, ref, dev, W: int) -> None:
         emit("scan_tiling", **row)
 
 
+# -- the expert-parallel MoE: four ranks on one card, over gloo -------------------------------
+EP_DATA, EP_MODEL = 2, 2  # the mesh: (data, model)
+EP_RULES = {"batch": ("data",)}
+# (a) Model.loss at deepseek-moe-16b's full width, 3 layers (layer 0 dense, 2 MoE), global B x S, bf16
+EP_TRAIN = dict(arch="deepseek-moe-16b", n_layers=3, B=2, S=2048)
+# (b) the layer alone in f32 at full width, 4096 tokens (B 2 x S 2048), each arch
+EP_LAYER = dict(archs=("deepseek-moe-16b", "qwen3-moe-235b-a22b"), B=2, S=2048)
+EP_CAPACITY = 8.0  # where the expert-parallel layer drops nothing: it equals the dense one
+EP_LOSS_REL = 1e-3  # (a): the mean loss over the data ranks against the dense model's
+# (a): each expert-gradient slice against the dense one's; on the CPU the smoke model reads <= 1.07e-2
+# (tests/test_torch_moe_ep.py): each data rank's bf16 weight gradient is rounded on its own
+EP_GRAD_REL_L2 = 2e-2
+EP_LAYER_REL = 2e-5  # (b): max |y - dense| / max |dense| in f32, as tests/test_moe_shard_map.py holds JAX's
+# (b) at the default capacity: a random router drops nothing at 4096 tokens (C_s = 244 for
+# deepseek-moe-16b, 3.7 sigma over the mean load), so the router's columns of the first 1/8 of the
+# experts are scaled by EP_HOT_SCALE: those experts overflow each source's capacity, and the
+# per-source drop (`_local_capacity`) runs. Estimated from the CPU's draw of the same router:
+# ~3.4 % of slots dropped at deepseek-moe-16b, ~5.9 % at qwen3-moe-235b-a22b
+EP_HOT_SCALE = 1.3
+EP_TIMEOUT_S = 300
+DIGEST_CHUNK = 1 << 26
+
+
+def digest(torch, t) -> list[int]:
+    """Two sums over the bits of ``t``, plain and weighted by position (mod
+    2^64): equal tensors give equal digests, and tensors that differ in a bit
+    give different ones but for a ~2^-64 collision. Holds two processes'
+    tensors equal to the bit without moving them."""
+    flat = t.detach().contiguous().view(-1)
+    bits = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[flat.element_size()])
+    sums = [0, 0]
+    for i in range(0, bits.numel(), DIGEST_CHUNK):
+        v = bits[i:i + DIGEST_CHUNK].to(torch.int64)
+        w = torch.arange(i, i + v.numel(), device=v.device, dtype=torch.int64) * 2654435761 % 2147483647 + 1
+        sums[0] += int(v.sum())
+        sums[1] += int((v * w).sum())
+    return [s % (1 << 64) for s in sums]
+
+
+def ep_generator(torch, dev, seed: int):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def ep_train_cfg(get_config, moe_impl: str):
+    full = get_config(EP_TRAIN["arch"])
+    return dataclasses.replace(full, n_layers=EP_TRAIN["n_layers"], capacity_factor=EP_CAPACITY, moe_impl=moe_impl)
+
+
+def ep_train_batch(torch, cfg, dev) -> dict:
+    tokens = torch.randint(0, cfg.vocab, (EP_TRAIN["B"], EP_TRAIN["S"] + 1), generator=ep_generator(torch, dev, 7),
+                           device=dev, dtype=torch.int32)
+    return {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+
+
+def expert_axis(logical: tuple) -> int | None:
+    """The axis of a routed-expert leaf (its first axis past ``layers`` is
+    ``expert``; not the router's), else None."""
+    d = 1 if logical[0] == "layers" else 0
+    return d if logical[d] == "expert" else None
+
+
+def ep_layer_inputs(torch, cfg, dev, m: int | None = None):
+    """(the MoE layer's params in f32, x (B, S, D), r (B, S, D)) from seed 11;
+    with ``m``, model rank m's params, each routed-expert leaf cut as it is
+    drawn (the whole qwen3-moe layer is 9.7 GB in f32)."""
+    from repro_torch.models.moe import moe_spec
+    from repro_torch.models.modules import tree_map_with_path
+
+    g = ep_generator(torch, dev, 11)
+
+    def draw(_, s):
+        a = s.initializer(g, torch.float32)
+        d = expert_axis(s.logical)
+        if m is None or d is None:
+            return a
+        n = a.shape[d] // EP_MODEL
+        return a.narrow(d, m * n, n).clone()
+
+    params = tree_map_with_path(draw, moe_spec(cfg))
+    B, S = EP_LAYER["B"], EP_LAYER["S"]
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+    r = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+    return params, x, r
+
+
+def ep_skewed(params: dict) -> dict:
+    """``params`` with the router's columns of the first 1/8 of the experts
+    scaled by EP_HOT_SCALE (a skewed router whose hot experts overflow)."""
+    w = params["router"]["w"].clone()
+    w[:, :w.shape[1] // 8] *= EP_HOT_SCALE
+    return {**params, "router": {**params["router"], "w": w}}
+
+
+def ep_leaves(tree):
+    if isinstance(tree, dict):
+        return {k: ep_leaves(v) for k, v in tree.items()}
+    return tree.detach().requires_grad_(True)
+
+
+def ep_tensors(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(ep_tensors(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def ep_layer_outputs(y, aux: dict, leaves: dict, x) -> dict:
+    """The layer's output, aux values and gradients, by name."""
+    grads = {f"grad/{k}": v.grad for k, v in ep_tensors(leaves).items()}
+    return {"y": y, **{f"aux/{k}": v for k, v in aux.items()}, "grad/x": x.grad, **grads}
+
+
+def ep_objective(y, aux: dict, r):
+    """A rank's share of ``(y . r).sum() + lb_loss`` (tests/test_torch_moe_ep.py's)."""
+    return (y.float() * r).sum() + aux["lb_loss"] / EP_DATA
+
+
+def ep_references(torch, get_config, dev, out_dir: Path) -> dict:
+    """What the ranks' layers (b) are held to, computed first in this
+    process and freed before they start: for each arch, the dense layer's
+    output at capacity 8 (written to a file in ``out_dir``), its forward and
+    backward timed at the default capacity with the skewed router
+    (:func:`ep_skewed`), and the one-process simulation of the four ranks
+    there: each rank's digests and the dropped fraction."""
+    from repro_torch.models import moe_shard_map as ep
+    from repro_torch.models.moe import moe, moe_spec
+    from repro_torch.params import expert_slice
+
+    refs: dict = {"layer": {}}
+    for arch in EP_LAYER["archs"]:
+        base = get_config(arch)
+        cfg8 = dataclasses.replace(base, capacity_factor=EP_CAPACITY)
+        params, x, r = ep_layer_inputs(torch, base, dev)
+        with torch.no_grad():
+            y8, _ = moe(params, x, cfg8)
+        torch.save(y8, out_dir / f"dense_y_{arch}.pt")
+        del y8
+        params = ep_skewed(params)
+        leaves, xl = ep_leaves(params), x.detach().requires_grad_(True)
+        ms = []
+        for _ in range(2):  # the first is a warm-up
+            for leaf in [xl, *ep_tensors(leaves).values()]:
+                leaf.grad = None
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            y, aux = moe(leaves, xl, base)
+            ((y.float() * r).sum() + aux["lb_loss"]).backward()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        del leaves, xl, y, aux
+        torch.cuda.empty_cache()
+        spec = moe_spec(base)
+        ranks = range(EP_DATA * EP_MODEL)
+        sim_leaves = [ep_leaves(expert_slice(params, spec, i % EP_MODEL, EP_MODEL)) for i in ranks]
+        del params
+        B = EP_LAYER["B"] // EP_DATA
+        xs = [x[(i // EP_MODEL) * B:(i // EP_MODEL + 1) * B].clone().requires_grad_(True) for i in ranks]
+        ys, auxs = ep.simulate(sim_leaves, xs, base, n_data=EP_DATA, n_model=EP_MODEL)
+        sum(ep_objective(y, a, r[(i // EP_MODEL) * B:(i // EP_MODEL + 1) * B])
+            for i, (y, a) in enumerate(zip(ys, auxs))).backward()
+        torch.cuda.synchronize()
+        refs["layer"][arch] = {
+            "dense_y8": str(out_dir / f"dense_y_{arch}.pt"), "dense_layer_ms": ms[-1],
+            "sim_digests": [{k: digest(torch, v) for k, v in ep_layer_outputs(y, a, lv, xi).items()}
+                            for y, a, lv, xi in zip(ys, auxs, sim_leaves, xs)],
+            "sim_dropped_frac": float(auxs[0]["dropped_frac"]),
+        }
+        del sim_leaves, xs, ys, auxs, x, r
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _zeros_like_tree(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like_tree(torch, v) for k, v in tree.items()}
+    return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
+
+
+def ep_rank(rank: int, world: int, store_path: str, refs: dict, out) -> None:
+    """One rank of the (EP_DATA, EP_MODEL) mesh, spawned: a gloo process
+    group over a FileStore, the mesh on cuda:0 (every rank shares the one
+    card), then :func:`ep_rank_checks`. Puts (rank, results, error) on ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)  # every rank on the one card
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world)
+        out.put((rank, ep_rank_checks(torch, rank, refs), None))
+    except Exception:  # noqa: BLE001 - reported to the parent, which fails the phase
+        out.put((rank, None, traceback.format_exc()[-4000:]))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def ep_rank_checks(torch, rank: int, refs: dict) -> dict:
+    """(a) ``Model.loss`` and its backward with ``moe_impl="shard_map"``
+    through the kernels, the kernels' launches counted from 0 just before;
+    the expert gradients summed over the data ranks; then, on the ranks of
+    data index 0, one process's dense model at the same weights on the whole
+    batch (its loss, its expert gradients' slice of this rank's model index
+    held to the summed ones). (b) each arch's layer in f32: at capacity 8
+    the forward against the dense output; at the default capacity with the
+    skewed router the forward and backward, timed on CUDA events, digested
+    against the simulation."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import moe_shard_map as ep
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.params import expert_slice
+    from repro_torch.sharding import sharding_ctx
+
+    dev = torch.device("cuda")
+    mesh = make_host_mesh(model_axis=EP_MODEL)
+    d, m = rank // EP_MODEL, rank % EP_MODEL
+    res: dict = {"rank": rank, "data": d, "model": m}
+
+    # (a) the model
+    cfg = ep_train_cfg(get_config, "shard_map")
+    model = Model(cfg, device=dev)
+    params = expert_slice(model.init(ep_generator(torch, dev, 0), train=True), model.spec(), m, EP_MODEL)
+    torch.cuda.empty_cache()
+    grads = _zeros_like_tree(torch, params)
+    B = EP_TRAIN["B"] // EP_DATA
+    batch = {k: v[d * B:(d + 1) * B] for k, v in ep_train_batch(torch, cfg, dev).items()}
+    leaves = Model.grad_leaves(params, grads)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ep.reset_exchanged_bytes()
+    t0 = time.perf_counter()
+    with sharding_ctx(mesh, EP_RULES):
+        loss, parts = model.loss(leaves, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    res["train"] = {"loss": float(loss.detach()), "lb_loss": float(parts["lb_loss"].detach()),
+                    "step_s": time.perf_counter() - t0, "exchanged_bytes": ep.exchanged_bytes(),
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": ops.launch_counts()}
+    spec = dict(tree_leaves(model.spec()))
+    data_group = mesh.get_group("data")
+    expert_grads = {path: g for path, g in tree_leaves(grads) if expert_axis(spec[path].logical) is not None}
+    for g in expert_grads.values():
+        dist.all_reduce(g, group=data_group)
+    del model, params, grads, leaves, loss, parts
+    torch.cuda.empty_cache()
+    if d == 0:
+        cfg = ep_train_cfg(get_config, "dense")
+        model = Model(cfg, device=dev)
+        params = model.init(ep_generator(torch, dev, 0), train=True)
+        grads = _zeros_like_tree(torch, params)
+        loss, parts = model.loss(Model.grad_leaves(params, grads), ep_train_batch(torch, cfg, dev))
+        loss.backward()
+        res["train"]["dense_loss"] = float(loss.detach())
+        dense = dict(tree_leaves(grads))
+        rel = {}
+        for path, g in expert_grads.items():
+            a = expert_axis(spec[path].logical)
+            want = dense[path].narrow(a, m * g.shape[a], g.shape[a])
+            rel["/".join(path)] = float((g / EP_DATA - want).norm() / want.norm())
+        res["train"]["expert_grad_rel_l2"] = rel
+        # parts holds the graph, whose leaves hold the parameters and, as .grad, the gradients
+        del dense, model, params, grads, loss, parts
+    del expert_grads
+    torch.cuda.empty_cache()
+    dist.barrier()  # (b) starts once the dense models of data index 0 are freed
+
+    # (b) the layer alone, f32
+    res["layer"] = {}
+    for arch in EP_LAYER["archs"]:
+        base = get_config(arch)
+        ref = refs["layer"][arch]
+        params, x, r = ep_layer_inputs(torch, base, dev, m)
+        B = EP_LAYER["B"] // EP_DATA
+        x, r = x[d * B:(d + 1) * B], r[d * B:(d + 1) * B]
+        row: dict = {}
+        ep.reset_exchanged_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            y8, aux8 = ep.moe_shard_map(params, x, dataclasses.replace(base, capacity_factor=EP_CAPACITY), mesh=mesh,
+                                        data_axes=("data",))
+        want = torch.load(ref["dense_y8"], map_location=dev)[d * B:(d + 1) * B]
+        row["cf8"] = {"rel_err": float((y8 - want).abs().max() / want.abs().max()),
+                      "dropped_frac": float(aux8["dropped_frac"]), "exchanged_bytes": ep.exchanged_bytes()}
+        del y8, aux8, want
+        leaves, xl = ep_leaves(ep_skewed(params)), x.detach().requires_grad_(True)
+        ep.reset_exchanged_bytes()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y, aux = ep.moe_shard_map(leaves, xl, base, mesh=mesh, data_axes=("data",))
+        ep_objective(y, aux, r).backward()
+        end.record()
+        end.synchronize()
+        got = {k: digest(torch, v) for k, v in ep_layer_outputs(y, aux, leaves, xl).items()}
+        want = ref["sim_digests"][rank]
+        row["default"] = {"layer_ms": start.elapsed_time(end), "dropped_frac": float(aux["dropped_frac"]),
+                          "exchanged_bytes": ep.exchanged_bytes(),
+                          "unequal_to_simulation": sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))}
+        row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["layer"][arch] = row
+        del params, leaves, xl, y, aux
+        torch.cuda.empty_cache()
+    return res
+
+
+def ep_moe_phase(torch, get_config, dev, card: str) -> dict:
+    """The ``ep_moe`` lines: the expert-parallel MoE (``moe_impl="shard_map"``)
+    run by EP_DATA x EP_MODEL ranks on this one card, each a spawned process
+    on cuda:0 in a gloo group (NCCL puts no two ranks of a communicator on
+    one device; gloo stages CUDA tensors through the host), after the build
+    (the ranks load the built kernels). The references first
+    (:func:`ep_references`), then the ranks (:func:`ep_rank_checks`). Fails
+    unless every rank finished; (a) the mean loss over the data ranks is
+    within EP_LOSS_REL of the dense model's and every expert-gradient slice
+    within EP_GRAD_REL_L2 relative L2 of the dense one; (b) at capacity 8
+    every rank's output is within EP_LAYER_REL of the dense layer's, and at
+    the default capacity with the skewed router (:func:`ep_skewed`) slots
+    are dropped and every rank equals the simulation to the bit, output,
+    aux and gradients. Prints, per rank, the bytes it sent through the exchange, its
+    peak memory and the layer's ms (CUDA events around forward and backward,
+    the exchanges included, four ranks sharing the card) beside the dense
+    layer's on one process, and the dropped fractions. -> the ranks' kernel
+    launches in (a)'s expert-parallel run, summed."""
+    import torch.multiprocessing as mp
+
+    gc.collect()  # the ranks share the card: this process keeps no cached blocks
+    torch.cuda.empty_cache()
+    reserved_gb = torch.cuda.memory_reserved() / 1e9
+    t0 = time.perf_counter()
+    world = EP_DATA * EP_MODEL
+    with tempfile.TemporaryDirectory(prefix="ep_moe_") as tmp:
+        refs = ep_references(torch, get_config, dev, Path(tmp))
+        torch.cuda.empty_cache()
+        refs_s = time.perf_counter() - t0
+        ctx = mp.get_context("spawn")
+        out = ctx.Queue()
+        procs = [ctx.Process(target=ep_rank, args=(r, world, str(Path(tmp) / "store"), refs, out))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            results = [out.get(timeout=EP_TIMEOUT_S) for _ in procs]
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+    errors = {r: err for r, _, err in results if err}
+    if errors:
+        raise AssertionError(f"ep_moe ranks failed: {errors}")
+    res = {r: x for r, x, _ in results}
+    failures = []
+    losses = [res[d * EP_MODEL]["train"]["loss"] for d in range(EP_DATA)]
+    dense_loss = res[0]["train"]["dense_loss"]
+    loss_rel = abs(sum(losses) / EP_DATA - dense_loss) / abs(dense_loss)
+    grad_rel = {f"model{m}/{k}": v for m in range(EP_MODEL) for k, v in res[m]["train"]["expert_grad_rel_l2"].items()}
+    if not loss_rel <= EP_LOSS_REL:
+        failures.append(f"(a) loss {loss_rel}")
+    if not grad_rel or max(grad_rel.values()) > EP_GRAD_REL_L2:
+        failures.append(f"(a) expert gradients {grad_rel}")
+    emit("ep_moe", check="a", arch=EP_TRAIN["arch"], layers=EP_TRAIN["n_layers"], batch=EP_TRAIN["B"],
+         seq=EP_TRAIN["S"], mesh=[EP_DATA, EP_MODEL], capacity_factor=EP_CAPACITY, card=card,
+         dense_loss=dense_loss, rank_losses=losses, loss_rel=loss_rel, expert_grad_rel_l2=grad_rel,
+         ranks={r: {k: res[r]["train"][k] for k in ("step_s", "exchanged_bytes", "peak_memory_gb", "lb_loss")}
+                for r in res})
+    for arch in EP_LAYER["archs"]:
+        rows = {r: res[r]["layer"][arch] for r in res}
+        cf8 = max(row["cf8"]["rel_err"] for row in rows.values())
+        unequal = {r: row["default"]["unequal_to_simulation"] for r, row in rows.items()
+                   if row["default"]["unequal_to_simulation"]}
+        if not cf8 <= EP_LAYER_REL:
+            failures.append(f"(b) {arch} capacity 8: {cf8}")
+        if unequal:
+            failures.append(f"(b) {arch} default capacity apart from the simulation: {unequal}")
+        dropped = {r: row["default"]["dropped_frac"] for r, row in rows.items()}
+        if not min(dropped.values()) > 0:
+            failures.append(f"(b) {arch} default capacity, skewed router: nothing dropped {dropped}")
+        emit("ep_moe", check="b", arch=arch, tokens=EP_LAYER["B"] * EP_LAYER["S"], dtype="float32",
+             mesh=[EP_DATA, EP_MODEL], card=card, cf8_rel_err=cf8, default_equal_to_simulation=not unequal,
+             router_hot_scale=EP_HOT_SCALE,
+             dropped_frac=rows[0]["default"]["dropped_frac"], sim_dropped_frac=refs["layer"][arch]["sim_dropped_frac"],
+             dense_layer_ms=refs["layer"][arch]["dense_layer_ms"],
+             ranks={r: {"layer_ms": row["default"]["layer_ms"], "exchanged_bytes": row["default"]["exchanged_bytes"],
+                        "exchanged_bytes_cf8": row["cf8"]["exchanged_bytes"],
+                        "peak_memory_gb": row["peak_memory_gb"]} for r, row in rows.items()})
+    launches: dict[str, int] = {}
+    for r in res.values():
+        for k, n in r["train"]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    emit("ep_moe_phase", s=time.perf_counter() - t0, references_s=refs_s, launches=launches, failures=failures,
+         main_reserved_gb=reserved_gb)
+    if failures:
+        raise AssertionError(f"ep_moe: {failures}")
+    return launches
+
+
+# -- the flash kernels at 32k tokens against the chunked oracle ------------------------------
+LONG_ATTENTION = (("qwen3-4b", 1, 32768), ("recurrentgemma-9b", 1, 32768))
+
+
+def long_attention_phase(torch, F, ops, get_config, dev, card: str) -> dict:
+    """The ``long_attention`` lines: the flash forward (the wgmma kernel) and
+    backward (the wgmma pair) at B 1 x S 32768 for each of LONG_ATTENTION,
+    causal with the config's window, bf16, held to ``_attend_chunked`` (the
+    JAX package's xla path: 512-row query chunks, the (window + 512)-key
+    strip under a window) run on f32 copies of the same inputs, and its
+    autograd gradient, at the bf16 tolerance, and every (batch, head, 64
+    rows) block of the output and of each gradient within
+    FLASH_BWD_BLOCK_REL_L2 (a kernel that dropped one of the 256 key tiles
+    of a late row would read ~6 % there). Each row: the kernel's ms, its
+    bound, the plain version's ms (``_attend_chunked`` on the bf16 inputs;
+    its autograd backward) and SDPA's (its backward through autograd), all
+    on CUDA events: calls of 2.5-66 ms hide the launch, and the profiler on
+    the card's machine drops one record of such a kernel in most profiled runs
+    (``time_ms`` then fails). -> {"flash_attention": rows, "flash_attention_bwd": rows}."""
+    from repro_torch.models.attention import _attend_chunked
+
+    rows: dict = {"flash_attention": [], "flash_attention_bwd": []}
+    for arch, B, S in LONG_ATTENTION:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        Hq, Hkv, D, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+        g = torch.Generator(device=dev).manual_seed(29)
+        q = torch.randn((B, S, Hq, D), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16() for _ in range(2))
+        do = torch.randn((B, S, Hq, D), generator=g, device=dev).bfloat16()
+        leaves = [a.float().requires_grad_(True) for a in (q, k, v)]
+        want = _attend_chunked(*leaves, cfg, window=window)
+        want.backward(do.float())
+        want = want.detach()
+        want_grads = [a.grad for a in leaves]
+        del leaves
+        shape = dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window)
+        counts0 = before = ops.launch_counts()
+        o, lse = ops.flash_attention(q, k, v, window=window, return_lse=True)
+        grads = ops.flash_attention_bwd(q, k, v, o, do, window=window, lse=lse)
+        after = ops.launch_counts()
+        wgmma = (after["flash_attention_wgmma"] - before["flash_attention_wgmma"],
+                 after["flash_attention_bwd_wgmma"] - before["flash_attention_bwd_wgmma"])
+        if wgmma != (1, 1):
+            raise AssertionError(f"flash at 32k ({arch}): wgmma launches {wgmma}, expected one forward and one pair")
+        err = check_close("flash_attention at 32k", o, want, **shape)
+        # late rows read ~0.006, under the bf16 atol, and the largest error is
+        # the bf16 rounding of an early row's output (|o| ~ 2-4): each block
+        # of 64 rows is held to the f32 oracle relative to its own size
+        block = block_rel_l2(o, want)
+        if not block <= FLASH_BWD_BLOCK_REL_L2["bfloat16"]:
+            raise AssertionError(f"flash_attention at 32k ({arch}): a block's relative L2 error {block}")
+        checks = {n: flash_grad_close(f"flash_attention_bwd at 32k {n}", x, w, **shape)
+                  for n, x, w in zip(("dq", "dk", "dv"), grads, want_grads)}
+        del want, want_grads, grads
+        torch.cuda.empty_cache()
+        flops, nbytes = ops.flash_work(q, k, True, window)
+        bflops, bbytes = ops.flash_work(q, k, True, window, backward=True)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if window is None:
+            def sdpa(*t):
+                return F.scaled_dot_product_attention(*t, is_causal=True, enable_gqa=True)
+
+            sdpa_args = (qt, kt, vt)
+            library_call = "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+        else:
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+
+            def sdpa(*t):  # the memory-efficient kernel: the math one would hold 16 x S x S scores
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return F.scaled_dot_product_attention(*t, attn_mask=mask)
+
+            sdpa_args = (qt, kt.repeat_interleave(Hq // Hkv, dim=1), vt.repeat_interleave(Hq // Hkv, dim=1))
+            library_call = (f"F.scaled_dot_product_attention(attn_mask=causal window {window}, memory-efficient "
+                            f"kernel), k/v repeated to {Hq} heads")
+        sdpa_leaves = [a.detach().requires_grad_(True) for a in sdpa_args]
+        sdpa_out = sdpa(*sdpa_leaves)
+        plain_leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
+        plain_out = _attend_chunked(*plain_leaves, cfg, window=window)
+        fwd_bound, fwd_by = bound_ms(nbytes, flops, "bfloat16")
+        bwd_bound, bwd_by = bound_ms(bbytes, bflops, "bfloat16")
+        common = {"arch": arch, "card": card, "timed_by": "cuda events", "shape": f"q {B}x{S}x{Hq}x{D}, k/v {B}x{S}x{Hkv}x{D}, bf16, causal"
+                  + (f", window {window}" if window else ""), "oracle": "_attend_chunked on f32 copies"}
+        fwd = {**common, "max_abs_err": err, "block_rel_l2": block,
+               "ms": events_ms(lambda: ops.flash_attention(q, k, v, window=window), 5),
+               "plain_ms": events_ms(lambda: _attend_chunked(q, k, v, cfg, window=window), 1),
+               "library_ms": events_ms(lambda: sdpa(*sdpa_args), 5), "library_call": library_call,
+               "bound_ms": fwd_bound, "bound_by": fwd_by, "flops": flops, "bytes": nbytes}
+        bwd = {**common, "max_abs_err": max(e for e, _ in checks.values()),
+               "block_rel_l2": {n: b for n, (_, b) in checks.items()},
+               "ms": events_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do, window=window, lse=lse), 5),
+               "plain_ms": events_ms(lambda: torch.autograd.grad(plain_out, plain_leaves, do, retain_graph=True), 1),
+               "library_ms": events_ms(lambda: torch.autograd.grad(sdpa_out, sdpa_leaves, do.transpose(1, 2),
+                                                                   retain_graph=True), 5),
+               "library_call": f"torch.autograd.grad of {library_call}",
+               "bound_ms": bwd_bound, "bound_by": bwd_by, "flops": bflops, "bytes": bbytes}
+        counts = ops.launch_counts()  # the row's launches: the checked one and the timed ones
+        fwd["launches"] = counts["flash_attention"] - counts0["flash_attention"]
+        bwd["launches"] = counts["flash_attention_bwd"] - counts0["flash_attention_bwd"]
+        del sdpa_out, sdpa_leaves, plain_out, plain_leaves, o, lse
+        torch.cuda.empty_cache()
+        fwd["s"] = bwd["s"] = time.perf_counter() - t0
+        rows["flash_attention"].append(fwd)
+        rows["flash_attention_bwd"].append(bwd)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2629,6 +3185,11 @@ def main() -> int:
         for row in rows:
             emit("kernel_timing", name=name, **row)
     torch.cuda.empty_cache()
+    long_rows = long_attention_phase(torch, F, ops, get_config, dev, smi)
+    for name, rows in long_rows.items():
+        for row in rows:
+            emit("long_attention", name=name, **row)
+    torch.cuda.empty_cache()
 
     # -- the paper's Fig. 1 engines: eager, and in CUDA graphs; first of the paths, in a process
     # whose host is still quiet (the eager step ran 3x slower after the serving paths) ------------
@@ -2650,7 +3211,8 @@ def main() -> int:
                 lambda: trainer_phase(torch, ops, dev),
                 lambda: profilerd_phase(),
                 lambda: launcher_phase(),
-                lambda: faults_phase(torch, kind)):
+                lambda: faults_phase(torch, kind),
+                lambda: ep_moe_phase(torch, get_config, dev, smi)):
         for name, n in run().items():
             launches[name] += n
         torch.cuda.empty_cache()
@@ -2701,6 +3263,9 @@ def main() -> int:
             if n_mma or n_wgmma != launches[name]:
                 raise AssertionError(f"flash backward launches on the main paths: {n_wgmma} of {launches[name]} on "
                                      f"the wgmma pair, {n_mma} on the mma pair")
+        if name in long_rows:  # at 32k tokens, held to the chunked oracle (long_attention)
+            row["s32k"] = [{k: r[k] for k in ("arch", "shape", "launches", "ms", "bound_ms", "bound_by", "plain_ms",
+                                              "library_ms", "max_abs_err")} for r in long_rows[name]]
         if name == "rglru_scan_bwd":
             row["shapes_ms"] = {r["shape"]: r["ms"] for r in rows}
         if name == "rglru_scan":  # ops launches only the chunked kernel; the sequential one is timed beside it

@@ -48,9 +48,10 @@ class ModelConfig:
     capacity_factor: float = 1.25
     first_dense: int = 0  # leading dense-FFN layers (DeepSeekMoE)
     dense_d_ff: int = 0
-    # Ignored by the port, which has no mesh: the JAX package's
-    # ``_apply_moe`` takes the dense dispatch (``models/moe.py``) without one.
-    # Kept so configs compare field by field with the JAX package's.
+    # "shard_map": the expert-parallel MoE (``models/moe_shard_map.py``) where
+    # a sharding context's mesh has a ``model`` axis the experts divide by;
+    # otherwise, and with "dense", the dense dispatch (``models/moe.py``), by
+    # the JAX package's rule (``models/transformer.py`` ``_apply_moe``).
     moe_impl: str = "dense"
     # recurrent / ssm
     lru_width: int | None = None
@@ -59,8 +60,10 @@ class ModelConfig:
     chunk: int = 512
     chunk_threshold: int = 8192
     attn_cp: bool = False
-    # Ignored by the port: the attention kernel is chosen by the device of the
-    # tensors (the CUDA kernel on the card, its plain version on the CPU).
+    # The port reads it nowhere: prefill runs the flash kernel at every length
+    # (the CUDA kernel on the card, its plain version on the CPU), the JAX
+    # package's "pallas" path; its "xla" path (``models/attention.py``
+    # ``_attend_full``, ``_attend_chunked``) is a reference no model calls.
     # Kept so configs compare field by field with the JAX package's.
     attention_impl: str = "xla"
     remat: str = "full"  # none | full | dots: the stacked units under autograd (models/transformer.py)

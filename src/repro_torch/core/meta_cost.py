@@ -23,7 +23,11 @@ the card:
     move nothing;
   - ``ops``: the ops that launch a kernel, and the kernels' calls;
   - ``kernels``: the hand-written kernels' calls (the meta path of
-    ``kernels/ops.py``, which reports them here).
+    ``kernels/ops.py``, which reports them here);
+  - ``coll_bytes`` and ``coll_bytes::<kind>``: the bytes a rank sends in a
+    collective whose meta path reports them (``record_collective``: the
+    expert-parallel MoE's all-to-all, ``models/moe_shard_map.py``); its
+    leaf is the collective's kind.
 
 * the peak of live device bytes: each storage counts from the op that
   allocated it until its last reference drops (a finalizer on the storage,
@@ -214,6 +218,10 @@ class MetaTrace(TorchDispatchMode):
         m = {"ops": 1.0, "kernels": 1.0, **({"flops": flops} if flops else {}), **({"bytes": nbytes} if nbytes else {})}
         self._add(self._path() + (KERNEL_PREFIX + key,), m)
 
+    def collective(self, kind: str, nbytes: float) -> None:
+        """One collective's bytes a rank sends (from a collective's meta path)."""
+        self._add(self._path() + (kind,), {"coll_bytes": nbytes, f"coll_bytes::{kind}": nbytes})
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         ins = _tensors((args, kwargs))
@@ -246,6 +254,14 @@ def record_kernel(key: str, flops: float, nbytes: float) -> None:
         active[-1].kernel(key, flops, nbytes)
 
 
+def record_collective(kind: str, nbytes: float) -> None:
+    """A collective on the meta device (``all-to-all``, ...): its bytes
+    counted by the tracer that traces now in this thread, if any."""
+    active = _scope_mod.tracers()
+    if active:
+        active[-1].collective(kind, nbytes)
+
+
 @contextmanager
 def tracing(state=None):
     """Within: one :class:`MetaTrace` costs the meta ops and the scope names
@@ -264,4 +280,4 @@ def tracing(state=None):
         mode.finish()
 
 
-__all__ = ["MetaCost", "MetaTrace", "record_kernel", "tracing"]
+__all__ = ["MetaCost", "MetaTrace", "record_collective", "record_kernel", "tracing"]

@@ -21,6 +21,17 @@ shapes, Megatron-style tensor parallelism and FSDP as a rank computes them:
   KV group, the Megatron GQA convention; else attention is replicated), the
   ``mlp`` and ``vocab`` widths, the routed experts (``expert``: the capacity
   a rank's experts hold stays the global one's);
+* with ``moe_impl="shard_map"`` the MoE is the explicit expert-parallel
+  layer (``models/moe_shard_map.py``): a rank holds E / n_model routed
+  experts, the router whole, and routes its T_loc = B_loc x S tokens; the
+  trace runs that layer on meta under a sharding context of the mesh;
+* the attention runs the flash kernel at every length, the kernel the card
+  runs; ``chunk_threshold`` changes no number. ``attn_cp`` acts where the
+  JAX package's ``ctx_chunk`` constraint does, in its chunked path (S >
+  ``chunk_threshold``) where the query heads do not divide ``model``: there
+  a rank's attention does S / n_model query rows against all keys, so its
+  kernel's flops and bytes are the whole attention's over n_model (the mean
+  over ranks of the causal work); elsewhere it changes nothing;
 * the RG-LRU block and the xLSTM cells run at full width on every rank: their
   gate products are dense over the whole width (``state_out`` shards an
   output only), so the trace counts their work on every rank;
@@ -52,16 +63,20 @@ bytes a device sends, ring algorithms, n the group's size):
 * ``all-to-all``: a MoE layer whose experts are sharded exchanges its
   (tokens x top_k, D) bf16 slots twice (dispatch and combine) in the forward,
   twice in the backward and twice more where remat recomputes it, m (t-1)/t.
+  With ``moe_impl="shard_map"`` the exchange is the expert-parallel buffer
+  (n_model, E_loc, C_s, D): 2 x E C_s D b (n-1)/n a MoE layer and a pass, b
+  the activations' bytes (2), n = n_model, C_s = ``_local_capacity(T_loc)``,
+  the passes counted as above; the trace's meta exchange reports the same
+  bytes (``coll_bytes::all-to-all`` under the layer's ``a2a_*`` scopes),
+  and a cell fails where the two differ. Its layer all-reduces no output;
+  in a train step its backward sums over ``model`` the (B_loc, S, D) bf16
+  cotangent of its input and the router's f32 (D, E) gradient, 2 m (n-1)/n
+  each, once a MoE layer.
 
 The roofline is ``core/roofline.py``'s ``report_from_tree`` over the trace's
 tree on the H100's rates (``PLAN_HW``; the link term's NVLink rates are the
 data sheet's, not measured over a mesh). A cell JSON has the JAX package's
 keys; JAX's ``lower_s`` and ``compile_s`` are one ``trace_s``.
-
-Not ported: the explicit expert-parallel MoE (``--moe-impl shard_map``) and a
-step with DTensor parameters on a process group (ROADMAP Queue 1 [15b]); the
-xla-path chunked attention (``--chunk-threshold``, ``--attn-cp``; [4]). Those
-cells are ``fail``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k --mesh single --out DIR
@@ -71,6 +86,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -84,12 +100,14 @@ import torch
 from repro_torch.configs import SHAPES, ModelConfig, ShapeSpec, get_config, list_archs, shape_applicable
 from repro_torch.core import meta_cost
 from repro_torch.core.roofline import H100, report_from_tree
+from repro_torch.core.scope import KERNEL_PREFIX
 from repro_torch.launch.mesh import MeshShape, make_production_mesh, mesh_chips
 from repro_torch.launch.steps import make_serve_step, make_train_step
 from repro_torch.models import Model
 from repro_torch.models.modules import abstract_params, storage_dtype, tree_leaves, tree_map_with_path
+from repro_torch.models.moe_shard_map import _local_capacity
 from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
-from repro_torch.sharding import make_strategy, placements_from_spec, spec_for
+from repro_torch.sharding import make_strategy, placements_from_spec, sharding_ctx, spec_for
 from repro_torch.sharding.rules import axis_sizes, entry_axes, local_shape
 
 DEFAULT_OUT = os.path.join("results", "torch_dryrun")
@@ -103,10 +121,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # tracer's storage finalizers on the way, 4,096 steps overflow the main
 # thread's 8 MiB stack. A trace runs in a thread with this much stack.
 TRACE_STACK_BYTES = 1 << 30
-
-
-class NotPorted(NotImplementedError):
-    """A dry-run option whose path the port does not have yet."""
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +193,12 @@ class LocalPlan:
     ffn_split: bool  # a dense feed-forward's mlp width divided over tp
     experts_split: bool  # routed experts divided over tp
     vocab_split: bool
+    attn_share: float = 1.0  # the share of the attention kernel's work a rank does (attn_cp)
+
+    @property
+    def expert_parallel(self) -> bool:
+        """The explicit expert-parallel MoE: a rank holds E / n_model routed experts."""
+        return self.experts_split and self.cfg.moe_impl == "shard_map"
 
 
 def _split(n: int, logical: str, strategy, sizes: dict, tp_axes: set) -> int:
@@ -186,8 +206,9 @@ def _split(n: int, logical: str, strategy, sizes: dict, tp_axes: set) -> int:
     return n // k if k > 1 and n % k == 0 else n
 
 
-def local_plan(cfg: ModelConfig, strategy, mesh, global_batch: int) -> LocalPlan:
-    """What one rank of ``mesh`` computes under ``strategy`` (the module docstring's rules)."""
+def local_plan(cfg: ModelConfig, strategy, mesh, global_batch: int, seq_len: int = 0) -> LocalPlan:
+    """What one rank of ``mesh`` computes under ``strategy`` for a step of
+    ``global_batch`` x ``seq_len`` tokens (the module docstring's rules)."""
     sizes = axis_sizes(mesh)
     batch_axes = tuple(strategy.act_rules["batch"])
     tp_axes = {a for a in sizes if a not in batch_axes}
@@ -206,8 +227,15 @@ def local_plan(cfg: ModelConfig, strategy, mesh, global_batch: int) -> LocalPlan
             if hkv:
                 attn_split = True
                 changes.update(n_heads=hq, n_kv_heads=hkv, head_dim_=cfg.head_dim)
+    attn_share = 1.0
+    n_model = sizes.get("model", 1)
+    if (cfg.attn_cp and "attn" in cfg.pattern and seq_len > cfg.chunk_threshold and n_model > 1
+            and cfg.n_heads % n_model):
+        attn_share = 1.0 / n_model
     experts_split = False
-    if cfg.n_experts:
+    if cfg.n_experts and cfg.moe_impl == "shard_map":
+        experts_split = "model" in sizes and cfg.n_experts % n_model == 0 and n_model > 1
+    elif cfg.n_experts:
         e = _split(cfg.n_experts, "expert", strategy, sizes, tp_axes)
         if e < cfg.n_experts:
             experts_split = True
@@ -219,16 +247,19 @@ def local_plan(cfg: ModelConfig, strategy, mesh, global_batch: int) -> LocalPlan
     ffn_split = _split(d_ff, "mlp", strategy, sizes, tp_axes) < d_ff
     vocab_split = _split(cfg.vocab, "vocab", strategy, sizes, tp_axes) < cfg.vocab
     return LocalPlan(dataclasses.replace(cfg, **changes), batch, tp, attn_split, ffn_split, experts_split,
-                     vocab_split)
+                     vocab_split, attn_share)
 
 
 def local_spec(global_spec: dict, plan: LocalPlan, strategy, mesh) -> dict:
     """The spec tree a rank computes with: the plan's config's spec, with each
     ``mlp`` and ``vocab`` dim that the strategy shards over a tensor-parallel
-    axis divided by it."""
+    axis divided by it, and with the expert-parallel MoE a rank's E / n_model
+    routed experts (the leaves whose first axis past ``layers`` is
+    ``expert``: not the router)."""
     sizes = axis_sizes(mesh)
     batch_axes = set(strategy.act_rules["batch"])
     flat = dict(tree_leaves(global_spec))
+    ep = plan.expert_parallel
 
     def one(path, s):
         g = flat.get(path)
@@ -239,6 +270,9 @@ def local_spec(global_spec: dict, plan: LocalPlan, strategy, mesh) -> dict:
             tp_axes = [a for a in entry_axes(entry) if a not in batch_axes]
             if logical in ("mlp", "vocab") and tp_axes:
                 shape[d] //= math.prod(sizes[a] for a in tp_axes)
+        lead = 1 if s.logical[0] == "layers" else 0
+        if ep and s.logical[lead] == "expert":
+            shape[lead] //= sizes["model"]
         return dataclasses.replace(s, shape=tuple(shape))
 
     return tree_map_with_path(one, Model(plan.cfg, device="meta").spec())
@@ -279,11 +313,24 @@ def collectives(spec_tree: dict, plan: LocalPlan, strategy, mesh, *, train: bool
         msg = 2.0 * tokens * d_model  # (B_loc, S, D) in bf16
         passes = n_tp_sublayers * (2 if train else 1) + (n_remat_sublayers if train and remat != "none" else 0)
         out["all-reduce"] += 2 * msg * (t - 1) / t * passes
-        if plan.experts_split:
+        moe_passes = 2 * n_moe_layers * (2 if train else 1) + (2 * n_remat_moe if train and remat != "none" else 0)
+        if plan.expert_parallel:
+            n = sizes["model"]
+            ep_buffer = 2.0 * plan.cfg.n_experts * _local_capacity(tokens, plan.cfg) * d_model  # bf16
+            out["all-to-all"] += ep_buffer * (n - 1) / n * moe_passes
+            if train:  # the input's cotangent and the router's f32 gradient, summed over model
+                out["all-reduce"] += 2 * (msg + 4.0 * d_model * plan.cfg.n_experts) * (n - 1) / n * n_moe_layers
+        elif plan.experts_split:
             slots = 2.0 * tokens * top_k * d_model
-            moe_passes = 2 * n_moe_layers * (2 if train else 1) + (2 * n_remat_moe if train and remat != "none" else 0)
             out["all-to-all"] += slots * (t - 1) / t * moe_passes
     return {k: v for k, v in out.items() if v}
+
+
+def _local_experts(plan: LocalPlan, mesh) -> int:
+    """The routed experts a rank holds."""
+    if plan.expert_parallel:
+        return plan.cfg.n_experts // axis_sizes(mesh)["model"]
+    return plan.cfg.n_experts
 
 
 def _layer_counts(cfg: ModelConfig, plan: LocalPlan) -> tuple[int, int, int, int]:
@@ -297,7 +344,8 @@ def _layer_counts(cfg: ModelConfig, plan: LocalPlan) -> tuple[int, int, int, int
     for i in range(cfg.n_layers):
         ffn = _ffn_kind(cfg, i)
         subs = (layer_kind(cfg, i) == "attn" and plan.attn_split) + (
-            (ffn in ("mlp", "dense_mlp") and plan.ffn_split) or (ffn == "moe" and plan.experts_split))
+            (ffn in ("mlp", "dense_mlp") and plan.ffn_split)
+            or (ffn == "moe" and plan.experts_split and not plan.expert_parallel))
         moe += ffn == "moe"
         tp += subs
         if i in in_units:
@@ -338,9 +386,16 @@ def _on_deep_stack(fn):
 
 
 def trace_step(cfg: ModelConfig, spec: dict, shape: ShapeSpec, batch: int, *, grad_accum: int = 1,
-               opt_dtype: str = "float32") -> meta_cost.MetaCost:
-    """:func:`_trace_step` on a deep stack (TRACE_STACK_BYTES)."""
-    return _on_deep_stack(lambda: _trace_step(cfg, spec, shape, batch, grad_accum=grad_accum, opt_dtype=opt_dtype))
+               opt_dtype: str = "float32", mesh=None, act_rules: dict | None = None) -> meta_cost.MetaCost:
+    """:func:`_trace_step` on a deep stack (TRACE_STACK_BYTES), under the
+    sharding context of ``mesh`` and ``act_rules`` where a mesh is given."""
+
+    def run():
+        # the context is thread-local: entered on the tracing thread
+        with sharding_ctx(mesh, act_rules) if mesh is not None else contextlib.nullcontext():
+            return _trace_step(cfg, spec, shape, batch, grad_accum=grad_accum, opt_dtype=opt_dtype)
+
+    return _on_deep_stack(run)
 
 
 def _trace_step(cfg: ModelConfig, spec: dict, shape: ShapeSpec, batch: int, *, grad_accum: int = 1,
@@ -372,8 +427,27 @@ def _trace_step(cfg: ModelConfig, spec: dict, shape: ShapeSpec, batch: int, *, g
         return cost
 
 
-# ---------------------------------------------------------------------------
-# One cell
+ATTENTION_KERNELS = frozenset(KERNEL_PREFIX + k for k in ("flash_attention", "flash_attention_bwd"))
+
+
+def _scale_kernel_work(node, names: frozenset, share: float) -> dict:
+    """Scale the flops and bytes of the kernel leaves named in ``names``
+    under ``node`` by ``share`` (a rank's part of the attention under
+    ``attn_cp``), their ancestors' inclusive sums with them. -> what was cut."""
+    cut = {"flops": 0.0, "bytes": 0.0}
+    for child in node.children.values():
+        for m, v in _scale_kernel_work(child, names, share).items():
+            cut[m] += v
+    if node.name in names:
+        for m in cut:
+            if m in node.self_metrics:
+                v = node.self_metrics[m]
+                node.self_metrics[m] = v * share
+                cut[m] += v - v * share
+    for m, v in cut.items():
+        if v:
+            node.metrics[m] -= v
+    return cut
 # ---------------------------------------------------------------------------
 
 
@@ -451,21 +525,17 @@ def run_cell(
         cell.update(status="skip", reason=why)
         return cell
     try:
-        if cfg.moe_impl == "shard_map":
-            raise NotPorted("moe_impl='shard_map' (the explicit expert-parallel MoE) is not ported: "
-                            "ROADMAP Queue 1 [15b]")
-        if cfg.attn_cp or chunk_threshold is not None:
-            raise NotPorted("the xla-path chunked attention (chunk_threshold, attn_cp) is not ported: "
-                            "ROADMAP Queue 1 [4]")
         chips = mesh_chips(mesh)
         model = Model(cfg, device="meta")
         strategy = make_strategy(strategy_name, multi_pod="pod" in axis_sizes(mesh))
         batch_axes = tuple(strategy.act_rules["batch"])
         spec_tree = model.spec()
         train = shape.kind == "train"
-        plan = local_plan(cfg, strategy, mesh, shape.global_batch)
+        plan = local_plan(cfg, strategy, mesh, shape.global_batch, 0 if shape.kind == "decode" else shape.seq_len)
         cost = trace_step(plan.cfg, local_spec(spec_tree, plan, strategy, mesh), shape, plan.batch,
-                          grad_accum=grad_accum, opt_dtype=opt_dtype)
+                          grad_accum=grad_accum, opt_dtype=opt_dtype, mesh=mesh, act_rules=strategy.act_rules)
+        if plan.attn_share != 1:
+            _scale_kernel_work(cost.tree.root, ATTENTION_KERNELS, plan.attn_share)
         trace_s = time.time() - t0
 
         # the per-device state, from the placements
@@ -495,8 +565,13 @@ def run_cell(
         colls = collectives(spec_tree, plan, strategy, mesh, train=train, remat=cfg.remat, tokens=tokens,
                             d_model=cfg.d_model, top_k=cfg.top_k, n_moe_layers=n_moe, n_tp_sublayers=n_tp,
                             n_remat_sublayers=n_tp_remat, n_remat_moe=n_moe_remat)
-        for kind, b in colls.items():
-            tree.add_stack(["collectives", kind], {"coll_bytes": b, f"coll_bytes::{kind}": b})
+        for kind in ("all-gather", "reduce-scatter", "all-reduce", "all-to-all"):
+            traced, b = tree.total(f"coll_bytes::{kind}"), colls.get(kind, 0.0)
+            if traced:  # a collective's meta path reported it: the formula must agree
+                if not math.isclose(traced, b, rel_tol=1e-9):
+                    raise AssertionError(f"the trace's {kind} sends {traced} bytes, the formula {b}")
+            elif b:
+                tree.add_stack(["collectives", kind], {"coll_bytes": b, f"coll_bytes::{kind}": b})
         if dump_tree:
             from repro_torch.core.device_tree import save_device_tree
 
@@ -515,8 +590,8 @@ def run_cell(
             chips=chips,
             trace_s=round(trace_s, 1),
             local={"batch": plan.batch, "tp": plan.tp, "n_heads": plan.cfg.n_heads, "n_kv_heads": plan.cfg.n_kv_heads,
-                   "n_experts": plan.cfg.n_experts, "attn_split": plan.attn_split, "ffn_split": plan.ffn_split,
-                   "experts_split": plan.experts_split, "vocab_split": plan.vocab_split},
+                   "n_experts": _local_experts(plan, mesh), "attn_split": plan.attn_split,
+                   "ffn_split": plan.ffn_split, "experts_split": plan.experts_split, "vocab_split": plan.vocab_split},
             memory_analysis={
                 "argument_bytes": argument_b,
                 "output_bytes": 0 if donate else params_b + moments_b,

@@ -1,9 +1,22 @@
 """Attention: GQA/MQA with RoPE or M-RoPE, qk-norm, sliding windows, KV cache.
 
 Prefill always runs the flash-attention kernel through ``ops.flash_attention``
-(its plain version for CPU tensors). Decode is plain PyTorch, as the JAX
-package's decode is plain jnp, and rounds where it rounds: scores and the
-softmax probabilities pass through bf16.
+(its plain version for CPU tensors): the JAX package's ``pallas`` path, at
+every length. Decode is plain PyTorch, as the JAX package's decode is plain
+jnp, and rounds where it rounds: scores and the softmax probabilities pass
+through bf16.
+
+The JAX package's ``xla`` path, ``_attend_full`` and, above
+``chunk_threshold``, ``_attend_chunked`` (query chunks of ``cfg.chunk``
+rows, a (window + chunk)-key strip under a window), is here with its
+semantics as a reference: the layout (B, S, H, D), f32 scores, P rounded to
+the inputs' dtype before the PV product, masked scores ``NEG_INF``. No path
+of a model, server or trainer calls it; the tests hold it to the JAX
+package's, and ``chip_smoke.py`` holds the flash kernels to
+``_attend_chunked`` on f32 copies at 32k tokens, where a reference that
+materialises all S x T scores would need 137 GB. Each chunk runs under
+``torch.utils.checkpoint`` (JAX's body under ``jax.checkpoint`` with
+``nothing_saveable``), so a backward never holds S x T either.
 """
 
 from __future__ import annotations
@@ -11,9 +24,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.scope import scope as _scope
 from repro_torch.kernels import ops
+from repro_torch.sharding.ctx import shard_activation
 
 from .modules import ArraySpec, apply_mrope, apply_rope, project_heads, rms_norm, rms_norm_spec
 
@@ -53,6 +69,69 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     B, S, H, k = o.shape
     with _scope("out_proj"):
         return o.reshape(B, S, H * k) @ wo.to(o.dtype).reshape(H * k, -1)
+
+
+def _mask(q_idx: torch.Tensor, k_idx: torch.Tensor, window: int | None) -> torch.Tensor:
+    m = k_idx[None, :] <= q_idx[:, None]
+    if window is not None:
+        m &= (q_idx[:, None] - k_idx[None, :]) < window
+    return m
+
+
+def _attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg, *, q_offset: int = 0,
+                 window: int | None = None) -> torch.Tensor:
+    """q: (B,S,Hq,D); k,v: (B,T,Hkv,D) -> (B,S,Hq,D). Materialises (B,Hkv,G,S,T)."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
+    scale = 1.0 / math.sqrt(D)
+    with _scope("scores"):
+        s = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+        mask = _mask(torch.arange(S, device=q.device) + q_offset, torch.arange(T, device=q.device), window)
+        p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1).to(q.dtype)
+    with _scope("pv"):
+        o = torch.einsum("bkgst,btkd->bskgd", p, v)
+    return o.reshape(B, S, Hq, D)
+
+
+def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg, *,
+                    window: int | None = None) -> torch.Tensor:
+    """The softmax attention of :func:`_attend_full` one chunk of
+    ``cfg.chunk`` query rows at a time (S padded to whole chunks): memory
+    O(chunk x T), or O(chunk x (window + chunk)) where a window leaves each
+    chunk a strip of keys."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    C = min(cfg.chunk, S)
+    n_chunks = -(-S // C)
+    pad = n_chunks * C - S
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+    qg = q.reshape(B, n_chunks, C, Hkv, G, D)
+    scale = 1.0 / math.sqrt(D)
+    # under a window each chunk reads the (window + C) keys that end at its
+    # last row, not all T
+    use_strip = window is not None and (window + C) < T
+    Lk = min(window + C, T) if window is not None else T
+
+    def body(i: int, qc: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        if cfg.attn_cp:
+            # context parallelism: the chunk's rows over the model axis (the
+            # identity on a plain tensor)
+            qc = shard_activation(qc, (None, "ctx_chunk", None, None, None))
+        kstart = min(max(i * C + C - Lk, 0), T - Lk) if use_strip else 0
+        kc, vc = k[:, kstart:kstart + Lk], v[:, kstart:kstart + Lk]
+        with _scope("chunk_scores"):
+            s = torch.einsum("bckgd,btkd->bkgct", qc, kc).float() * scale
+            m = _mask(i * C + torch.arange(C, device=q.device), kstart + torch.arange(Lk, device=q.device), window)
+            p = torch.softmax(s.masked_fill(~m, NEG_INF), dim=-1).to(qc.dtype)
+        with _scope("chunk_pv"):
+            return torch.einsum("bkgct,btkd->bckgd", p, vc)
+
+    with _scope("q_chunk_scan"):
+        o = torch.stack([checkpoint(body, i, qg[:, i], k, v, use_reentrant=False) for i in range(n_chunks)], dim=1)
+    return o.reshape(B, n_chunks * C, Hq, D)[:, :S]
 
 
 def attention(params, x: torch.Tensor, cfg, positions: torch.Tensor, *, window: int | None = None,

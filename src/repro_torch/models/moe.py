@@ -22,6 +22,10 @@ products are ``torch.bmm``: under remat "dots" they are recomputed, as the
 JAX package's ``dots_with_no_batch_dims_saveable`` recomputes einsums with a
 batch dim, while the router's product (an ``aten.mm``) is saved.
 
+:func:`dispatch`, :func:`experts`, :func:`combine` and :func:`balance` are
+the steps the expert-parallel MoE (``models/moe_shard_map.py``) runs on a
+rank's tokens too, between its exchanges.
+
 Dispatch and combine are gathers through the slot order and its inverse, and
 each token's K outputs are added one after another in a fixed order. So
 neither the forward nor its autograd backward accumulates into one place from
@@ -33,6 +37,8 @@ order, ascending expert id, each add rounded to bf16: so does the port.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -93,71 +99,109 @@ def moe(params, x: torch.Tensor, cfg, *, scope: str = "moe") -> tuple[torch.Tens
         return _moe(params, x, cfg)
 
 
+class Slots(NamedTuple):
+    """Where :func:`dispatch` put each slot, for :func:`combine`: the slots
+    (t, k), flattened as t*K + k, in the order of a stable sort by expert id,
+    each sorted slot's buffer row (expert * C + its rank within the expert),
+    whether it was kept (rank < C), and the slots each expert was sent."""
+
+    order: torch.Tensor  # sorted position -> flat slot
+    row: torch.Tensor  # sorted position -> buffer row
+    kept: torch.Tensor  # sorted position -> rank < C
+    counts: torch.Tensor  # expert -> slots routed to it, dropped ones included
+
+
+def dispatch(xt: torch.Tensor, gate_ids: torch.Tensor, E: int, C: int) -> tuple[torch.Tensor, Slots]:
+    """xt (T, D), gate_ids (T, K) -> the (E, C, D) expert buffer, empty rows
+    zero, and its :class:`Slots`. The buffer is a gather: row c of expert e
+    reads sorted slot starts[e] + c where c < counts[e]."""
+    T, D = xt.shape
+    K = gate_ids.shape[1]
+    dev = xt.device
+    flat_ids = gate_ids.reshape(-1)
+    order = torch.sort(flat_ids, stable=True).indices
+    sorted_ids = flat_ids[order]
+    bounds = torch.searchsorted(sorted_ids, torch.arange(E + 1, device=dev), side="left")
+    starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
+    rank = torch.arange(T * K, device=dev) - starts[sorted_ids]
+    # the other rows read a clamped position and are zeroed
+    cap = torch.arange(C, device=dev)
+    filled = cap < counts[:, None]  # (E, C)
+    src = order[(starts[:, None] + cap).clamp_max(T * K - 1)]  # (E, C) flat slot of each row
+    # indexing the K-fold view (not xt itself): each (t, k) is read once, so
+    # the backward sums a token's K gradients over the K axis in order
+    slot_vals = shard_activation(xt[:, None, :].expand(T, K, D), ("batch", None, None))
+    buf = slot_vals[src // K, src % K].masked_fill(~filled[..., None], 0)
+    return buf, Slots(order, sorted_ids * C + rank, rank < C, counts)
+
+
+def combine(y_rows: torch.Tensor, slots: Slots, gate_ids: torch.Tensor, gate_w: torch.Tensor) -> torch.Tensor:
+    """y_rows (E*C, D), the experts' outputs by buffer row -> y (T, D): each
+    token's K outputs scaled by its gate weights and added in ascending
+    expert id (the JAX scatter's order: the sorted slots), gathered back
+    through the inverse of ``slots.order``; a dropped slot adds 0."""
+    T, K = gate_ids.shape
+    inverse = torch.empty_like(slots.order)
+    inverse[slots.order] = torch.arange(T * K, device=slots.order.device)  # flat slot -> sorted position
+    row, kept = slots.row[inverse].view(T, K), slots.kept[inverse].view(T, K)
+    by_expert = gate_ids.argsort(dim=-1)
+    row, kept = row.gather(1, by_expert), kept.gather(1, by_expert)
+    w = gate_w.gather(1, by_expert).to(y_rows.dtype)
+    gathered = y_rows[row.clamp_max(y_rows.shape[0] - 1)].masked_fill(~kept[..., None], 0)  # (T, K, D)
+    gathered = shard_activation(gathered, ("batch", None, None))
+    return shard_activation(_add_in_order(gathered * w[..., None]), ("batch", None))
+
+
+def experts(buf: torch.Tensor, params, act: str) -> torch.Tensor:
+    """The routed experts on their rows: (E, C, D) -> (E, C, D), one batched
+    product per projection."""
+    f = ACTIVATIONS[act]
+    h = torch.bmm(buf, params["wi"].to(buf.dtype))
+    g = torch.bmm(buf, params["wg"].to(buf.dtype))
+    return torch.bmm(f(g) * h, params["wo"].to(buf.dtype))
+
+
 def _moe(params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
     C = _capacity(T, cfg)
-    dev = x.device
-    f = ACTIVATIONS[cfg.act]
     xt = x.reshape(T, D)
     probs, gate_w, gate_ids = route(params, xt, cfg)
 
     with _scope("dispatch"):
-        # slots (t, k) flattened as t*K + k, sorted by expert id (stable)
-        flat_ids = gate_ids.reshape(-1)
-        order = torch.sort(flat_ids, stable=True).indices  # sorted position -> flat slot
-        sorted_ids = flat_ids[order]
-        bounds = torch.searchsorted(sorted_ids, torch.arange(E + 1, device=dev), side="left")
-        starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
-        positions = torch.arange(T * K, device=dev)
-        rank = positions - starts[sorted_ids]
-        valid = rank < C
-        # row c of expert e holds sorted position starts[e] + c where c < counts[e];
-        # the other rows read a clamped position and are zeroed
-        cap = torch.arange(C, device=dev)
-        filled = cap < counts[:, None]  # (E, C)
-        src = order[(starts[:, None] + cap).clamp_max(T * K - 1)]  # (E, C) flat slot of each row
-        # indexing the K-fold view (not xt itself): each (t, k) is read once, so
-        # the backward sums a token's K gradients over the K axis in order
-        slot_vals = shard_activation(xt[:, None, :].expand(T, K, D), ("batch", None, None))
-        buf = slot_vals[src // K, src % K].masked_fill(~filled[..., None], 0)
+        buf, slots = dispatch(xt, gate_ids, E, C)
         # EP: the expert buffer on the expert-parallel axis
         buf = shard_activation(buf, ("expert_buf", None, None))
 
     with _scope("experts"):
-        h = torch.bmm(buf, params["wi"].to(x.dtype))
-        g = torch.bmm(buf, params["wg"].to(x.dtype))
-        y_e = shard_activation(torch.bmm(f(g) * h, params["wo"].to(x.dtype)), ("expert_buf", None, None))
-        y_e = y_e.reshape(E * C, D)
+        y_e = shard_activation(experts(buf, params, cfg.act), ("expert_buf", None, None)).reshape(E * C, D)
 
     with _scope("combine"):
-        # each token's K slots in ascending expert id (the JAX scatter's order:
-        # the sorted slots), gathered back through the inverse of ``order``
-        inverse = torch.empty_like(order)
-        inverse[order] = positions  # flat slot -> sorted position
-        slot = (sorted_ids * C + rank)[inverse].view(T, K)
-        kept = valid[inverse].view(T, K)
-        by_expert = gate_ids.argsort(dim=-1)
-        slot, kept = slot.gather(1, by_expert), kept.gather(1, by_expert)
-        w = gate_w.gather(1, by_expert).to(x.dtype)
-        gathered = y_e[slot.clamp_max(E * C - 1)].masked_fill(~kept[..., None], 0)  # (T, K, D)
-        gathered = shard_activation(gathered, ("batch", None, None))
-        y = shard_activation(_add_in_order(gathered * w[..., None]), ("batch", None))
+        y = combine(y_e, slots, gate_ids, gate_w)
     if cfg.n_shared_experts:
         y = y + mlp(params["shared"], xt, act=cfg.act, scope="shared_experts")
 
     with _scope("aux_loss"):
-        # Switch-style load balancing: E * sum_e fraction_e * prob_e; the
-        # fractions come from counts and carry no gradient. Compiled, the JAX
-        # package divides by T*K as a product with its f32 reciprocal, and
-        # computes 1 - kept * reciprocal as one fused multiply-add (one
-        # rounding: the f64 product and difference below are exact), so a
-        # batch that drops nothing reads a dropped fraction of about -2e-8
-        # where T*K is no power of 2; the port gives the same values.
-        recip = dtype_const(1.0 / (T * K), torch.float32)
-        frac = counts.float() * recip
-        lb_loss = E * torch.sum(frac * probs.mean(0))
-        dropped = (1.0 - valid.sum().double() * recip).float()
+        frac, lb_loss, dropped = balance(slots.counts.float(), slots.kept.sum(), probs.mean(0), T * K, E)
     aux = {"lb_loss": lb_loss, "dropped_frac": dropped, "expert_frac": frac}
     return y.reshape(B, S, D), aux
+
+
+def balance(counts: torch.Tensor, kept: torch.Tensor, mean_prob: torch.Tensor, n_slots: int, E: int):
+    """-> (expert fractions, load-balance loss, dropped fraction) from the
+    slots each expert was sent (f32), the slots kept and the mean router
+    probabilities, over ``n_slots`` = T*K slots.
+
+    Switch-style load balancing: E * sum_e fraction_e * prob_e; the
+    fractions come from counts and carry no gradient. Compiled, the JAX
+    package divides by T*K as a product with its f32 reciprocal, and computes
+    1 - kept * reciprocal as one fused multiply-add (one rounding: the f64
+    product and difference below are exact), so a batch that drops nothing
+    reads a dropped fraction of about -2e-8 where T*K is no power of 2; the
+    port gives the same values."""
+    recip = dtype_const(1.0 / n_slots, torch.float32)
+    frac = counts * recip
+    lb_loss = E * torch.sum(frac * mean_prob)
+    dropped = (1.0 - kept.double() * recip).float()
+    return frac, lb_loss, dropped

@@ -31,13 +31,15 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.core.scope import scope as _scope
-from repro_torch.sharding.ctx import shard_activation
+from repro_torch.sharding.ctx import current_sharding_ctx, shard_activation, sharding_ctx
+from repro_torch.sharding.rules import axis_sizes
 
 from . import attention as attn_mod
 from . import rglru as rec_mod
 from . import xlstm as xlstm_mod
 from .mlp import mlp, mlp_spec
 from .moe import moe, moe_spec
+from .moe_shard_map import moe_shard_map
 from .modules import rms_norm, rms_norm_spec, stack_specs
 
 
@@ -145,12 +147,29 @@ def _residual_ffn(
     if ffn in ("mlp", "dense_mlp"):
         y = mlp(params["mlp"], rms_norm(params["norm2"], s, scope="pre_mlp_norm").to(x.dtype), act=cfg.act)
     elif ffn == "moe":
-        y, aux = moe(params["moe"], rms_norm(params["norm2"], s, scope="pre_moe_norm").to(x.dtype), cfg)
+        y, aux = _apply_moe(params["moe"], rms_norm(params["norm2"], s, scope="pre_moe_norm").to(x.dtype), cfg)
         lb = aux["lb_loss"]
     else:
         return x, s, lb
     s = x.float() + y.float()
     return shard_activation(s.to(x.dtype), ("batch", None, None)), s, lb
+
+
+def _apply_moe(params, h: torch.Tensor, cfg) -> tuple[torch.Tensor, dict]:
+    """The dense dispatch (``moe``) or the explicit expert-parallel MoE
+    (``moe_shard_map``), by the JAX package's rule: the latter where
+    ``cfg.moe_impl == "shard_map"``, a sharding context is installed, its
+    mesh has a ``model`` axis and the experts divide by it. The context's
+    mesh is a ``DeviceMesh`` over a process group, or a ``MeshShape`` on the
+    meta device; the data axes are its ``batch`` rule's."""
+    if cfg.moe_impl == "shard_map":
+        mesh, rules = current_sharding_ctx()
+        sizes = axis_sizes(mesh) if mesh is not None else {}
+        if "model" in sizes and cfg.n_experts % sizes["model"] == 0:
+            batch = rules.get("batch", ("data",))
+            data_axes = (batch,) if isinstance(batch, str) else tuple(batch)
+            return moe_shard_map(params, h, cfg, mesh=mesh, data_axes=data_axes)
+    return moe(params, h, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -218,12 +237,19 @@ def _unit(tree, i: int):
     return a.to(torch.bfloat16) if (a.dtype == torch.float32 and a.ndim >= 2) else a
 
 
-def _unit_apply(scan_params, u: int, x: torch.Tensor, cfg, positions: torch.Tensor):
+def _unit_apply(scan_params, u: int, x: torch.Tensor, cfg, positions: torch.Tensor, sharding=(None, None)):
     """Stacked unit ``u``, its weights sliced and cast inside, so that a
     checkpoint recomputes the bf16 copies instead of storing them. The f32
     residual sum is handed from block to block within the unit and returned
     with x, and the unit's load-balance losses are summed in block order
-    (-> (x, x_sum, lb), lb None without an MoE)."""
+    (-> (x, x_sum, lb), lb None without an MoE). ``sharding``: the
+    (mesh, rules) of the sharding context the forward ran under, installed
+    again for a checkpoint's recompute, which runs in the backward, outside
+    the caller's context and on autograd's thread (the expert-parallel MoE
+    and ``shard_activation`` read it)."""
+    if sharding[0] is not None and current_sharding_ctx()[0] is None:
+        with sharding_ctx(*sharding):
+            return _unit_apply(scan_params, u, x, cfg, positions)
     lay = StackLayout(cfg)
     unit_params = _unit(scan_params, u)
     x_sum, lb = None, None
@@ -288,7 +314,7 @@ def stack_apply(
                 x, x_sum, unit_lb = _unit_apply(params["scan"], u, x, cfg, positions)
             else:
                 with _scope("checkpoint"):
-                    x, x_sum, unit_lb = remat(params["scan"], u, x, cfg, positions)
+                    x, x_sum, unit_lb = remat(params["scan"], u, x, cfg, positions, current_sharding_ctx())
             lb = _add_lb(lb, unit_lb)
     if lay.n_units:
         x_sum = None

@@ -5,7 +5,8 @@ The input is the nested dict of numpy arrays that
 shapes and einsum layouts stay as they are (``wq (n, d, H, hd)``,
 ``wo (n, H, hd, d)``); only the storage dtype follows the port's rule
 (``models.modules.storage_dtype``), which changes no value the model
-computes with.
+computes with. :func:`expert_slice` cuts one model rank's routed experts
+out of whole parameters, for the expert-parallel MoE.
 """
 
 from __future__ import annotations
@@ -32,3 +33,26 @@ def params_from_numpy(tree: dict, cfg, device: str | torch.device, *, train: boo
         return torch.from_numpy(a).to(device=device, dtype=storage_dtype(path, a.ndim, train=train))
 
     return tree_map_with_path(convert, tree)
+
+
+def expert_slice(params: dict, spec: dict, m: int, n_model: int) -> dict:
+    """Model rank ``m`` of ``n_model``'s parameters for the expert-parallel
+    MoE (``models/moe_shard_map.py``): each leaf of ``spec`` (the tree's
+    ``ArraySpec``s, ``Model(cfg).spec()`` or a layer's ``moe_spec(cfg)``)
+    whose first axis past a stacked ``layers`` axis is ``expert`` (the routed
+    experts' ``wi``, ``wg``, ``wo``) cut to its m-th of ``n_model`` equal
+    slices, a copy; every other leaf, the router among them, is the same
+    tensor."""
+    specs = dict(tree_leaves(spec))
+
+    def cut(path, a):
+        logical = specs[path].logical
+        d = 1 if logical[0] == "layers" else 0
+        if logical[d] != "expert":
+            return a
+        n = a.shape[d] // n_model
+        if n * n_model != a.shape[d]:
+            raise ValueError(f"{'/'.join(path)}: {a.shape[d]} experts do not split over {n_model} model ranks")
+        return a.narrow(d, m * n, n).clone()
+
+    return tree_map_with_path(cut, params)

@@ -15,9 +15,13 @@ package's, and its plan against real CPU steps.
   qwen3-4b's ``tp_fsdp`` ranks together do 1.0-1.25 x the single device's
   work at the same global shape (the 8 KV heads, replicated over a model
   axis of 16, are the redundancy);
-* the options the port lacks fail naming the ROADMAP item; the CLI writes a
-  cell file per (arch, shape, mesh) with the JAX package's keys and exits 1
-  on a fail; ``roofline`` reads its files.
+* ``--moe-impl shard_map`` plans the expert-parallel MoE with its
+  all-to-all from the formula; ``--chunk-threshold`` changes no number;
+  ``--attn-cp`` divides the attention kernel's work by the model axis where
+  the query heads do not divide it (gemma-2b) and changes nothing where
+  they do (qwen3-4b); the CLI writes a cell file per (arch, shape, mesh)
+  with the JAX package's keys and exits 1 on a fail; ``roofline`` reads its
+  files.
 """
 
 from __future__ import annotations
@@ -42,11 +46,12 @@ from repro_torch.configs import SHAPES, ShapeSpec, get_config, list_archs  # noq
 from repro_torch.core.device_tree import tree_from_profile  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
-from repro_torch.launch.mesh import MeshShape  # noqa: E402
+from repro_torch.launch.mesh import MeshShape, make_production_mesh  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.modules import tree_leaves  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule  # noqa: E402
+from repro_torch.sharding import make_strategy  # noqa: E402
 
 ONE = MeshShape(("data", "model"), (1, 1))
 CELLS = [(a, s) for a in list_archs() for s in SHAPES]
@@ -191,11 +196,78 @@ def test_tp_fsdp_ranks_do_the_single_devices_work_with_the_kv_heads_replicated()
     assert sharded["roofline"]["t_collective_s"] > 0
 
 
-@pytest.mark.parametrize("kw,item", [({"moe_impl": "shard_map"}, "[15b]"), ({"attn_cp": True}, "[4]"),
-                                     ({"chunk_threshold": 4096}, "[4]")])
-def test_what_the_port_lacks_fails_naming_its_roadmap_item(kw, item):
-    cell = dryrun.run_cell("deepseek-moe-16b", "train_4k", False, verbose=False, **kw)
-    assert cell["status"] == "fail" and item in cell["error"] and "ROADMAP" in cell["error"]
+def _cut(arch: str, n_layers: int, **changes):
+    """A full-width config cut in depth (the plan's per-layer numbers are the full depth's)."""
+    return dataclasses.replace(get_config(arch), n_layers=n_layers, **changes)
+
+
+def _numbers(cell: dict) -> dict:
+    """A cell without its options and its own time: what a plan computes."""
+    return {k: v for k, v in cell.items() if k not in ("overrides", "trace_s")}
+
+
+def test_a_shard_map_cell_plans_the_expert_parallel_exchange():
+    """deepseek-moe-16b (1 dense + 2 MoE layers, remat "full") on 16 x 16:
+    each rank holds 64 / 16 experts and the router whole, and its
+    all-to-all is the module docstring's formula (the trace's own meta
+    exchange agrees, or the cell would fail)."""
+    from repro_torch.models.moe_shard_map import _local_capacity
+
+    cfg = _cut("deepseek-moe-16b", 3)
+    ep = dryrun.run_cell(cfg, "train_4k", False, moe_impl="shard_map", verbose=False)
+    dense = dryrun.run_cell(cfg, "train_4k", False, verbose=False)
+    assert ep["status"] == dense["status"] == "ok", ep.get("error")
+    assert ep["overrides"] == {"moe_impl": "shard_map"}
+    assert ep["local"]["n_experts"] == 4 and ep["local"]["experts_split"]
+    assert ep["memory_analysis"]["state_bytes"] == dense["memory_analysis"]["state_bytes"]
+    assert ep["kernel_calls"] == dense["kernel_calls"]
+    t_loc = SHAPES["train_4k"].seq_len * ep["local"]["batch"]
+    n, n_moe = 16, 2
+    passes = 2 * n_moe * 2 + 2 * n_moe  # forward, backward and the remat recompute, two exchanges each
+    want = 2 * cfg.n_experts * _local_capacity(t_loc, cfg) * cfg.d_model * (n - 1) / n * passes
+    assert ep["collectives"]["all-to-all"] == pytest.approx(want, rel=1e-12)
+    assert ep["collectives"]["all-to-all"] != dense["collectives"]["all-to-all"]
+
+
+def test_a_chunk_threshold_cell_equals_the_default_one():
+    cfg = _cut("gemma-2b", 2)
+    cell = dryrun.run_cell(cfg, "prefill_32k", False, chunk_threshold=4096, verbose=False)
+    default = dryrun.run_cell(cfg, "prefill_32k", False, verbose=False)
+    assert cell["status"] == "ok" and cell["overrides"] == {"chunk_threshold": 4096}
+    assert _numbers(cell) == _numbers(default)
+    assert dryrun.cell_file("gemma-2b", "prefill_32k", "16x16", "tp_fsdp", chunk_threshold=4096).endswith(
+        "__ct4096.json")
+
+
+def test_attn_cp_at_gemma_2b_divides_the_attention_kernels_work_by_the_model_axis():
+    """8 query heads do not divide 16: attention is replicated over model,
+    and attn_cp gives each rank 1/16 of its rows at S = 32768 > 8192."""
+    cfg = _cut("gemma-2b", 2)
+    cp = dryrun.run_cell(cfg, "prefill_32k", False, attn_cp=True, verbose=False)
+    base = dryrun.run_cell(cfg, "prefill_32k", False, verbose=False)
+    assert cp["status"] == base["status"] == "ok", cp.get("error")
+    assert not cp["local"]["attn_split"]
+    assert dryrun.local_plan(dataclasses.replace(cfg, attn_cp=True), make_strategy("tp_fsdp"),
+                             make_production_mesh(), 32, 32768).attn_share == 1 / 16
+    meta = torch.device("meta")
+    q = torch.empty((cp["local"]["batch"], 32768, cfg.n_heads, cfg.head_dim), dtype=torch.bfloat16, device=meta)
+    k = torch.empty((cp["local"]["batch"], 32768, cfg.n_kv_heads, cfg.head_dim), dtype=torch.bfloat16, device=meta)
+    flops, nbytes = ops.flash_work(q, k, True, cfg.window)
+    assert cp["kernel_calls"]["flash_attention"] == base["kernel_calls"]["flash_attention"] == 2
+    for metric, per_call in (("flops", flops), ("bytes", nbytes)):
+        saved = base["tree_metrics"][metric] - cp["tree_metrics"][metric]
+        assert saved == pytest.approx(2 * per_call * 15 / 16, rel=1e-9), metric
+    for key in ("memory_analysis", "collectives", "kernel_calls", "n_params"):
+        assert cp[key] == base[key], key
+
+
+def test_attn_cp_at_qwen3_4b_changes_nothing():
+    """32 query heads divide 16: attention is split by heads, as without attn_cp."""
+    cfg = _cut("qwen3-4b", 2)
+    cp = dryrun.run_cell(cfg, "prefill_32k", False, attn_cp=True, verbose=False)
+    base = dryrun.run_cell(cfg, "prefill_32k", False, verbose=False)
+    assert cp["status"] == "ok" and cp["local"]["attn_split"]
+    assert _numbers(cp) == _numbers(base)
 
 
 def test_the_cli_writes_jax_cells_that_roofline_reads(tmp_path, capsys):
@@ -222,6 +294,7 @@ def test_the_cli_writes_jax_cells_that_roofline_reads(tmp_path, capsys):
                                                "roofline_qwen3-4b_decode_32k_2x16x16", "roofline_summary"]
     assert rows[-1].endswith("ok=2;skip_by_rule=1;fail=0")
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "deepseek-moe-16b", "--shape", "train_4k", "--moe-impl", "shard_map", "--out", out])
+        dryrun.main(["--arch", "deepseek-moe-16b", "--shape", "train_4k", "--strategy", "no_such_strategy",
+                     "--out", out])
     assert e.value.code == 1
     assert roofline.RESULT_DIRS == [dryrun.DEFAULT_OUT]

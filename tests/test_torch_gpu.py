@@ -177,8 +177,9 @@ def _grad_close(got, want, dtype):
 FLASH_BWD_BLOCK_REL_L2 = {"f32": 1e-5, "bf16": 1e-2}
 
 
-def _flash_grad_close(got, want, dtype):
-    _grad_close(got, want, dtype)
+def _block_close(got, want, dtype):
+    """Every (batch, head, 64 rows) block of two (B, N, H, D) tensors within
+    FLASH_BWD_BLOCK_REL_L2 of ``dtype`` relative L2."""
     B, N, H, _ = want.shape
     sums = []
     for x in (got.float() - want.float(), want.float()):
@@ -187,6 +188,11 @@ def _flash_grad_close(got, want, dtype):
         sums.append(sq.unflatten(1, (-1, 64)).sum(dim=2))
     rel = float((sums[0] / sums[1].clamp_min(1e-30)).sqrt().max())  # a zero block must stay zero
     assert rel <= FLASH_BWD_BLOCK_REL_L2[dtype], rel
+
+
+def _flash_grad_close(got, want, dtype):
+    _grad_close(got, want, dtype)
+    _block_close(got, want, dtype)
 
 
 def _forward_for_bwd(q, k, v, **kw):
@@ -1271,3 +1277,65 @@ def test_graph_engines_equal_eager_on_full_width_qwen3(card):
     assert torch.equal(got[blockwise], got[eager_chain])
     want = {"flash_attention": 2, "flash_attention_wgmma": 2, "fused_rmsnorm": 9}
     assert all(p == want for p in per_step.values()), per_step
+
+
+# the flash kernels at 32k tokens against the xla path's chunked softmax on
+# f32 copies (``models/attention._attend_chunked``): (arch, S); B = 1
+LONG_FLASH = [("qwen3-4b", 32768), ("recurrentgemma-9b", 32768)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,S", LONG_FLASH)
+def test_flash_at_32k_against_the_chunked_oracle(card, arch, S):
+    from repro_torch.models.attention import _attend_chunked
+
+    cfg = get_config(arch)
+    g = torch.Generator(device=card).manual_seed(29)
+    q = torch.randn((1, S, cfg.n_heads, cfg.head_dim), generator=g, device=card).bfloat16()
+    k, v = (torch.randn((1, S, cfg.n_kv_heads, cfg.head_dim), generator=g, device=card).bfloat16() for _ in range(2))
+    do = torch.randn(q.shape, generator=g, device=card).bfloat16()
+    leaves = [a.float().requires_grad_(True) for a in (q, k, v)]
+    want = _attend_chunked(*leaves, cfg, window=cfg.window)
+    want.backward(do.float())
+    o, lse = ops.flash_attention(q, k, v, window=cfg.window, return_lse=True)
+    _close(o, want.detach(), "bf16")
+    # late rows read ~0.006, under the bf16 atol: each 64-row block is held
+    # relative to its own size, as chip_smoke.py's long_attention phase does
+    _block_close(o, want.detach(), "bf16")
+    for got, leaf in zip(ops.flash_attention_bwd(q, k, v, o, do, window=cfg.window, lse=lse), leaves):
+        _flash_grad_close(got, leaf.grad, "bf16")
+
+
+@pytest.mark.gpu
+def test_four_gloo_ranks_on_the_card_equal_the_simulation_to_the_bit(card, tmp_path):
+    """The expert-parallel MoE layer at smoke size: four spawned ranks, each
+    on the one card in a gloo group, against the one-process simulation of
+    the same ranks on the card, f32 and bf16, at the default capacity."""
+    import torch.multiprocessing as mp
+
+    import _torch_moe_ep_ranks as ranks
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    n = ranks.N_DATA * ranks.N_MODEL
+    procs = [ctx.Process(target=ranks.gloo_rank, args=(r, n, str(tmp_path / "store"), out, "cuda", False))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    try:
+        results = [out.get(timeout=180) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+    assert all(err is None for _, _, err in results), [err for _, _, err in results]
+    got = {r: res for r, res, _ in results}
+    for dtype in ranks.DTYPES:
+        ys, aux, grads = ranks.simulate_layer(dtype, device="cuda")
+        for r in range(n):
+            want = {"y": ys[r], **aux[r], **grads[r]}
+            for name, w in want.items():
+                w = w.detach().cpu()
+                bits = (w.view(torch.int16) if w.dtype == torch.bfloat16 else w).numpy()
+                np.testing.assert_array_equal(got[r]["layer"][str(dtype)][name], bits, err_msg=f"rank {r} {name}")
