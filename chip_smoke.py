@@ -183,8 +183,18 @@ then the training paths:
               dir (the device plane with the RMSNorm kernel's leaves, the
               merged plane, a folded tree that re-parses to tree.json's),
               ``export`` as folded, speedscope and html, ``check`` against
-              itself; then the serve CLI at qwen3-4b, full, with a daemon it
-              spawns; ~80 s;
+              itself; the static plane: ``python -m repro_torch.analysis
+              extract`` into the daemon's out dir once the trainer samples,
+              picked up mid-run (``static_plane`` true, STATIC_TREE_LOADED),
+              ``/tree?plane=static`` served live, then offline and by
+              ``export --plane static``; ``analysis coverage`` over the
+              profile (``train_step`` and ``_slstm`` covered, no drift entry
+              that names a function: a class body, run at import under its
+              class's name, is the one kind allowed), ``analysis check``
+              against the committed baseline and ``analysis fixtures``, both
+              0; prints the extractor's counts, the coverage by subpackage,
+              the ten hot defs and the drift; then the serve CLI at qwen3-4b,
+              full, with a daemon it spawns; ~90 s;
    launcher -- the port's ``Launcher`` over xlstm-125m at full width (a
               ``TrainJobConfig`` with a checkpoint every 2 steps, B 8 x S 64, 4
               steps), one shared daemon, the in-process aggregator, the merged
@@ -1698,6 +1708,7 @@ def trainer_phase(torch, ops, dev) -> dict:
 PROFILERD_TRAIN = ("--full", "--steps", "4", "--no-resume")
 PROFILERD_SERVE = ("--arch", "qwen3-4b", "--full", "--profile", "--backend", "daemon")
 PROFILERD_TIMEOUT_S = 600
+STATIC_Q = "/tree?plane=static&fmt=folded"
 # Libraries the daemon must never map: it imports no torch and touches no card.
 DAEMON_FORBIDDEN_LIBS = ("libtorch", "libc10", "libcuda", "libcudart")
 
@@ -1796,7 +1807,7 @@ def offline_queries(d: Path, env: dict, tmp: Path, tree) -> tuple[dict, dict]:
             time.sleep(0.1)
         got = {q: http_get(url + q) for q in ("/tree?fmt=folded", "/tree?plane=device&fmt=folded",
                                               "/tree?plane=device&fmt=json", "/tree?plane=merged&fmt=folded",
-                                              "/tree?plane=merged&fmt=json")}
+                                              "/tree?plane=merged&fmt=json", STATIC_Q)}
     finally:
         server.terminate()
         server.wait(timeout=30)
@@ -1815,6 +1826,9 @@ def offline_queries(d: Path, env: dict, tmp: Path, tree) -> tuple[dict, dict]:
         out = tmp / f"export.{fmt}"
         rc = profilerd_cli(["export", str(d), "--fmt", fmt, "--out", str(out)], env)
         exports[fmt] = {"rc": rc, "bytes": out.stat().st_size if out.exists() else 0}
+    out = tmp / "export.static.folded"
+    rc = profilerd_cli(["export", str(d), "--plane", "static", "--fmt", "folded", "--out", str(out)], env)
+    exports["static_folded"] = {"rc": rc, "bytes": out.stat().st_size if out.exists() else 0}
     check_rc = profilerd_cli(["check", str(d), "--baseline", str(d)], env)
 
     def samples(t) -> dict:
@@ -1823,7 +1837,8 @@ def offline_queries(d: Path, env: dict, tmp: Path, tree) -> tuple[dict, dict]:
     numbers = {"offline": {q: {"code": c, "ms": ms, "bytes": len(b)} for q, (c, b, ms) in got.items()},
                "device_plane_kernel_leaves": kernel_leaves, "exports": exports, "check_rc": check_rc}
     checks = {
-        "served_device_and_merged": all(got[q][0] == 200 for q in got),
+        "served_device_and_merged": all(got[q][0] == 200 for q in got if q != STATIC_Q),
+        "served_static_offline": got[STATIC_Q][0] == 200,
         "device_plane_holds_rmsnorm": {"kernel:fused_rmsnorm", "kernel:fused_rmsnorm_bwd"} <= set(kernel_leaves),
         "folded_reparses_to_tree_json": reparsed is not None and samples(reparsed) == samples(tree),
         "exports": all(e["rc"] == 0 and e["bytes"] > 0 for e in exports.values()),
@@ -1832,7 +1847,74 @@ def offline_queries(d: Path, env: dict, tmp: Path, tree) -> tuple[dict, dict]:
     return numbers, checks
 
 
-def profilerd_phase() -> dict:
+def drop_static_tree(d: Path, env: dict) -> dict:
+    """``python -m repro_torch.analysis extract --out <d>``: the port's static
+    tree into a running daemon's out dir. -> its exit code and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "extract", "--out", str(d)], env=env,
+                          capture_output=True, text=True, timeout=120)
+    return {"rc": proc.returncode, "cli_s": time.perf_counter() - t0, "stderr": proc.stderr[-2000:]}
+
+
+def analysis_cli(args: list[str], env: dict) -> tuple[int, str]:
+    """``python -m repro_torch.analysis <args>`` from the checkout's root:
+    (exit code, standard output)."""
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis", *args], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    return proc.returncode, proc.stdout
+
+
+def static_plane_report(d: Path, env: dict) -> tuple[dict, dict]:
+    """After the train CLI profiled by the daemon of (a): ``analysis
+    coverage`` over its out dir (the static tree dropped there mid-run),
+    the cold defs by top-level subpackage, the hot ten, every drift entry and
+    whether it names a class (a class body, run at import under its class's
+    name) or a function; ``analysis check`` against the committed baseline
+    and ``analysis fixtures``. -> (numbers, checks)."""
+    from repro_torch.analysis.static_tree import load_static_tree, static_meta
+
+    t0 = time.perf_counter()
+    static = load_static_tree(str(d / "static_tree.json"))
+    meta = static_meta(str(d / "static_tree.json"))
+    cov_rc, cov_out = analysis_cli(["coverage", "--profile", str(d), "--json"], env)
+    report = json.loads(cov_out) if cov_rc == 0 else {"cold": [], "drift": [], "hot": [], "defs": 0, "covered": 0}
+    classes, by_sub = set(), {}
+    for frame, mod in static.root.children.items():
+        parts = frame.removeprefix("mod::").split(".")
+        names = by_sub.setdefault(parts[1] if len(parts) > 2 else "<top>", set())
+        for _, n in mod.walk():
+            if n.name.startswith("cls::"):
+                classes.add(n.name.removeprefix("cls::"))
+            elif n.name.startswith("repro::") and n.metrics.get("defs", 0.0) > 0.0:
+                names.add(n.name.removeprefix("repro::"))
+    defs = set().union(*by_sub.values())
+    cold = {e["name"] for e in report["cold"]}
+    drift = [{**e, "is": "class" if e["name"] in classes else "function"} for e in report["drift"]]
+    check_rc, check_out = analysis_cli(["check", "--root", "src/repro_torch",
+                                        "--baseline", "tests/data/analysis_baseline_torch.json"], env)
+    fixtures_rc, fixtures_out = analysis_cli(["fixtures", "--dir", "tests/data/analysis_fixtures_torch"], env)
+    numbers = {
+        "extract": {k: meta.get(k) for k in ("modules", "defs", "edges")},
+        "coverage": {"rc": cov_rc, "covered": report["covered"], "defs": report["defs"],
+                     "share": report["covered"] / max(report["defs"], 1),
+                     "cold_by_subpackage": {sub: f"{len(names & cold)}/{len(names)}"
+                                            for sub, names in sorted(by_sub.items())}},
+        "hot": [(e["name"], e["mass"]) for e in report["hot"]],
+        "drift": drift,
+        "check": {"rc": check_rc, "out": check_out.strip().splitlines()[:3]},
+        "fixtures": {"rc": fixtures_rc, "out": fixtures_out.strip().splitlines()},
+        "report_s": time.perf_counter() - t0,
+    }
+    checks = {
+        "coverage_cli": cov_rc == 0 and report["defs"] == len(defs) > 0,
+        "coverage_holds_train_step_and_slstm": {"train_step", "_slstm"} <= defs - cold,
+        "no_drift_naming_a_function": not any(e["is"] == "function" for e in drift),
+        "analysis_check_and_fixtures": check_rc == 0 and fixtures_rc == 0,
+    }
+    return numbers, checks
+
+
+def profilerd_phase(smi: str) -> dict:
     """The out-of-process profiling daemon on the card: (a) ``python -m
     repro_torch.profilerd attach`` started first as its own process, then the
     train CLI at full width (xlstm-125m, B 8 x S 64, 4 steps) with
@@ -1850,7 +1932,11 @@ def profilerd_phase() -> dict:
     thread, the live server answered both queries, the offline server the
     device plane (with the RMSNorm kernel's leaves) and the merged plane, its
     folded tree re-parses to tree.json's, the exports and the self-check exit
-    0, and (b) exits 0 with samples and a daemon that finished.
+    0, the static plane dropped mid-run was loaded and served live and
+    offline, its coverage holds the train step and the sLSTM loop with no
+    drift naming a function, ``analysis check`` and ``fixtures`` exit 0
+    (``static_plane_report``), and (b) exits 0 with samples and a daemon that
+    finished.
     -> the kernel launches of the two runs (their CLIs' ``kernel_launches``)."""
     from repro_torch.core.calltree import CallTree
     from repro_torch.core.device_tree import load_device_tree
@@ -1873,6 +1959,9 @@ def profilerd_phase() -> dict:
         backlog = []  # the daemon's drain lag: bytes in the spool not yet drained, at each poll
         live = {"/status": [], "/tree?fmt=folded": []}  # the live query plane: (code, ms) a poll
         live_url = None
+        dropped = None  # the static tree's extract, run into d once the trainer samples
+        live_static = []  # /tree?plane=static: (code, ms) a poll once the daemon loaded it
+        static_loaded = False
         with open(tmp / "daemon.log", "w") as dlog, open(tmp / "train.out", "w") as tlog, \
                 open(tmp / "train.err", "w") as terr:
             daemon = subprocess.Popen([sys.executable, "-m", *attach], env=env, stdout=dlog,
@@ -1885,15 +1974,23 @@ def profilerd_phase() -> dict:
                     files = mapped_files(daemon.pid)
                     maps_reads += bool(files)
                     mapped |= files
+                    st = {}
                     with contextlib.suppress(OSError, ValueError):
-                        backlog += [t["backlog_bytes"] for t in
-                                    json.loads((d / "status.json").read_text())["targets"].values()]
+                        st = json.loads((d / "status.json").read_text())
+                        backlog += [t["backlog_bytes"] for t in st["targets"].values()]
+                    if dropped is None and st.get("n_stacks", 0) > 0:
+                        dropped = drop_static_tree(d, env)
+                    static_loaded = static_loaded or bool(st.get("static_plane"))
                     live_url = live_url or served_url(tmp / "daemon.log", "live query plane: ")
                     if live_url is not None:
                         for q, polls in live.items():
                             with contextlib.suppress(OSError):
                                 code, _, ms = http_get(live_url + q, timeout=5.0)
                                 polls.append((code, ms))
+                        if static_loaded:
+                            with contextlib.suppress(OSError):
+                                code, _, ms = http_get(live_url + STATIC_Q, timeout=5.0)
+                                live_static.append((code, ms))
                     time.sleep(0.5)
                 daemon_rc = daemon.wait(timeout=120)
             finally:
@@ -1951,7 +2048,8 @@ def profilerd_phase() -> dict:
             "daemon_maps_reads": maps_reads, "daemon_mapped_files": len(mapped), "daemon_forbidden_libs": forbidden,
             "live_server": {"url_seen": live_url is not None,
                             **{q: {"ok": sum(c == 200 for c, _ in polls), **ms_summary([ms for _, ms in polls])}
-                               for q, polls in live.items()}},
+                               for q, polls in {**live, STATIC_Q: live_static}.items()}},
+            "static_tree_dropped": dropped, "static_plane": status.get("static_plane"),
         }
         checks_a = {
             "exit_codes": train_rc == 0 and daemon_rc == 0,
@@ -1964,10 +2062,21 @@ def profilerd_phase() -> dict:
             "stalls_resolved": not unresolved_stall,
             "no_backward_frames_under_main": backward.get("thread::MainThread", 0.0) == 0.0,
             "live_server_answered": all(polls and all(c == 200 for c, _ in polls) for polls in live.values()),
+            "static_tree_loaded_mid_run": dropped is not None and dropped["rc"] == 0
+            and status.get("static_plane") is True and any(e["kind"] == "STATIC_TREE_LOADED" for e in events),
+            "static_plane_served_live": bool(live_static) and all(c == 200 for c, _ in live_static),
         }
         served, served_checks = offline_queries(d, env, tmp, tree)
         a["served"] = served
         checks_a.update(served_checks)
+        if (d / "static_tree.json").exists():
+            static_numbers, static_checks = static_plane_report(d, env)
+        else:
+            static_numbers, static_checks = {}, {"static_plane_report": False}
+        checks_a.update(static_checks)
+        static_numbers["extract"] = {**static_numbers.get("extract", {}),
+                                     "cli_s": dropped["cli_s"] if dropped else None}
+        emit("static_plane", card=smi, **static_numbers)
         for name, n in summary.get("kernel_launches", {}).items():
             launches[name] = launches.get(name, 0) + n
 
@@ -3209,7 +3318,7 @@ def main() -> int:
                 lambda: train_phase(torch, get_config, ops, dev, TRAIN_XLSTM),
                 lambda: dryrun_phase(torch),
                 lambda: trainer_phase(torch, ops, dev),
-                lambda: profilerd_phase(),
+                lambda: profilerd_phase(smi),
                 lambda: launcher_phase(),
                 lambda: faults_phase(torch, kind),
                 lambda: ep_moe_phase(torch, get_config, dev, smi)):

@@ -89,8 +89,7 @@ def missing_static_hint(profile: str | None = None) -> str:
     where = f"beside the profile ({profile})" if profile else "beside the profile"
     return (
         f"no static plane: expected a {STATIC_TREE_FILENAME} artifact {where}. "
-        f"The port has no static-plane extractor yet; the JAX package's writes one with "
-        f"`python -m repro.analysis extract --out <profile>/{STATIC_TREE_FILENAME}`."
+        f"Generate one with `python -m repro_torch.analysis extract --out <profile>/{STATIC_TREE_FILENAME}`."
     )
 
 

@@ -31,9 +31,10 @@ daemon maps neither torch nor CUDA into its process. The device tree is read
 with ``repro_torch.core.device_tree.load_device_tree`` and the fleet epochs
 are annotated by ``repro_torch.core.planes.annotate_tree`` against the H100.
 The live HTTP query plane (``serve_port``, :meth:`ProfilerDaemon.enable_serving`)
-and the push plane (``push_url``) are the JAX package's. The static
-call-graph plane has no loader in the port yet (ROADMAP Queue 1 item 21):
-``status.json`` keeps its ``static_plane`` key, always false.
+and the push plane (``push_url``) are the JAX package's, and so is the
+static call-graph plane: a ``static_tree.json`` dropped into the out dir
+(``python -m repro_torch.analysis extract --out <out>``), read by
+``repro_torch.analysis.static_tree``, which imports no torch either.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from repro_torch.core.detector import Rule, TrendRule
 from repro_torch.core.snapshot import EpochMeta, TimelineWriter
 
 from .pipeline import merge_ingest_stats
-from .profiles import DEVICE_TREE_FILENAME, TARGETS_DIRNAME, TIMELINE_DIRNAME
+from .profiles import DEVICE_TREE_FILENAME, STATIC_TREE_FILENAME, TARGETS_DIRNAME, TIMELINE_DIRNAME
 from .sources import RESUMED, STALLED, SpoolSet, SpoolSource, _pid_alive, source_name_for
 from .spool import SpoolError, SpoolReader, _ShortHeader
 
@@ -312,6 +313,11 @@ class ProfilerDaemon:
         self._device_tree: CallTree | None = None
         self._device_tree_mtime = -1.0
         self._device_tree_error: str | None = None
+        # Static call-graph plane: discovered beside the out dir, same
+        # lazy-artifact lifecycle as the device plane (_refresh_static_tree).
+        self._static_tree: CallTree | None = None
+        self._static_tree_mtime = -1.0
+        self._static_tree_error: str | None = None
         # Fleet timeline ring (multi mode): per-target rings are sealed by
         # each source's CountSealer; the fleet ring is merged at seal time.
         # Solo mode with an explicit device tree also takes this path — the
@@ -660,6 +666,45 @@ class ProfilerDaemon:
              "call_sites": tree.node_count(), "wall_time": time.time()}
         )
 
+    def _refresh_static_tree(self) -> None:
+        """Pick up the static call-graph artifact, possibly dropped mid-run.
+
+        ``python -m repro_torch.analysis extract --out <out_dir>/static_tree.json``
+        (an operator, or CI) drops the artifact at any point; one
+        existence/mtime probe per publish window hands it to the live query
+        plane so ``/tree?plane=static`` works without a daemon restart.
+        """
+        path = os.path.join(self.out_dir, STATIC_TREE_FILENAME)
+        if not os.path.exists(path):
+            return
+        try:
+            mtime = os.path.getmtime(path)
+        except OSError:
+            return
+        if self._static_tree is not None and mtime <= self._static_tree_mtime:
+            return
+        from repro_torch.analysis.static_tree import load_static_tree
+
+        try:
+            tree = load_static_tree(path)
+        except (OSError, ValueError, KeyError) as e:
+            if self._static_tree_error != str(e):  # log each distinct failure once
+                self._static_tree_error = str(e)
+                self._record_event(
+                    {"kind": "STATIC_TREE_UNREADABLE", "path": path,
+                     "error": str(e), "wall_time": time.time()}
+                )
+            return
+        self._static_tree = tree
+        self._static_tree_mtime = mtime
+        self._static_tree_error = None
+        if self.shared is not None:
+            self.shared.set_static_tree(tree)
+        self._record_event(
+            {"kind": "STATIC_TREE_LOADED", "path": path,
+             "call_sites": tree.node_count(), "wall_time": time.time()}
+        )
+
     def seal_epoch(self) -> None:
         """Seal the current window into the timeline ring(s) + trend rules.
 
@@ -673,6 +718,7 @@ class ProfilerDaemon:
         # A short run can seal its only epoch before the first publish window
         # ever fires — the artifact must still be picked up here.
         self._refresh_device_tree()
+        self._refresh_static_tree()
         wall = time.time()
         for s in self.sources:
             try:
@@ -867,6 +913,8 @@ class ProfilerDaemon:
         self.shared = SharedProfileState()
         if self._device_tree is not None:
             self.shared.set_device_tree(self._device_tree)
+        if self._static_tree is not None:
+            self.shared.set_static_tree(self._static_tree)
         tdir = self.cfg.resolved_timeline_dir() if self.cfg.epoch_s > 0 else None
         label = f"pid={self.target_pid or '?'}" if self.solo else f"fleet:{self.out_dir}"
         source = LiveSource(
@@ -874,7 +922,6 @@ class ProfilerDaemon:
             timeline_dir=tdir,
             label=label,
             target_timeline_dir_fn=None if self.solo else self._target_timeline_dir,
-            profile_dir=self.out_dir,
         )
         self.server = ProfileServer(
             source,
@@ -895,6 +942,7 @@ class ProfilerDaemon:
     def publish(self) -> None:
         """One analysis window: detector verdicts + status/tree artifacts."""
         self._refresh_device_tree()
+        self._refresh_static_tree()
         changed = []
         for s in self.sources:
             snap = s.publish_window()
@@ -1013,8 +1061,7 @@ class ProfilerDaemon:
                 for row in self.spools.attach_failure_rows()
             ],
             "device_plane": self._device_tree is not None,
-            # The static plane has no loader in the port: its key stays.
-            "static_plane": False,
+            "static_plane": self._static_tree is not None,
             "node": self._push.node if self._push is not None else None,
             "push": self._push.stats() if self._push is not None else None,
             "targets": {s.name: s.status_row() for s in srcs},

@@ -9,20 +9,17 @@ HTTP server's offline mode.  A "profile" is any of:
 * a ``tree.json`` dump (``CallTree.to_json`` schema);
 * a binary ``.snap`` snapshot (``repro_torch.core.snapshot.save_snapshot``).
 
-Beside a profile it finds the device-plane artifact (``device_tree.json``,
-read by ``repro_torch.core.device_tree.load_device_tree``, no torch). A copy
-of ``repro.profilerd.profiles`` but for the static call-graph plane, whose
-loader comes with ROADMAP Queue 1 item 21: a present ``static_tree.json``
-raises :class:`StaticPlaneNotPorted`, which every reader of a plane turns
-into its "no such plane" answer (HTTP 404, exit 4), never a crash.
+A copy of ``repro.profilerd.profiles``. Beside a profile it finds the
+device-plane artifact (``device_tree.json``, read by
+``repro_torch.core.device_tree.load_device_tree``) and the static call-graph
+artifact (``static_tree.json``, read by
+``repro_torch.analysis.static_tree.load_static_tree``); neither loads torch.
 """
 
 from __future__ import annotations
 
 import json
 import os
-
-from repro_torch.core.planes import PlaneError
 
 TIMELINE_DIRNAME = "timeline"
 TARGETS_DIRNAME = "targets"  # multi-target daemon: per-target artifact dirs
@@ -33,10 +30,6 @@ REGION_FILENAME = "region.json"  # aggregator out dir: region -> node -> target 
 
 class ProfileLoadError(RuntimeError):
     pass
-
-
-class StaticPlaneNotPorted(PlaneError, NotImplementedError):
-    """A ``static_tree.json`` exists, but the port cannot read it yet."""
 
 
 def load_profile(path: str):
@@ -193,15 +186,18 @@ def static_tree_path(path: str, target: str | None = None):
 
 
 def load_static_plane(path: str, target: str | None = None):
-    """The static call-graph CallTree beside a profile: None when absent. The
-    port has no static-tree loader yet, so a present artifact raises
-    :class:`StaticPlaneNotPorted`."""
+    """The static call-graph CallTree beside a profile: None when absent,
+    raises :class:`ProfileLoadError` when present but unreadable (never a
+    vacuous empty tree — same contract as the device plane)."""
+    from repro_torch.analysis.static_tree import load_static_tree
+
     p = static_tree_path(path, target)
     if p is None:
         return None
-    raise StaticPlaneNotPorted(
-        f"{p}: the static-tree loader (repro.analysis.static_tree) is not ported yet: ROADMAP Queue 1 [21]"
-    )
+    try:
+        return load_static_tree(p)
+    except (OSError, ValueError, KeyError) as e:
+        raise ProfileLoadError(f"{p}: unreadable static tree: {e}") from None
 
 
 def load_region(path: str):

@@ -33,9 +33,8 @@ the refreshing terminal view behind ``profilerd top``.
 A copy of ``repro.profilerd.server`` with the same endpoints, parameters,
 status codes and bodies.  ``plane=device|merged`` read the port's device
 tree (``device_tree.json``, the trainer's profiled step) and annotate
-against the H100.  ``plane=static`` answers 404 where no
-``static_tree.json`` exists, as the JAX server does, and 404 naming ROADMAP
-Queue 1 item 21 where one exists: the port has no loader for it yet.
+against the H100; ``plane=static`` reads ``static_tree.json``
+(``python -m repro_torch.analysis extract``).
 """
 
 from __future__ import annotations
@@ -160,14 +159,11 @@ class LiveSource:
         timeline_dir: str | None = None,
         label: str = "live",
         target_timeline_dir_fn=None,
-        profile_dir: str | None = None,
     ):
         self.shared = shared
         self._timeline_dir = timeline_dir
         self._target_timeline_dir_fn = target_timeline_dir_fn
         self.label = label
-        # The daemon's out dir: where a static_tree.json would be dropped.
-        self._profile_dir = profile_dir
 
     def status(self) -> dict:
         status, _ = self.shared.snapshot()
@@ -228,12 +224,7 @@ class LiveSource:
 
     def static_tree(self, target: str | None = None) -> CallTree | None:
         # One static artifact per fleet: every target runs the same source.
-        # The port's daemon loads none, so a dropped artifact raises
-        # StaticPlaneNotPorted here, as the offline source does.
-        tree = self.shared.static_tree()
-        if tree is None and self._profile_dir is not None:
-            tree = load_static_plane(self._profile_dir)
-        return tree
+        return self.shared.static_tree()
 
     def timeline_dir(self, target: str | None = None) -> str | None:
         if target is None:
@@ -581,15 +572,13 @@ class _Handler(BaseHTTPRequestHandler):
             return tree
         source = self.server.source
         device = static = None
+        if plane == "static":
+            getter = getattr(source, "static_tree", None)
+            static = getter(target) if getter is not None else None
+        else:
+            getter = getattr(source, "device_tree", None)
+            device = getter(target) if getter is not None else None
         try:
-            if plane == "static":
-                # Inside the try: the port's static loader raises a
-                # PlaneError where an artifact exists (ROADMAP Queue 1 [21]).
-                getter = getattr(source, "static_tree", None)
-                static = getter(target) if getter is not None else None
-            else:
-                getter = getattr(source, "device_tree", None)
-                device = getter(target) if getter is not None else None
             return select_plane(
                 tree, device, plane, profile=getattr(source, "path", None), static=static
             )

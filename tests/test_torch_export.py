@@ -931,7 +931,7 @@ def test_both_servers_answer_the_same_over_one_offline_profile(tmp_path):
         merged = {name: json.loads(_get_any(s.url + "/tree?plane=merged&fmt=json")[1]) for name, s in servers.items()}
         assert _mask_roofline(merged["port"]) == _mask_roofline(merged["jax"])
         assert any(k.startswith("hlo_") for k in json.dumps(merged["port"]).split('"'))
-        # a static plane with no artifact: the same 404, the remedy hints differ (the port has no extractor)
+        # a static plane with no artifact: the same 404, the remedy hints name each package's extractor
         codes = {name: _get_any(s.url + "/tree?plane=static")[0] for name, s in servers.items()}
         assert codes == {"port": 404, "jax": 404}
     finally:
@@ -940,18 +940,43 @@ def test_both_servers_answer_the_same_over_one_offline_profile(tmp_path):
 
 
 def test_the_port_answers_404_naming_the_roadmap_where_a_static_tree_exists(tmp_path):
+    """A static tree the port's extractor wrote beside a fleet profile is
+    served (``/tree`` and ``/diff`` with ``plane=static``) and exported; a
+    garbage one (``{}``) is unreadable: 404 "profile unreadable" from the
+    server and ``EXIT_UNREADABLE`` from ``export``, as the JAX package
+    answers."""
+    from repro_torch.analysis.extract import extract_to_file
+
     d = _fleet_dir(tmp_path)
-    with open(os.path.join(d, "static_tree.json"), "w") as f:
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "alpha.py").write_text("def outer():\n    return inner()\n\n\ndef inner():\n    return 1\n")
+    static = os.path.join(d, "static_tree.json")
+    extract_to_file(static, root=str(pkg), package="pkg")
+    queries = ("/tree?plane=static", "/tree?plane=static&fmt=folded", f"/diff?plane=static&baseline={d}")
+    server = ProfileServer(OfflineSource(d)).start()
+    try:
+        for q in queries:
+            code, body = _get_any(server.url + q)
+            assert code == 200, (q, code, body)
+        assert "mod::pkg.alpha;repro::outer" in _get_any(server.url + "/tree?plane=static&fmt=folded")[1]
+    finally:
+        server.stop()
+    out = tmp_path / "static.folded"
+    assert main(["export", d, "--plane", "static", "--fmt", "folded", "--out", str(out)]) == 0
+    assert "mod::pkg.alpha;repro::outer 1.0" in out.read_text()
+
+    with open(static, "w") as f:
         f.write("{}")
     server = ProfileServer(OfflineSource(d)).start()
     try:
-        for q in ("/tree?plane=static", "/tree?plane=static&fmt=folded",
-                  f"/diff?plane=static&baseline={d}"):
+        for q in queries:
             code, body = _get_any(server.url + q)
-            assert code == 404 and "ROADMAP Queue 1 [21]" in body, (q, code, body)
+            assert code == 404 and body.startswith("profile unreadable") and "unreadable static tree" in body, (
+                q, code, body)
     finally:
         server.stop()
-    assert main(["export", d, "--plane", "static"]) == EXIT_NO_MATCH
+    assert main(["export", d, "--plane", "static"]) == EXIT_UNREADABLE
 
 
 def _get_any(url: str) -> tuple[int, str]:

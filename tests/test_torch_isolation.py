@@ -117,3 +117,57 @@ def test_a_dry_run_plan_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize(
+    "run",
+    [
+        "import runpy; sys.argv = ['analysis', 'lint', '--root', 'src/repro_torch']\n"
+        "try: runpy.run_module('repro_torch.analysis', run_name='__main__')\n"
+        "except SystemExit as e: assert e.code == 0, e.code",
+        "import repro_torch.analysis.coverage",
+        "import repro_torch.analysis, repro_torch.analysis.extract, repro_torch.analysis.lint, "
+        "repro_torch.analysis.baseline, repro_torch.analysis.score, repro_torch.analysis.static_tree",
+    ],
+    ids=["lint-cli", "import-coverage", "import-analysis"],
+)
+def test_the_static_plane_loads_no_torch_numpy_or_jax(run):
+    """``python -m repro_torch.analysis lint`` over the port and the analysis
+    modules load no torch, no numpy, no JAX and nothing of the JAX package:
+    the static plane runs on a bare interpreter."""
+    code = (f"import sys\n{run}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'numpy', 'jax', 'repro')))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_the_daemon_with_a_static_tree_loaded_loads_no_torch(tmp_path):
+    """``profilerd attach`` over a finished spool, with the port's static
+    tree in its out dir: status.json reads ``static_plane`` true, and the
+    daemon's interpreter holds no torch, JAX or JAX package."""
+    code = (
+        "import json, os, runpy, sys\n"
+        "from repro_torch.analysis.extract import extract_to_file\n"
+        "from repro_torch.profilerd.spool import SpoolWriter\n"
+        "from repro_torch.profilerd.wire import Encoder, RawFrame, RawSample\n"
+        "os.makedirs('s.spool.d')\n"
+        "extract_to_file('s.spool.d/static_tree.json')\n"
+        "w, enc = SpoolWriter('s.spool', capacity=1 << 16), Encoder()\n"
+        "w.write(enc.encode_hello(os.getpid(), 0.01))\n"
+        "w.write(enc.encode_tick([RawSample(0.0, 1, 'w', [RawFrame('/fake/app.py', 'main', 1)])])[0])\n"
+        "w.write_bye(enc.encode_bye(1))\n"
+        "w.close()\n"
+        "sys.argv = ['profilerd', 'attach', '--spool', 's.spool', '--max-seconds', '30']\n"
+        "try: runpy.run_module('repro_torch.profilerd', run_name='__main__')\n"
+        "except SystemExit as e: assert e.code == 0, e.code\n"
+        "assert json.load(open('s.spool.d/status.json'))['static_plane'] is True\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'repro')))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120,
+                         cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -25,7 +25,7 @@ equal worker subtrees and ``status.json`` key sets; the resolvers give the
 same symbols but for the stated origin labels. Then the CLIs: the
 ``Trainer`` and the serve CLI on the daemon backend, the event registry,
 the query and push planes a daemon starts, and the static plane's loader,
-which is not ported yet, raising.
+which reads the extractor's artifact and raises on a garbage one.
 
 The multi-target class (``TestMultiTargetDaemon``) is the JAX package's
 serve and fleet tests pointed at the port: live and offline servers over a
@@ -1479,11 +1479,20 @@ def test_attach_serve_exits_2_naming_the_roadmap_item(tmp_path):
 
 
 def test_static_tree_loader_raises_where_an_artifact_exists(tmp_path):
-    from repro_torch.profilerd.profiles import load_static_plane
+    """No artifact: None. The extractor's artifact loads; a garbage one
+    (``{}``, no root) raises ``ProfileLoadError``, never an empty tree."""
+    from repro_torch.analysis.extract import extract_to_file
+    from repro_torch.profilerd.profiles import ProfileLoadError, load_static_plane
 
     assert load_static_plane(str(tmp_path)) is None
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "mod.py").write_text("def f():\n    return g()\n\n\ndef g():\n    return 0\n")
+    extract_to_file(str(tmp_path / "static_tree.json"), root=str(pkg), package="pkg")
+    tree = load_static_plane(str(tmp_path))
+    assert tree.flatten("defs") == {"mod::pkg.mod": 2.0, "repro::f": 1.0, "repro::g": 1.0}
     (tmp_path / "static_tree.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 \[21\]"):
+    with pytest.raises(ProfileLoadError, match="unreadable static tree"):
         load_static_plane(str(tmp_path))
 
 
